@@ -1,0 +1,1 @@
+"""data of the PyTorch port (see dreammesh4d_tpu/data)."""

@@ -1,0 +1,1 @@
+"""export of the PyTorch port (see dreammesh4d_tpu/export)."""

@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see dreammesh4d_tpu/models)."""

@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (see dreammesh4d_tpu/ops)."""

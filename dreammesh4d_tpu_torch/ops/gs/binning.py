@@ -1,0 +1,144 @@
+"""Tile binning for the Gaussian rasterizer (counterpart of the pair path of
+``dreammesh4d_tpu/ops/gs/binning.py``: ``_tile_cull`` :60,
+``_expand_pairs_mn`` :109, ``bin_gaussians_pairs`` :220).
+
+Every Gaussian emits up to ``max_tiles_per_gaussian`` (tile, depth, id)
+pairs — its tile AABB enumerated row-major, each pair kept only if the
+Gaussian can reach alpha ≥ 1/255 inside the tile (exact ellipse–rectangle
+cull).  One sort over the packed key ``tile << 20 | quantized depth`` groups
+the pairs by tile, front to back; per-tile segment starts and counts come
+from a binary search on the sorted keys.  Keys are int64 here (the JAX
+package packs them into int32).  The sort is unstable by contract: pairs
+with the same tile and quantized depth come out in any order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+TILE = 16  # default pixels per tile side
+
+
+class PairAssignment(NamedTuple):
+    """Sorted pair array and its per-tile segments."""
+
+    sorted_gauss: torch.Tensor  # (N*M,) int32 Gaussian ids, grouped by tile, front to back; N = invalid
+    starts: torch.Tensor  # (T,) int32 segment starts
+    counts: torch.Tensor  # (T,) int32 segment lengths (before any capacity cut)
+    sorted_keys: torch.Tensor  # (N*M,) int64 packed tile << depth_bits | qdepth
+
+
+def num_tiles(W: int, H: int, tile: int = TILE) -> tuple[int, int]:
+    return (W + tile - 1) // tile, (H + tile - 1) // tile
+
+
+def _tile_cull(tile_x, tile_y, mx, my, conics, opacities, tile=TILE):
+    """True where the pair provably contributes alpha < 1/255 (or power <
+    −4.5) on EVERY pixel of the tile.  The max of alpha over the tile rect
+    is op·exp(−minQ/2) with minQ the min of the conic quadratic over the
+    rect: 0 if the mean lies inside, else the min over the four edges (each
+    a 1-D quadratic with a clamped closed-form argmin)."""
+    ca = conics[:, 0][None, :]
+    cb = conics[:, 1][None, :]
+    cc = conics[:, 2][None, :]
+    op = opacities[None, :]
+    X0 = (tile_x * tile).to(torch.float32)
+    Y0 = (tile_y * tile).to(torch.float32)
+    dx0 = X0 - mx
+    dx1 = X0 + (tile - 1) - mx
+    dy0 = Y0 - my
+    dy1 = Y0 + (tile - 1) - my
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+
+    sa = torch.clamp(ca, min=1e-12)
+    sc = torch.clamp(cc, min=1e-12)
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    def q_edge_x(d):  # fixed dx = d, dy free in [dy0, dy1]
+        t = clip(-cb * d / sc, dy0, dy1)
+        return ca * d * d + 2.0 * cb * d * t + cc * t * t
+
+    def q_edge_y(e):  # fixed dy = e, dx free in [dx0, dx1]
+        t = clip(-cb * e / sa, dx0, dx1)
+        return ca * t * t + 2.0 * cb * t * e + cc * e * e
+
+    min_q = torch.minimum(
+        torch.minimum(q_edge_x(dx0), q_edge_x(dx1)),
+        torch.minimum(q_edge_y(dy0), q_edge_y(dy1)),
+    )
+    min_q = torch.where(inside, torch.zeros_like(min_q), min_q)
+    bound = torch.clamp(2.0 * torch.log(torch.clamp(op, min=1e-12) * 255.0), max=9.0)
+    return min_q > bound
+
+
+def _expand_pairs_mn(means2d, radii, mask, tiles_x, tiles_y, M,
+                     conics=None, opacities=None, tile=TILE):
+    """(M, N)-layout pair expansion: AABB tile clip, span/validity, exact
+    per-tile culling, sentinel tile T.  Returns (tile_ids (M,N) int64 with T
+    for invalid pairs, pair_valid (M,N))."""
+    T = tiles_x * tiles_y
+    r = radii.to(torch.float32)
+    mx, my = means2d[:, 0], means2d[:, 1]
+    x0 = torch.clamp(torch.floor((mx - r) / tile), 0, tiles_x).long()
+    y0 = torch.clamp(torch.floor((my - r) / tile), 0, tiles_y).long()
+    x1 = torch.clamp(torch.floor((mx + r) / tile) + 1, 0, tiles_x).long()
+    y1 = torch.clamp(torch.floor((my + r) / tile) + 1, 0, tiles_y).long()
+    span_w = torch.clamp(x1 - x0, min=0)
+    span_h = torch.clamp(y1 - y0, min=0)
+    n_span = span_w * span_h
+    alive = mask & (radii > 0) & (n_span > 0)
+
+    m = torch.arange(M, device=means2d.device)[:, None]  # (M, 1)
+    sw = torch.clamp(span_w, min=1)[None, :]  # (1, N)
+    dx = m % sw
+    dy = m // sw
+    pair_valid = alive[None, :] & (m < n_span[None, :])
+    tx = x0[None, :] + dx
+    ty = y0[None, :] + dy
+    if conics is not None and opacities is not None:
+        culled = _tile_cull(tx, ty, mx[None, :], my[None, :], conics, opacities, tile=tile)
+        pair_valid = pair_valid & ~culled
+    tile_ids = torch.where(pair_valid, ty * tiles_x + tx, torch.full_like(tx, T))
+    return tile_ids, pair_valid
+
+
+def bin_gaussians_pairs(means2d: torch.Tensor, radii: torch.Tensor, depths: torch.Tensor,
+                        mask: torch.Tensor, W: int, H: int,
+                        max_tiles_per_gaussian: int = 16, depth_bits: int = 20,
+                        conics=None, opacities=None, tile: int = TILE) -> PairAssignment:
+    """Pair-array binning with quantized-depth packed keys: depth quantized
+    to ``depth_bits`` levels over the visible range only orders pairs within
+    a tile."""
+    N = means2d.shape[0]
+    tiles_x, tiles_y = num_tiles(W, H, tile)
+    T = tiles_x * tiles_y
+    M = max_tiles_per_gaussian
+    dev = means2d.device
+
+    alive = mask & (radii > 0)
+    inf = torch.tensor(float("inf"), device=dev)
+    d_lo = torch.where(alive, depths, inf).min()
+    d_hi = torch.where(alive, depths, -inf).max()
+    levels = (1 << depth_bits) - 1
+    scale = levels / torch.clamp(d_hi - d_lo, min=1e-6)
+    qdepth = torch.clamp((depths - d_lo) * scale, 0, levels).long()
+
+    tile_ids, _ = _expand_pairs_mn(means2d, radii, mask, tiles_x, tiles_y, M,
+                                   conics, opacities, tile=tile)
+    keys = ((tile_ids << depth_bits) | qdepth[None, :]).reshape(-1)
+    gauss = torch.arange(N, device=dev, dtype=torch.int32)[None, :].expand(M, N).reshape(-1)
+    sorted_keys, order = torch.sort(keys)
+    sorted_gauss = gauss[order]
+    # sentinel pairs (tile T) carry gauss id N for padded reads
+    sorted_gauss = torch.where(sorted_keys >= (T << depth_bits),
+                               torch.full_like(sorted_gauss, N), sorted_gauss)
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(T + 1, device=dev, dtype=torch.int64) << depth_bits,
+        side="left")
+    starts = bounds[:T].to(torch.int32)
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    return PairAssignment(sorted_gauss, starts, counts, sorted_keys)

@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (see dreammesh4d_tpu/utils)."""

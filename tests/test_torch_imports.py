@@ -1,0 +1,102 @@
+"""The port stands alone and runs on the card by default.
+
+- Every module of ``dreammesh4d_tpu_torch`` and ``chip_smoke.py`` imports
+  without pulling in jax or anything of ``dreammesh4d_tpu`` (checked in a
+  fresh interpreter).
+- The entry points default to ``device="cuda"``: without a card they raise
+  instead of quietly using the CPU; with one they land on it.
+- ``chip_smoke.py`` fails, and prints no result, where there is no card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, runpy, sys
+import dreammesh4d_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dreammesh4d_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n_modules) >= 20
+    assert bad == "[]", bad
+
+
+def _tiny_scene(device):
+    from dreammesh4d_tpu_torch.models.geometry.deformation import DeformationConfig, init_deformation
+    from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import DynamicSuGaRConfig, build_dynamic_static
+    from dreammesh4d_tpu_torch.models.geometry.sugar import SuGaRConfig, create_sugar
+    from dreammesh4d_tpu_torch.ops.gs.rasterize import RasterizerConfig
+    from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
+
+    params, sst = create_sugar(SuGaRConfig(n_gaussians_per_surface_triangle=1), make_icosphere(0),
+                               device=device)
+    dcfg = DeformationConfig(net_width=8, grid_channels=2, base_resolution=(4, 4, 4, 3), multires=(1,))
+    cfg = DynamicSuGaRConfig(n_dg_nodes=4, dist_mode="eucdisc", deformation=dcfg)
+    static = build_dynamic_static(cfg, sst, params.points.cpu().numpy(), device=device)
+    raster = RasterizerConfig(16, 16, 0.5, 0.5, backend="pallas_resident", tile_px=16)
+    return params, static, init_deformation(dcfg, device=device), cfg, raster
+
+
+def test_viewer_defaults_to_cuda():
+    from dreammesh4d_tpu_torch.serving import Viewer4D
+
+    params, static, dparams, cfg, raster = _tiny_scene("cpu")
+    if torch.cuda.is_available():
+        assert Viewer4D(params, static, dparams, cfg, raster, 16, 16, 40.0, 4).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            Viewer4D(params, static, dparams, cfg, raster, 16, 16, 40.0, 4)
+    frame = Viewer4D(params, static, dparams, cfg, raster, 16, 16, 40.0, 4, device="cpu").render(
+        distance=3.0)
+    assert frame.shape == (16, 16, 3) and np.isfinite(frame).all()
+
+
+def test_rasterize_defaults_to_cuda():
+    from dreammesh4d_tpu_torch.ops.gs.rasterize import RasterizerConfig, rasterize
+
+    rng = np.random.default_rng(0)
+    n = 8
+    cam = (np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32), np.zeros(3, np.float32))
+    args = (rng.normal(size=(n, 3)).astype(np.float32), np.full(n, 0.5, np.float32), cam,
+            RasterizerConfig(16, 16, 0.5, 0.5, backend="pallas_resident"), np.ones(3, np.float32))
+    kw = dict(colors=rng.random((n, 3)).astype(np.float32), scales=np.full((n, 3), 0.1, np.float32),
+              quats=np.tile(np.float32([1, 0, 0, 0]), (n, 1)))
+    if torch.cuda.is_available():
+        assert rasterize(*args, **kw).rgb.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            rasterize(*args, **kw)
+    assert rasterize(*args, **kw, device="cpu").rgb.shape == (16, 16, 3)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs for real there")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            assert "ok" not in json.loads(line)
