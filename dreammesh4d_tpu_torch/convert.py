@@ -10,6 +10,12 @@ are read back as Python values.  This module imports no jax.
 - :func:`deformation_params` — the ``init_deformation`` tree
   (``grids[scale][plane]``, ``trunk[i].w/b``, ``head_*.res/out.w/b``);
 - :func:`dynamic_static` — ``DynamicStatic``;
+- :func:`camera_batch` — ``CameraBatch`` (e.g. the JAX random camera
+  sampler's ``rand_cameras``);
+- :func:`losses` — ``Sugar4DGenLosses``;
+- :func:`dyn_train_state` — a ``DynTrainState`` from the JAX one's
+  deformation parameters and step (Adam's moments start at zero, as after
+  ``init_dyn_state`` on both sides);
 - :func:`config` — a JAX config dataclass / NamedTuple as the port's
   (``DeformationConfig``, ``DynamicSuGaRConfig``, ``SuGaRConfig``,
   ``RasterizerConfig``).
@@ -25,7 +31,9 @@ import torch
 from .models.geometry.deformation import DeformationConfig
 from .models.geometry.dynamic_sugar import DynamicStatic, DynamicSuGaRConfig
 from .models.geometry.sugar import SuGaRConfig, SuGaRParams, SuGaRStatic
+from .models.renderers.sugar_rasterizer import CameraBatch
 from .ops.gs.rasterize import RasterizerConfig
+from .systems.sugar_4dgen import DynTrainState, Sugar4DGenLosses, init_dyn_state
 
 
 def _get(src, name):
@@ -85,6 +93,22 @@ def dynamic_static(src, device="cuda") -> DynamicStatic:
         use_deform_graph=bool(_item(_get(src, "use_deform_graph"))),
         num_frames=int(_item(_get(src, "num_frames"))),
     )
+
+
+def camera_batch(src, device="cuda") -> CameraBatch:
+    return CameraBatch(*(_f32(_get(src, k), device) for k in CameraBatch._fields))
+
+
+def losses(src) -> Sugar4DGenLosses:
+    return Sugar4DGenLosses(**dataclasses.asdict(src))
+
+
+def dyn_train_state(src, lr: float = 1.6e-3, betas=(0.9, 0.99), eps: float = 1e-8,
+                    device="cuda") -> DynTrainState:
+    """``src``: the JAX ``DynTrainState`` (or a dict) with ``deform_params``
+    and ``step`` as numpy; the optimizer is a fresh Adam with these settings."""
+    return init_dyn_state(deformation_params(_get(src, "deform_params"), "cpu"), lr=lr,
+                          betas=betas, eps=eps, step=int(_item(_get(src, "step"))), device=device)
 
 
 def config(src):

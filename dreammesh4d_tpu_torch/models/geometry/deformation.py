@@ -180,3 +180,19 @@ def strain_tensor_to_matrix(strain: torch.Tensor) -> torch.Tensor:
         torch.stack([o1, o2, one + s2], -1),
     ]
     return torch.stack(rows, -2)
+
+
+def plane_tv_loss(params: Params, only_time_planes: bool = False) -> torch.Tensor:
+    """Total variation over the plane grids, averaged over the planes;
+    ``only_time_planes`` keeps the three planes that touch t."""
+    total = 0.0
+    count = 0
+    for scale_planes in params["grids"]:
+        for plane, (a, b) in zip(scale_planes, _COMBS):
+            if only_time_planes and 3 not in (a, b):
+                continue
+            dh = plane[1:] - plane[:-1]
+            dw = plane[:, 1:] - plane[:, :-1]
+            total = total + (dh ** 2).mean() + (dw ** 2).mean()
+            count += 1
+    return total / max(count, 1)

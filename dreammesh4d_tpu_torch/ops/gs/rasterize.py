@@ -5,25 +5,30 @@
               scales+quats|cov3d, device="cuda") -> (rgb, radii, depth, alpha)
 
 Pipeline: EWA projection (projection.py) → pair binning with exact tile
-culling (binning.py) → per-tile front-to-back compositing
-(resident_blend.py).  Forward only in this port so far.
+culling (binning.py, on detached inputs: which pairs exist is not
+differentiated) → per-tile front-to-back compositing (resident_blend.py).
+Differentiable in means3d, scales, quats / cov3d, colors / sh, opacities
+and the background.
 
 Backends (``RasterizerConfig.backend``):
 - ``pallas_resident`` — the pair path.  On CUDA tensors the compositing is
-  the hand-written Hopper kernel ``csrc/resident_fwd.cu``; on CPU tensors
-  its plain PyTorch version.
-- ``xla`` — the same pair path with the plain PyTorch compositing on any
-  device.
+  the hand-written Hopper kernel ``csrc/resident_fwd.cu`` and its backward
+  ``csrc/resident_bwd.cu`` — ``bwd_accum: true`` sums the gradients per
+  Gaussian inside the kernel (``resident_bwd_accum``), ``false`` writes
+  them per pair (``resident_bwd_pairs``) and sums them with ``index_add_``;
+  on CPU tensors their plain PyTorch versions.
+- ``xla`` — the same pair path with the plain PyTorch compositing, forward
+  and backward, on any device.
 - ``pallas`` — the (T, K)-table kernel: not ported yet (ROADMAP.md queue B,
   B6/B7); raises ``NotImplementedError``.
 
 ``RasterizerConfig`` accepts every field of the JAX package's config so every
 YAML loads.  Fields that only chose a TPU strategy and that the port ignores:
 ``interpret`` (Pallas interpreter mode), ``group`` beyond its role as the
-number of pairs between two tile-exit checks, ``bf16_matmuls`` (the port
-composites in exact float32), ``grad_reduce`` and ``bwd_accum`` (backward
-kernels, training slice), ``stream_rows`` (row dump for the TPU backward),
-``chunk`` (the XLA scan's chunk size).  ``binning: rank`` raises
+number of pairs between two tile-exit checks, ``bf16_matmuls`` and
+``grad_reduce`` (the port composites and reduces gradients in exact
+float32), ``stream_rows`` (row dump for the TPU backward), ``chunk`` (the
+XLA scan's chunk size).  ``binning: rank`` raises
 ``NotImplementedError`` (ROADMAP.md queue A, ``bin_gaussians_ranks``).
 Unlike the JAX ``xla`` backend, which bins on fixed 16-px tiles, the port's
 ``xla`` backend uses ``tile_px`` like ``pallas_resident``.
@@ -51,7 +56,9 @@ class RasterizeOutput(NamedTuple):
 
 
 class RasterizerConfig(NamedTuple):
-    """Rasterization settings; same fields and defaults as the JAX package."""
+    """Rasterization settings; same fields and defaults as the JAX package.
+    ``bf16_matmuls``, ``grad_reduce`` and ``stream_rows`` chose a TPU
+    strategy and are ignored: the port computes in exact float32."""
 
     width: int
     height: int
@@ -139,14 +146,14 @@ def _rasterize_projected(proj: ProjectedGaussians, colors: torch.Tensor,
             "binning 'rank' is not ported yet: ROADMAP.md queue A, bin_gaussians_ranks; "
             "use binning 'pairs'")
     pa = bin_gaussians_pairs(
-        proj.means2d, proj.radii, proj.depths, proj.mask, cfg.width, cfg.height,
-        cfg.max_tiles_per_gaussian, conics=proj.conics, opacities=opacities,
-        tile=cfg.tile_px,
+        proj.means2d.detach(), proj.radii, proj.depths.detach(), proj.mask, cfg.width,
+        cfg.height, cfg.max_tiles_per_gaussian, conics=proj.conics.detach(),
+        opacities=opacities.detach(), tile=cfg.tile_px,
     )
     rgb, alpha, depth = blend_image_resident(
         pa, proj.means2d, proj.conics, colors, opacities, proj.depths,
         cfg.width, cfg.height, background, cap=cfg.tile_capacity,
         group=_auto_group(cfg, proj.means2d.shape[0]), tile=cfg.tile_px,
-        plain=cfg.backend == "xla",
+        plain=cfg.backend == "xla", bwd_accum=cfg.bwd_accum,
     )
     return RasterizeOutput(rgb, proj.radii, depth, alpha)

@@ -1,17 +1,24 @@
-"""Per-tile alpha compositing over depth-sorted pair segments — the
-counterpart of ``dreammesh4d_tpu/ops/gs/pallas_resident.py`` (forward) and
-of the math it shares with ``pallas_blend.py``.
+"""Per-tile alpha compositing over depth-sorted pair segments, forward and
+backward — the counterpart of ``dreammesh4d_tpu/ops/gs/pallas_resident.py``
+and of the math it shares with ``pallas_blend.py``.
 
 - :func:`_pack_rows` — per-Gaussian ``(N+1, 16)`` rows
   ``[mx, my, ca, cb, cc, c_0..c_{C-1}, 0.., op@14, 0]`` plus a zero sentinel
   row (``pallas_blend.py:393``), so C ≤ 9;
-- :func:`blend_pairs_plain` — the plain PyTorch version;
+- :func:`blend_pairs_plain` / :func:`blend_pairs_bwd_plain` — the plain
+  PyTorch versions of the forward and of the replay backward;
 - :func:`blend_pairs_cuda` — the wrapper of the hand-written Hopper kernel
   ``csrc/resident_fwd.cu`` (replaces ``pallas_resident.py::_fwd_kernel``);
-- :func:`blend_pairs` — dispatch on the tensors' device: CUDA → the kernel
-  (or an exception), CPU → the plain version;
+- :func:`blend_pairs_bwd_cuda` — the wrapper of ``csrc/resident_bwd.cu``:
+  entry ``resident_bwd_accum`` (replaces ``::_bwd_kernel_accum``, gradients
+  summed per Gaussian) or ``resident_bwd_pairs`` (replaces ``::_bwd_kernel``,
+  gradients per pair slot; :func:`reduce_pair_grads` sums them per Gaussian);
+- :func:`blend_pairs` — the differentiable entry: CUDA tensors launch the
+  kernels (or raise), CPU tensors take the plain versions;
 - :func:`blend_image_resident` — depth as an extra channel, background,
-  untiling (``pallas_resident.py:628``).
+  untiling (``pallas_resident.py:628``).  Row packing, untiling and the
+  background stay plain PyTorch, so autograd carries the rows' gradient on
+  to means2d, conics, colours, depths, opacities and the background.
 
 Both versions compute, for each tile and each pixel, a front-to-back walk
 over the first ``min(count, cap)`` pairs of the tile's segment with
@@ -26,6 +33,20 @@ triangular matmul of log1p(−α) (and with ``bf16_matmuls`` a bf16 colour
 dot); both versions here use exact float32 products and ignore
 ``bf16_matmuls``.  The JAX tests bound that gap (3e-3 rgb/alpha, 6e-3 depth
 against its XLA blend).
+
+The backward replays the same walk from the forward's output ``out`` and its
+cotangent ``g`` (``pallas_resident.py:291-365``, ``pallas_blend.py:67-96``):
+
+    S = Σ_c out[c]·g[c] + g[C]·out[C];  w_i = α_i·T_excl;  gdotc_i = c_i·g
+    prefix_i = Σ_{j≤i} gdotc_j·w_j
+    dα_i = T_excl·gdotc_i − (S − prefix_i)/max(1 − α_i, 1e-6)   (0 where α_i = 0)
+    d_power = (op·exp(power) > 0.99 ? 0 : dα_i)·α_i
+
+summed over the tile's pixels into the pair's row ``[d_mx, d_my, d_ca, d_cb,
+d_cc, d_c.., 0.., d_op@14, 0]``, with the forward's tile-wide exit at the
+same pair.  Sums across tiles use float32 atomics (``index_add_`` in the
+plain version), whose order changes from run to run: compare with a
+tolerance, never bitwise.
 """
 
 from __future__ import annotations
@@ -46,7 +67,7 @@ T_EPS = 1e-4
 MAX_GROUP = 512  # the kernel stages a group of rows in shared memory
 
 # kernel launches, counted by the wrapper where it launches (and nowhere else)
-launch_counts = {"resident_fwd": 0}
+launch_counts = {"resident_fwd": 0, "resident_bwd_accum": 0, "resident_bwd_pairs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +96,38 @@ def _check_group(group: int, tile: int) -> None:
         raise ValueError(f"tile² must be in [1, 1024], got tile={tile}")
 
 
+def _pixel_grid(T: int, tiles_x: int, tile: int, device):
+    """Pixel coordinates (T, 1, tile²) of every tile (no +0.5)."""
+    p = torch.arange(tile * tile, device=device)
+    t_ids = torch.arange(T, device=device)
+    px = ((t_ids % tiles_x) * tile)[:, None, None].float() + (p % tile).float()[None, None, :]
+    py = ((t_ids // tiles_x) * tile)[:, None, None].float() + (p // tile).float()[None, None, :]
+    return px, py
+
+
+def _group_index(pairs, starts, count, active, g0: int, group: int, sentinel: int):
+    """Row ids (T, G) of the pairs ``g0 .. g0+group`` of every tile (the
+    sentinel row past a tile's count or in a tile that has exited) and
+    their validity."""
+    slot = g0 + torch.arange(group, device=pairs.device)  # (G,)
+    valid = active[:, None] & (slot[None, :] < count[:, None])  # (T, G)
+    pos = torch.clamp(starts[:, None] + slot[None, :], max=max(pairs.shape[0] - 1, 0))
+    return torch.where(valid, pairs[pos].long(), torch.full_like(pos, sentinel)), valid
+
+
+def _group_geometry(r, px, py, valid):
+    """Shared forward/backward math of one group of rows r (T, G, ROW):
+    returns (alpha, live, clamped, dx, dy), each (T, G, P); alpha is 0 where
+    the pair is not live."""
+    dx = r[..., 0:1] - px
+    dy = r[..., 1:2] - py
+    power = -0.5 * (r[..., 2:3] * dx * dx + r[..., 4:5] * dy * dy) - r[..., 3:4] * dx * dy
+    raw = r[..., OP_COL:OP_COL + 1] * torch.exp(power)
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    live = (power <= 0.0) & (power >= -4.5) & (alpha >= ALPHA_MIN) & valid[..., None]
+    return torch.where(live, alpha, torch.zeros_like(alpha)), live, raw > ALPHA_MAX, dx, dy
+
+
 def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                       counts: torch.Tensor, tiles_x: int, tile: int, cap: int,
                       group: int, n_channels: int,
@@ -86,42 +139,26 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
     inputs: ``pairs_read``, the pair slots the tiles walked, and
     ``live_pixels``, the (pair, pixel) evaluations that composited."""
     _check_group(group, tile)
-    dev = rows.device
     T = starts.shape[0]
     P = tile * tile
     C = n_channels
-    N = rows.shape[0] - 1
-    p = torch.arange(P, device=dev)
-    t_ids = torch.arange(T, device=dev)
-    px = ((t_ids % tiles_x) * tile)[:, None, None].float() + (p % tile).float()[None, None, :]
-    py = ((t_ids // tiles_x) * tile)[:, None, None].float() + (p // tile).float()[None, None, :]
+    px, py = _pixel_grid(T, tiles_x, tile, rows.device)
     count = torch.clamp(counts.long(), max=cap)
     starts = starts.long()
     trans = rows.new_ones((T, 1, P))
     acc = rows.new_zeros((T, C, P))
-    slots = torch.arange(group, device=dev)
     n_groups = (int(count.max()) + group - 1) // group if T else 0
     pairs_read = live_pixels = 0
     for g in range(n_groups):
-        g0 = g * group
-        active = (g0 < count) & (trans.amax(dim=(1, 2)) > T_EPS)  # (T,)
+        active = (g * group < count) & (trans.amax(dim=(1, 2)) > T_EPS)  # (T,)
         if not bool(active.any()):
             break
-        slot = g0 + slots  # (G,)
-        valid = active[:, None] & (slot[None, :] < count[:, None])  # (T, G)
+        idx, valid = _group_index(pairs, starts, count, active, g * group, group, rows.shape[0] - 1)
+        r = rows[idx]  # (T, G, ROW)
+        alpha, live, _, _, _ = _group_geometry(r, px, py, valid)
         if stats is not None:
             pairs_read += int(valid.sum())
-        pos = torch.clamp(starts[:, None] + slot[None, :], max=max(pairs.shape[0] - 1, 0))
-        idx = torch.where(valid, pairs[pos].long(), torch.full_like(pos, N))
-        r = rows[idx]  # (T, G, ROW)
-        dx = r[..., 0:1] - px  # (T, G, P)
-        dy = r[..., 1:2] - py
-        power = -0.5 * (r[..., 2:3] * dx * dx + r[..., 4:5] * dy * dy) - r[..., 3:4] * dx * dy
-        alpha = torch.clamp(r[..., OP_COL:OP_COL + 1] * torch.exp(power), max=ALPHA_MAX)
-        live = (power <= 0.0) & (power >= -4.5) & (alpha >= ALPHA_MIN) & valid[..., None]
-        if stats is not None:
             live_pixels += int(live.sum())
-        alpha = torch.where(live, alpha, torch.zeros_like(alpha))
         incl = torch.cumprod(1.0 - alpha, dim=1)  # (T, G, P)
         excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1)
         w = alpha * excl * trans
@@ -130,6 +167,25 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
     if stats is not None:
         stats.update(pairs_read=pairs_read, live_pixels=live_pixels)
     return torch.cat([acc, trans], 1)
+
+
+def _check_cuda_inputs(rows, pairs, starts, counts, n_channels: int) -> None:
+    """What every kernel wrapper needs of the row table and the segments."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the compositing kernels need CUDA tensors, got {dev}")
+    if not 1 <= n_channels <= OP_COL - 5:
+        raise ValueError(f"n_channels must be in [1, {OP_COL - 5}], got {n_channels}")
+    for name, x, dtype, ndim in (("rows", rows, torch.float32, 2), ("pairs", pairs, torch.int32, 1),
+                                 ("starts", starts, torch.int32, 1),
+                                 ("counts", counts, torch.int32, 1)):
+        if x.device != dev or x.dtype != dtype or x.ndim != ndim or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {ndim}-D {dtype} tensor on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if rows.shape[1] != ROW:
+        raise ValueError(f"rows must be (N+1, {ROW}), got {tuple(rows.shape)}")
+    if counts.shape[0] != starts.shape[0]:
+        raise ValueError("starts and counts must have the same length")
 
 
 def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
@@ -141,23 +197,9 @@ def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tens
     from ... import cuda_build
 
     _check_group(group, tile)
+    T, C = starts.shape[0], n_channels
+    _check_cuda_inputs(rows, pairs, starts, counts, C)
     dev = rows.device
-    T = starts.shape[0]
-    C = n_channels
-    if dev.type != "cuda":
-        raise ValueError(f"blend_pairs_cuda needs CUDA tensors, got {dev}")
-    if not 1 <= C <= OP_COL - 5:
-        raise ValueError(f"n_channels must be in [1, {OP_COL - 5}], got {C}")
-    for name, x, dtype, ndim in (("rows", rows, torch.float32, 2), ("pairs", pairs, torch.int32, 1),
-                                 ("starts", starts, torch.int32, 1),
-                                 ("counts", counts, torch.int32, 1)):
-        if x.device != dev or x.dtype != dtype or x.ndim != ndim or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {ndim}-D {dtype} tensor on {dev}, "
-                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
-    if rows.shape[1] != ROW:
-        raise ValueError(f"rows must be (N+1, {ROW}), got {tuple(rows.shape)}")
-    if counts.shape[0] != T:
-        raise ValueError("starts and counts must have the same length")
 
     lib = cuda_build.load("resident_fwd")
     fn = lib.resident_fwd
@@ -174,26 +216,189 @@ def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tens
     return out
 
 
+def blend_pairs_bwd_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
+                          counts: torch.Tensor, out: torch.Tensor, cot: torch.Tensor,
+                          tiles_x: int, tile: int, cap: int, group: int, n_channels: int,
+                          per_pair: bool = False, stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch replay backward, group by group like
+    :func:`blend_pairs_plain` (a (T, group, tile²) working set).  ``out`` is
+    the forward's output and ``cot`` its cotangent, both (T, C+1, tile²).
+    Returns the gradient of ``rows``: (N+1, 16) summed per Gaussian, or with
+    ``per_pair`` the (T, cap, 16) rows per pair slot, zero past
+    ``min(count, cap)`` and past a tile's exit.
+
+    ``stats`` receives ``pairs_read`` and ``live_pixels`` as in the forward."""
+    _check_group(group, tile)
+    T = starts.shape[0]
+    P = tile * tile
+    C = n_channels
+    N = rows.shape[0] - 1
+    px, py = _pixel_grid(T, tiles_x, tile, rows.device)
+    count = torch.clamp(counts.long(), max=cap)
+    starts = starts.long()
+    g_col = cot[:, :C]  # (T, C, P)
+    s_tot = (out[:, :C] * g_col).sum(1, keepdim=True) + cot[:, C:C + 1] * out[:, C:C + 1]
+    trans = rows.new_ones((T, 1, P))
+    gpre = rows.new_zeros((T, 1, P))
+    n_groups = (int(count.max()) + group - 1) // group if T else 0
+    if per_pair:
+        grads = rows.new_zeros((T, n_groups * group, ROW))
+    else:
+        grads = rows.new_zeros((N + 1, ROW))
+    pairs_read = live_pixels = 0
+    for g in range(n_groups):
+        active = (g * group < count) & (trans.amax(dim=(1, 2)) > T_EPS)
+        if not bool(active.any()):
+            break
+        idx, valid = _group_index(pairs, starts, count, active, g * group, group, N)
+        r = rows[idx]  # (T, G, ROW)
+        alpha, live, clamped, dx, dy = _group_geometry(r, px, py, valid)
+        if stats is not None:
+            pairs_read += int(valid.sum())
+            live_pixels += int(live.sum())
+        incl = torch.cumprod(1.0 - alpha, dim=1)
+        t_excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1) * trans
+        w = alpha * t_excl
+        gdotc = torch.einsum("tgc,tcp->tgp", r[..., 5:5 + C], g_col)
+        prefix = gpre + torch.cumsum(gdotc * w, dim=1)
+        one_m = torch.clamp(1.0 - alpha, min=1e-6)
+        d_alpha = t_excl * gdotc - (s_tot - prefix) / one_m
+        d_alpha = torch.where(alpha > 0.0, d_alpha, torch.zeros_like(d_alpha))
+        d_power = torch.where(clamped, torch.zeros_like(d_alpha), d_alpha) * alpha
+        t1 = d_power * dx
+        t2 = d_power * dy
+        s0 = d_power.sum(-1)
+        sx = t1.sum(-1)
+        sy = t2.sum(-1)
+        ca, cb, cc = r[..., 2], r[..., 3], r[..., 4]
+        g_rows = rows.new_zeros((T, group, ROW))
+        g_rows[..., 0] = -(ca * sx + cb * sy)
+        g_rows[..., 1] = -(cc * sy + cb * sx)
+        g_rows[..., 2] = -0.5 * (t1 * dx).sum(-1)
+        g_rows[..., 3] = -(t1 * dy).sum(-1)
+        g_rows[..., 4] = -0.5 * (t2 * dy).sum(-1)
+        g_rows[..., 5:5 + C] = torch.einsum("tgp,tcp->tgc", w, g_col)
+        g_rows[..., OP_COL] = s0 / torch.clamp(r[..., OP_COL], min=1e-12)
+        if per_pair:
+            grads[:, g * group:(g + 1) * group] = g_rows
+        else:
+            # rows past a tile's count or exit land on the sentinel row, as zeros
+            grads.index_add_(0, idx.reshape(-1), g_rows.reshape(-1, ROW))
+        trans = trans * incl[:, -1:]
+        gpre = prefix[:, -1:]
+    if stats is not None:
+        stats.update(pairs_read=pairs_read, live_pixels=live_pixels)
+    if per_pair:
+        grads = grads[:, :cap]
+        if grads.shape[1] < cap:
+            grads = torch.cat([grads, rows.new_zeros((T, cap - grads.shape[1], ROW))], 1)
+    return grads
+
+
+def reduce_pair_grads(tile_grads: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
+                      counts: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Sum the per-pair rows (T, cap, 16) per Gaussian into (n_rows, 16):
+    slot s of tile t belongs to ``pairs[starts[t] + s]`` while s <
+    ``min(count, cap)``; the slots past it go to the sentinel (last) row."""
+    T, cap, _ = tile_grads.shape
+    slot = torch.arange(cap, device=pairs.device)
+    valid = slot[None, :] < torch.clamp(counts.long(), max=cap)[:, None]
+    pos = torch.clamp(starts.long()[:, None] + slot[None, :], max=max(pairs.shape[0] - 1, 0))
+    idx = torch.where(valid, pairs[pos].long(), torch.full_like(pos, n_rows - 1))
+    grads = tile_grads.new_zeros((n_rows, ROW))
+    return grads.index_add_(0, idx.reshape(-1), tile_grads.reshape(-1, ROW))
+
+
+def blend_pairs_bwd_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
+                         counts: torch.Tensor, out: torch.Tensor, cot: torch.Tensor,
+                         tiles_x: int, tile: int, cap: int, group: int, n_channels: int,
+                         per_pair: bool = False) -> torch.Tensor:
+    """Launch the Hopper kernel ``csrc/resident_bwd.cu`` on the current
+    stream: entry ``resident_bwd_accum`` (gradients summed per Gaussian with
+    atomics, (N+1, 16)) or, with ``per_pair``, ``resident_bwd_pairs`` (rows
+    per pair slot, (T, cap, 16)).  Same contract as
+    :func:`blend_pairs_bwd_plain`; raises on a tensor it does not take or a
+    launch that fails."""
+    from ... import cuda_build
+
+    _check_group(group, tile)
+    T, C, P = starts.shape[0], n_channels, tile * tile
+    _check_cuda_inputs(rows, pairs, starts, counts, C)
+    dev = rows.device
+    cot = cot.contiguous()  # it comes back through untile's permute
+    for name, x in (("out", out), ("cot", cot)):
+        if (x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != (T, C + 1, P)
+                or not x.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous {(T, C + 1, P)} float32 tensor on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    name = "resident_bwd_pairs" if per_pair else "resident_bwd_accum"
+    fn = getattr(cuda_build.load("resident_bwd"), name)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        # zeroed on the launch's stream: blocks run in no order and add into it
+        shape = (T, cap, ROW) if per_pair else (rows.shape[0], ROW)
+        grads = torch.zeros(shape, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(rows.data_ptr(), pairs.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                    out.data_ptr(), cot.data_ptr(), grads.data_ptr(), T, tiles_x, tile, cap,
+                    group, C, stream)
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {status}")
+    launch_counts[name] += 1
+    return grads
+
+
+class _BlendPairs(torch.autograd.Function):
+    """Compositing with the replay backward: the forward saves (rows, pairs,
+    starts, counts, out), the backward returns the gradient of ``rows``.
+    CUDA tensors launch the kernels; CPU tensors, or ``plain``, take the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels,
+                bwd_accum, plain):
+        fwd = blend_pairs_plain if plain else blend_pairs_cuda
+        out = fwd(rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels)
+        ctx.save_for_backward(rows, pairs, starts, counts, out)
+        ctx.args = (tiles_x, tile, cap, group, n_channels)
+        ctx.bwd_accum, ctx.plain = bwd_accum, plain
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cot):
+        rows, pairs, starts, counts, out = ctx.saved_tensors
+        bwd = blend_pairs_bwd_plain if ctx.plain else blend_pairs_bwd_cuda
+        grads = bwd(rows, pairs, starts, counts, out, cot, *ctx.args,
+                    per_pair=not ctx.bwd_accum)
+        if not ctx.bwd_accum:
+            grads = reduce_pair_grads(grads, pairs, starts, counts, rows.shape[0])
+        return (grads,) + (None,) * 10
+
+
 def blend_pairs(rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels,
-                plain: bool = False) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors (or
-    when the caller asks for it with ``plain=True``)."""
-    if plain or rows.device.type == "cpu":
-        return blend_pairs_plain(rows, pairs, starts, counts, tiles_x, tile, cap, group,
-                                 n_channels)
-    if rows.device.type == "cuda":
-        return blend_pairs_cuda(rows, pairs, starts, counts, tiles_x, tile, cap, group,
-                                n_channels)
-    raise ValueError(f"no compositing path for device {rows.device}")
+                plain: bool = False, bwd_accum: bool = True) -> torch.Tensor:
+    """Differentiable compositing (gradient to ``rows`` only).  CUDA tensors
+    go through the kernels — ``resident_fwd`` forward and, in the backward,
+    ``resident_bwd_accum`` (``bwd_accum``) or ``resident_bwd_pairs`` plus
+    :func:`reduce_pair_grads` — or raise; CPU tensors, or ``plain=True``,
+    take :func:`blend_pairs_plain` and :func:`blend_pairs_bwd_plain`."""
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no compositing path for device {rows.device}")
+    return _BlendPairs.apply(rows, pairs, starts, counts, tiles_x, tile, cap, group,
+                             n_channels, bwd_accum, plain or rows.device.type == "cpu")
 
 
 def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torch.Tensor,
                          colors: torch.Tensor, opacities: torch.Tensor, depths: torch.Tensor,
                          W: int, H: int, background: torch.Tensor, cap: int = 1024,
-                         group: int = GROUP, tile: int = TILE,
-                         plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                         group: int = GROUP, tile: int = TILE, plain: bool = False,
+                         bwd_accum: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-image blend: returns (rgb (H,W,C) with the background added,
-    alpha (H,W,1) = 1 − T, depth (H,W,1))."""
+    alpha (H,W,1) = 1 − T, depth (H,W,1)).  Differentiable in means2d,
+    conics, colors, opacities, depths and the background; ``bwd_accum``
+    picks the backward kernel (per-Gaussian sums or per-pair rows)."""
     C_user = colors.shape[-1]
     colors_aug = torch.cat([colors, depths[:, None]], -1)
     C = C_user + 1
@@ -203,7 +408,7 @@ def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torc
     out = blend_pairs(rows, pa.sorted_gauss.to(torch.int32).contiguous(),
                       pa.starts.to(torch.int32).contiguous(),
                       pa.counts.to(torch.int32).contiguous(),
-                      tiles_x, tile, cap, group, C, plain=plain)
+                      tiles_x, tile, cap, group, C, plain=plain, bwd_accum=bwd_accum)
 
     def untile(flat, ch):
         img = flat.reshape(tiles_y, tiles_x, ch, tile, tile)

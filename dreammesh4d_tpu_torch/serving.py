@@ -24,6 +24,7 @@ import torch
 from .data.temporal_image import frame_timestamps
 from .data.uncond import assemble_camera_batch
 from .systems.sugar_4dgen import make_dynamic_render_eval
+from .utils.tree import tree_to
 
 
 class Viewer4D:
@@ -31,10 +32,10 @@ class Viewer4D:
                  height: int, width: int, fovy_deg: float, num_frames: int,
                  bg_color=(1.0, 1.0, 1.0), device="cuda"):
         self.device = torch.device(device)
-        sugar_params = _tree_to(sugar_params, self.device)
-        self.static = static = _tree_to(static, self.device)
+        sugar_params = tree_to(sugar_params, self.device)
+        self.static = static = tree_to(static, self.device)
         self.dyn_cfg = dyn_cfg
-        self.deform_params = _tree_to(deform_params, self.device)
+        self.deform_params = tree_to(deform_params, self.device)
         self.height, self.width = height, width
         self.fovy = math.radians(fovy_deg)
         self.num_frames = num_frames
@@ -102,15 +103,3 @@ class Viewer4D:
               else self._frame_indices(ts))
         return self._frames(cams, ts, fi)
 
-
-def _tree_to(tree, device):
-    """Every tensor of a nested dict / list / (named) tuple moved to ``device``."""
-    if torch.is_tensor(tree):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_to(v, device) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_to(v, device) for v in tree)
-    return tree

@@ -28,8 +28,11 @@ for name in names:
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dreammesh4d_tpu"))
-print(len(names), bad)
+print(len(names), " ".join(names), bad, sep="|")
 """
+
+NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule", "utils.tree",
+               "ops.meshops", "ops.gs.resident_blend", "models.geometry.deformation", "convert")
 
 
 def test_port_imports_no_jax():
@@ -37,9 +40,32 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 20
+    n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
+    assert int(n_modules) >= 34
+    for name in NEW_MODULES:
+        assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad
+
+
+def test_train_entry_points_default_to_cuda():
+    from dreammesh4d_tpu_torch.systems.sugar_4dgen import (Sugar4DGenLosses, init_dyn_state,
+                                                           make_dynamic_train_step)
+
+    params, static, dparams, cfg, raster = _tiny_scene("cpu")
+    arap_w = np.ones(tuple(static.sugar.ring_idx.shape), np.float32)
+    args = (params, static, cfg.deformation, raster, Sugar4DGenLosses(), arap_w)
+    if torch.cuda.is_available():
+        assert init_dyn_state(dparams).deform_params["trunk"][0]["w"].device.type == "cuda"
+        make_dynamic_train_step(*args)
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            init_dyn_state(dparams)
+        with pytest.raises((RuntimeError, AssertionError)):
+            make_dynamic_train_step(*args)
+    state = init_dyn_state(dparams, device="cpu")
+    leaf = state.deform_params["trunk"][0]["w"]
+    assert leaf.requires_grad and leaf.is_leaf and state.step == 0
+    assert callable(make_dynamic_train_step(*args, device="cpu"))
 
 
 def _tiny_scene(device):

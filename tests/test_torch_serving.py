@@ -86,3 +86,26 @@ def test_play(viewers):
     _check(port, jv.play(elevation_deg=5.0, azimuth_deg=30.0, distance=3.8, n_frames=3))
     assert np.abs(port[0] - port[2]).max() > 1e-2  # the scene moves over time
     assert (np.abs(port[0] - 1.0).max(-1) > 1e-3).mean() > 0.05  # and covers the frame
+
+
+def test_render_builds_no_autograd_graph(viewers):
+    """Serving pays nothing for the differentiable blend: even with
+    parameters that require grad, ``Viewer4D`` renders under inference mode
+    and neither the frames nor the eval render's outputs carry a graph."""
+    import torch
+
+    _, tv = viewers
+    leaves = [p for planes in tv.deform_params["grids"] for p in planes]
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        frame = tv.render(5.0, 20.0, 3.8, t=0.3)
+        assert isinstance(frame, np.ndarray) and np.isfinite(frame).all()
+        with torch.inference_mode():
+            ts = torch.tensor([0.3])
+            out = tv._render(tv.deform_params, tv._cameras(5.0, 20.0, 3.8), ts, tv._frame_indices(ts))
+        assert all(v.grad_fn is None and not v.requires_grad for v in out.values())
+        assert all(p.grad is None for p in leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
