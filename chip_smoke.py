@@ -13,7 +13,11 @@ Phases, each of which fails the run on a failed check:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, plus adversarial cases: the forward compositing
    (B1, ``resident_fwd``) and the replay backward in both forms (B2
-   ``resident_bwd_accum``, B3 ``resident_bwd_pairs``) at C = 7 and C = 4;
+   ``resident_bwd_accum``, B3 ``resident_bwd_pairs``) at C = 7 and C = 4; the
+   cell hash-grid encode (B4, ``hashgrid_cell_fwd``) and its table-gradient
+   backward (B5, ``hashgrid_cell_bwd``) at 524,288 points sampled along
+   rays, 16 levels of 2^16 rows, and at odd sizes, one shared cell, points on
+   cell faces, a level mask, single cotangents and a 2^8-row table;
 4. the serving main path — ``Viewer4D.render / orbit / play`` — at the full
    width of ``configs/sugar_dynamic_dg.yaml`` (icosphere(4) SuGaR mesh:
    30,720 Gaussians, SH 3; 1000-node geodesic graph, hybrid skinning;
@@ -21,24 +25,45 @@ Phases, each of which fails the run on a failed check:
    capacity 2048, 6 tiles per Gaussian; fovy 20°, distance 3.8, elevation
    5°), with random weights from a seed and the deformation heads perturbed;
    launch counts are zeroed just before and read just after;
-5. the training main path — ``make_dynamic_train_step`` → ``train_step`` on
-   the same scene with the YAML's loss weights, 4 of 32 frames per step of a
-   target video rendered once from a second, differently seeded deformation,
-   4 random + 4 reference views at 512², 10 inter-frame timestamps, Adam
-   (lr 1.6e-3, betas 0.9/0.99) — with its own launch counts, then one step
-   with ``bwd_accum=False`` from the same state.  The guidance model is not
-   ported yet; a stand-in ``guidance_fn`` (mean squared distance of the
-   random-view render from mid-grey) takes its place in the loss, so that
-   the random views' gradients go through the backward kernel as they will
-   with the real guidance.  With ``guidance_fn=None`` and the YAML's zero TV
-   weights the random views do not reach the loss at all and autograd skips
-   their backward; a few such steps are driven and counted too;
-6. CUDA-event times (median of 30 after warm-up), ms per train step and
-   profiles of one render and one train step;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+5. the dynamic-stage training main path — ``make_dynamic_train_step`` →
+   ``train_step`` on the same scene with the YAML's loss weights, 4 of 32
+   frames per step of a target video rendered once from a second,
+   differently seeded deformation, 4 random + 4 reference views at 512², 10
+   inter-frame timestamps, Adam (lr 1.6e-3, betas 0.9/0.99) — with its own
+   launch counts, then one step with ``bwd_accum=False`` from the same state.
+   The guidance model is not ported yet; a stand-in ``guidance_fn`` (mean
+   squared distance of the random-view render from mid-grey) takes its place
+   in the loss, so that the random views' gradients go through the backward
+   kernel as they will with the real guidance.  With ``guidance_fn=None`` and
+   the YAML's zero TV weights the random views do not reach the loss at all
+   and autograd skips their backward; a few such steps are driven and
+   counted too;
+6. the stage-1 training main path — ``make_zero123_train_step`` →
+   ``train_step`` at the full width of ``configs/stable-zero123.yaml`` (16
+   levels × 2 features, cell layout, 2^16 rows, base 16; radius 2,
+   ``blob_magic3d``, softplus, analytic normals, MLPs 64 × 2; occupancy-grid
+   estimator, 32³ grid, 192 candidates, 64 samples, update every 16 steps;
+   ``DiffuseWithPointLightMaterial`` at ambient ratio 1; the YAML's loss
+   weights; Adam 0.01 / (0.9, 0.99) / 1e-8; cameras from
+   ``RandomCameraSampler`` with the YAML's ranges).  The loop around the step
+   — level mask, ambient ratio, the occupancy update every 16 steps, the
+   resolution milestones — is written out here by hand as
+   ``Zero123Experiment.train_step`` of the JAX package does it (the
+   experiment class itself is not ported yet).  The reference image is
+   synthetic: a shaded sphere seen from the reference camera.  Steps 0..17 at
+   the first milestone's shapes (reference 128², 8 views at 64²), then a few
+   steps at the last milestone's (reference 512², 2 views at 256²) from the
+   same state, with the stand-in guidance, and a few with
+   ``guidance_fn=None``; B4/B5 launch counts are held to what the code path
+   predicts;
+7. the export pass — ``export_density_grid`` at 256³ through B4;
+8. CUDA-event times (median of 30 after warm-up), ms per train step, peak
+   memory and profiles of one render and one train step of each stage;
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -50,7 +75,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-KERNELS = ["resident_fwd", "resident_bwd"]  # sources; resident_bwd holds B2 and B3
+# sources; resident_bwd holds B2 and B3, hashgrid_cell B4 and B5
+KERNELS = ["resident_fwd", "resident_bwd", "hashgrid_cell"]
 N_TIMED = 30
 RES = 512  # image side of every render
 MESH_LEVEL = 4  # icosphere subdivisions: 5120 faces x 6 = 30,720 Gaussians
@@ -60,6 +86,16 @@ FRAMES_PER_STEP = 4
 N_INTER = 10
 N_TRAIN_STEPS = 10
 GRAD_TOL = 1e-4  # B2/B3 vs plain, of each column group's max |value| (see check_backward)
+# stage 1 (configs/stable-zero123.yaml)
+S1_CHUNK_RAYS = 8192  # ray_chunk_train
+S1_SAMPLES = 64  # occ_samples: one chunk encodes 8192 x 64 = 524,288 points
+S1_REF_HW = (128, 512)  # the reference view at the first and the last milestone
+S1_FIRST_STEPS = 18  # steps 0..17: the occupancy update runs at steps 0 and 16
+S1_LAST_STEPS = 3
+S1_BARE_STEPS = 2  # steps with guidance_fn=None at each milestone
+EXPORT_RES = 256
+FEAT_TOL = 1e-6  # B4 feats vs plain, of each level's max |feats|
+DFEAT_TOL = 1e-5  # B4 dfeats vs plain, of each level's max |dfeats| (they carry the resolution)
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 
@@ -81,8 +117,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, n=N_TIMED, warmup=3):
-    """Median milliseconds of ``fn`` between two CUDA events."""
+def time_ms(torch, fn, n=N_TIMED, warmup=3, reps=1):
+    """Median milliseconds of ``fn`` between two CUDA events; with ``reps``
+    the events enclose that many calls and the time is per call, so that a
+    short kernel is not timed by the host's enqueue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -91,10 +129,11 @@ def time_ms(torch, fn, n=N_TIMED, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -479,6 +518,403 @@ def drive_training(torch, np, rb, card, make_step, sample_batch, dparams, device
     return launches, pair_counts, ms, lambda: train_step(state, sample_batch(), gen)
 
 
+def stage1_configs():
+    """configs/stable-zero123.yaml at full width: geometry, renderer, losses,
+    material and the random camera sampler's settings."""
+    from dreammesh4d_tpu_torch.data.uncond import RandomCameraConfig
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import ImplicitVolumeConfig
+    from dreammesh4d_tpu_torch.models.materials import DiffuseWithPointLightMaterial
+    from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import NeRFRendererConfig
+    from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+    from dreammesh4d_tpu_torch.systems.zero123_system import Zero123Losses
+
+    hg = HashGridConfig(n_levels=16, n_features_per_level=2, log2_hashmap_size=16,
+                        base_resolution=16, per_level_scale=1.447269237440378, layout="cell")
+    geo = ImplicitVolumeConfig(radius=2.0, normal_type="analytic", density_bias="blob_magic3d",
+                               density_activation="softplus", density_blob_scale=10.0,
+                               density_blob_std=0.5, hashgrid=hg, n_neurons=64, n_hidden_layers=2)
+    rcfg = NeRFRendererConfig(radius=2.0, estimator="occgrid", grid_resolution=32,
+                              occ_candidates=192, occ_samples=S1_SAMPLES, occ_thre=0.01,
+                              grid_update_every=16, ray_chunk_train=S1_CHUNK_RAYS)
+    losses = Zero123Losses(lambda_sds=0.1, lambda_rgb=[100, 500.0, 1000.0, 400], lambda_mask=50.0,
+                           lambda_depth=0.0, lambda_depth_rel=0.0, lambda_normal=0.0,
+                           lambda_normal_smooth=[100, 7.0, 5.0, 150, 10.0, 200],
+                           lambda_3d_normal_smooth=[100, 7.0, 5.0, 150, 10.0, 200],
+                           lambda_orient=1.0, lambda_sparsity=0.5, lambda_opaque=0.5)
+    cams = RandomCameraConfig(height=[64, 128, 256], width=[64, 128, 256], batch_size=[8, 4, 2],
+                              resolution_milestones=(200, 300), eval_height=512, eval_width=512,
+                              elevation_range=(-10.0, 80.0), azimuth_range=(-180.0, 180.0),
+                              camera_distance_range=(3.8, 3.8), fovy_range=(20.0, 20.0),
+                              light_position_perturb=1.0, light_distance_range=(7.5, 10.0))
+    return geo, rcfg, losses, DiffuseWithPointLightMaterial(), cams
+
+
+def ray_sample_points(torch, cams, n_rays, n_samples, radius, device):
+    """Contracted points in [0, 1]³ sampled along camera rays as the renderer
+    samples them: jittered, in order along each ray inside the box."""
+    from dreammesh4d_tpu_torch.data.uncond import RandomCameraSampler
+    from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import ray_bbox_intersect
+
+    batch = RandomCameraSampler(cams, seed=3, device=device).sample()
+    ro = batch["rays_o"].reshape(-1, 3)[:n_rays]
+    rd = batch["rays_d"].reshape(-1, 3)[:n_rays]
+    rd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    check(ro.shape[0] == n_rays, f"the sampler gave {ro.shape[0]} rays, {n_rays} needed")
+    t_near, t_far = ray_bbox_intersect(ro, rd, radius, 0.05)
+    gen = torch.Generator(device=device).manual_seed(4)
+    u = (torch.arange(n_samples, device=device) + torch.rand((n_rays, n_samples), generator=gen,
+                                                             device=device)) / n_samples
+    t = t_near[:, None] + (t_far - t_near)[:, None] * u
+    pts = ro[:, None] + t[..., None] * rd[:, None]
+    return ((pts + radius) / (2 * radius)).clamp(0.0, 1.0).reshape(-1, 3).contiguous()
+
+
+def hashgrid_cases(torch, cams, device):
+    """name -> (config, tables, x, cotangents wanted): the main path's shape
+    and the adversarial ones."""
+    from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+
+    geo = stage1_configs()[0]
+    hg = geo.hashgrid
+    gen = torch.Generator(device=device).manual_seed(2)
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=device)  # noqa: E731
+    # the 1e-4 init scaled up, so that rounding differences would show
+    tables = 0.2 * rnd(hg.n_levels, 1 << hg.log2_hashmap_size, 16) - 0.1
+    main = ray_sample_points(torch, cams, S1_CHUNK_RAYS, S1_SAMPLES, geo.radius, device)
+    faces = torch.cat([torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [1.0, 0.0, 0.5]], device=device),
+                       torch.randint(0, 17, (2045, 3), generator=gen, device=device) / 16.0,
+                       torch.randint(0, 4096, (2048, 3), generator=gen, device=device) / 4095.0])
+    small = HashGridConfig(n_levels=16, n_features_per_level=2, log2_hashmap_size=8,
+                           base_resolution=4, per_level_scale=1.447269237440378, layout="cell")
+    cases = {"main_chunk": (hg, tables, main, "both")}
+    for n in (1, 257, 1000):
+        cases[f"n={n}"] = (hg, tables, rnd(n, 3), "both")
+    cases["one_cell"] = (hg, tables, 0.3 + 1e-5 * rnd(4096, 3), "both")
+    cases["cell_faces"] = (hg, tables, faces, "both")
+    cases["only_g_feats"] = (hg, tables, main[:65536], "feats")
+    cases["only_g_dfeats"] = (hg, tables, main[:65536], "dfeats")
+    cases["table_2^8"] = (small, 0.2 * rnd(16, 256, 16) - 0.1, rnd(20000, 3), "both")
+    return cases
+
+
+def check_hashgrid(torch, hc, cases):
+    """B4 and B5 against their plain versions.
+
+    Forward, per level: |feats| within FEAT_TOL = 1e-6 and |dfeats| within
+    DFEAT_TOL = 1e-5 of the level's largest value in the plain result — the
+    kernel sums the eight corners in another order and with fused
+    multiply-adds; cell and fraction are the plain version's bit for bit
+    (dfeats carry the level's resolution, up to 4095).  Backward, per level:
+    within GRAD_TOL = 1e-4 of the level's largest gradient — float32 sums over
+    all points of a cell, by atomics in a run-dependent order against
+    ``index_add_``.  Returns the worst errors and the gradient's norm of the
+    main case."""
+    worst = {"feats_rel": 0.0, "dfeats_rel": 0.0, "fwd_abs": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}
+    for name, (cfg, tables, x, which) in cases.items():
+        L = cfg.n_levels
+        f_k, d_k = hc.encode_cell_fwd_cuda(tables, x, cfg)
+        f_only, none = hc.encode_cell_fwd_cuda(tables, x, cfg, with_dfeats=False)
+        f_p, d_p = hc.encode_cell_fwd_plain(tables, x, cfg)
+        torch.cuda.synchronize()
+        check(none is None and torch.isfinite(f_k).all() and torch.isfinite(d_k).all(),
+              f"B4 {name}: non-finite kernel output")
+        N = x.shape[0]
+        fk, fo, fp = (t.reshape(N, L, 2) for t in (f_k, f_only, f_p))
+        dk, dp = d_k.reshape(N, L, 6), d_p.reshape(N, L, 6)
+        f_scale = fp.abs().amax(dim=(0, 2)).clamp_min(1e-30)
+        d_scale = dp.abs().amax(dim=(0, 2)).clamp_min(1e-30)
+        f_rel = float(((fk - fp).abs().amax(dim=(0, 2)) / f_scale).max())
+        fo_rel = float(((fo - fp).abs().amax(dim=(0, 2)) / f_scale).max())
+        d_rel = float(((dk - dp).abs().amax(dim=(0, 2)) / d_scale).max())
+        check(f_rel <= FEAT_TOL and fo_rel <= FEAT_TOL,
+              f"B4 {name}: feats {max(f_rel, fo_rel):.3g} > {FEAT_TOL} of a level's max")
+        check(d_rel <= DFEAT_TOL, f"B4 {name}: dfeats {d_rel:.3g} > {DFEAT_TOL} of a level's max")
+        worst["feats_rel"] = max(worst["feats_rel"], f_rel, fo_rel)
+        worst["dfeats_rel"] = max(worst["dfeats_rel"], d_rel)
+        worst["fwd_abs"] = max(worst["fwd_abs"], float((f_k - f_p).abs().max()),
+                               float((d_k - d_p).abs().max()))
+
+        gen = torch.Generator(device=x.device).manual_seed(5)
+        g_f = torch.randn(f_k.shape, generator=gen, device=x.device) if which != "dfeats" else None
+        g_d = torch.randn(d_k.shape, generator=gen, device=x.device) if which != "feats" else None
+        t_k = hc.encode_cell_bwd_cuda(x, cfg, g_f, g_d)
+        t_p = hc.encode_cell_bwd_plain(x, cfg, g_f, g_d)
+        torch.cuda.synchronize()
+        check(torch.isfinite(t_k).all(), f"B5 {name}: non-finite kernel output")
+        g_scale = t_p.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        g_abs = (t_k - t_p).abs().amax(dim=(1, 2))
+        g_rel = float((g_abs / g_scale).max())
+        check(g_rel <= GRAD_TOL, f"B5 {name}: table gradient {g_rel:.3g} > {GRAD_TOL} of a level's max")
+        worst["bwd_rel"] = max(worst["bwd_rel"], g_rel)
+        worst["bwd_abs"] = max(worst["bwd_abs"], float(g_abs.max()))
+        rows = int((t_p.abs().amax(-1) > 0).sum())
+        print(f"B4/B5 {name}: N {N}, L {L}, T {tables.shape[1]}, cotangents {which}: |d| / level max "
+              f"feats {max(f_rel, fo_rel):.2g} (limit {FEAT_TOL}) dfeats {d_rel:.2g} (limit "
+              f"{DFEAT_TOL}) table gradient {g_rel:.2g} (limit {GRAD_TOL}); rows with a gradient "
+              f"{rows}, largest |gradient| {float(t_p.abs().max()):.4g}")
+
+    # a level mask with zeros, through the differentiable entry: the kernels
+    # against the plain versions inside the same autograd.Function
+    cfg, tables, x, _ = cases["n=1000"]
+    mask = torch.ones(cfg.n_levels, device=x.device)
+    mask[3::4] = 0.0
+    got = {}
+    for plain in (False, True):
+        t = tables.clone().requires_grad_(True)
+        feats, dfeats = hc.encode_cell_with_grad({"tables": t}, cfg, x, level_mask=mask, plain=plain)
+        (feats.sin().sum() + 1e-3 * dfeats.cos().sum()).backward()
+        got[plain] = (feats.detach(), dfeats.detach(), t.grad)
+    torch.cuda.synchronize()
+    check(float(got[False][0][:, 6:8].abs().max()) == 0.0 and float(got[False][1][:, 6:8].abs().max()) == 0.0
+          and float(got[False][2][3].abs().max()) == 0.0, "level mask: a masked level is not zero")
+    mask_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got[False], got[True]))
+    print(f"B4/B5 level mask with zeros (autograd through both kernels vs the plain versions): "
+          f"max |d| / max {mask_rel:.2g} (limit {GRAD_TOL})")
+    check(mask_rel <= GRAD_TOL, "level mask: kernels and plain versions disagree")
+    return worst
+
+
+def hashgrid_bounds(torch, cfg, x):
+    """The least time the card could take for one B4 or B5 launch on these
+    points: the bytes each must move over 3.35 TB/s — the points, the table
+    rows that the points touch (each once: unique rows x 64 B; B5 writes the
+    whole zeroed table instead) and the (N, 2L) + (N, 2L, 3) outputs or
+    cotangents — and its FP32 operations over 67 TFLOP/s: per (point, level)
+    15 for cell and fraction, 35 for the eight weight chains and 128 (B4) or
+    176 (B5) for the eight-corner sums."""
+    from dreammesh4d_tpu_torch.ops.hashgrid import cell_indices
+
+    N, L, T = x.shape[0], cfg.n_levels, 1 << cfg.log2_hashmap_size
+    idx = cell_indices(cfg, x)
+    unique_rows = sum(int(torch.unique(idx[l]).numel()) for l in range(L))
+    io = 4 * N * (3 + 2 * L * 4)
+    out = {}
+    for kernel, table_bytes, ops in (("hashgrid_cell_fwd", 64 * unique_rows, 15 + 35 + 128),
+                                     ("hashgrid_cell_bwd", 64 * L * T, 15 + 35 + 176)):
+        n_bytes, n_ops = io + table_bytes, N * L * ops
+        t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS
+        out[kernel] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+                       n_bytes, n_ops)
+    return out, unique_rows
+
+
+def sphere_reference(torch, c2w, hw, fovy_deg, device):
+    """Rays of the reference camera and a synthetic reference image: the
+    analytic silhouette of a sphere of radius 0.5 at the origin, coloured by
+    its surface normal (a smooth colour), on white."""
+    from dreammesh4d_tpu_torch.ops.cameras import get_ray_directions, get_rays
+
+    focal = 0.5 * hw / math.tan(0.5 * math.radians(fovy_deg))
+    ro, rd = get_rays(get_ray_directions(hw, hw, focal, device=device), c2w)
+    b = (ro * rd).sum(-1)
+    disc = b * b - ((ro * ro).sum(-1) - 0.25)
+    mask = (disc > 0).float()[:, None]
+    hit = ro + (-b - torch.sqrt(disc.clamp_min(0.0)))[:, None] * rd
+    rgb = (0.5 + hit) * mask + (1.0 - mask)  # |hit| = 0.5 on the sphere
+    return {"ref_rays_o": ro, "ref_rays_d": rd, "ref_rgb": rgb, "ref_mask": mask,
+            "ref_light": torch.tensor([0.0, 0.0, 3.0], device=device)}
+
+
+def drive_stage1(torch, np, hc, card, device):
+    """The stage-1 training main path and the export pass.  Returns the
+    launch counts of the main path, ms per step, the peak memory, the
+    geometry config, the trained parameters and a callable that takes one
+    more first-milestone step (for the profile)."""
+    from dreammesh4d_tpu_torch.data.uncond import RandomCameraSampler
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import init_implicit_volume
+    from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import (init_occgrid,
+                                                                             make_occgrid_update)
+    from dreammesh4d_tpu_torch.ops.cameras import make_c2w_numpy
+    from dreammesh4d_tpu_torch.ops.hashgrid import progressive_level_mask
+    from dreammesh4d_tpu_torch.systems.zero123_system import init_nerf_state, make_zero123_train_step
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    geo, rcfg, losses, material, cams = stage1_configs()
+    ambient_only_steps = 100000  # system.material.ambient_only_steps
+
+    def guidance_stand_in(guidance_state, generator, rgb, batch):
+        return ((rgb - 0.5) ** 2).mean()
+
+    steps = {g: make_zero123_train_step(geo, rcfg, losses, material,
+                                        guidance_fn=guidance_stand_in if g else None, device=device)
+             for g in (True, False)}
+    occ_update = make_occgrid_update(geo, rcfg, device=device)
+    c2w = torch.as_tensor(make_c2w_numpy(5.0, 0.0, 3.8), device=device)
+    refs = {hw: sphere_reference(torch, c2w, hw, 20.0, device) for hw in S1_REF_HW}
+    for hw, ref in refs.items():
+        cover = float(ref["ref_mask"].mean())
+        print(f"stage 1 reference {hw}x{hw}: silhouette covers {cover:.4f} of the pixels")
+        check(0.05 < cover < 0.9, "the synthetic reference silhouette is degenerate")
+    sampler = RandomCameraSampler(cams, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = init_nerf_state(
+        init_implicit_volume(geo, torch.Generator(device=device).manual_seed(0), device=device),
+        lr=0.01, betas=(0.9, 0.99), eps=1e-8, device=device)
+    before = [p.detach().clone() for p in tree_leaves(state.geo_params)]
+    occ = [init_occgrid(rcfg, device=device)]
+    occ_share = []
+
+    def one_step(state, step, ref_hw, sampler_step, guidance=True):
+        """``Zero123Experiment.train_step`` written out: milestone shapes,
+        level mask, ambient ratio, the occupancy update, then the step."""
+        sampler.update(sampler_step)
+        rand = sampler.sample()
+        batch = {**refs[ref_hw], "rand_rays_o": rand["rays_o"], "rand_rays_d": rand["rays_d"],
+                 "light_positions": rand["light_positions"], "elevation": rand["elevation"],
+                 "azimuth": rand["azimuth"], "camera_distances": rand["camera_distances"]}
+        lm = progressive_level_mask(geo.hashgrid, step)
+        ambient = 1.0 if step < ambient_only_steps else 0.1 + 0.9 * float(np.random.rand())
+        updated = step % rcfg.grid_update_every == 0
+        if updated:
+            occ[0] = occ_update(occ[0], state.geo_params, gen, torch.as_tensor(lm, device=device))
+            occ_share.append(float(occ[0].binary.mean()))
+        n_rays = batch["ref_rays_o"].shape[0], rand["rays_o"][..., 0].numel()
+        return steps[guidance](state, batch, gen, lm, ambient, None, occ[0]), n_rays, updated
+
+    def predicted(n_rays, updated):
+        """B4 / B5 launches of one step: an encode per 8192-ray chunk of the
+        reference view, two per chunk of the random views (the samples and
+        the perturbed samples of the 3D normal smoothness); each encode runs
+        once in the forward and once more when its chunk is rematerialised,
+        and has one backward; the occupancy update adds one forward."""
+        fwd = bwd = 0
+        for n, per_chunk in zip(n_rays, (1, 2)):
+            encodes = -(-n // S1_CHUNK_RAYS) * per_chunk
+            fwd += encodes * (2 if n > S1_CHUNK_RAYS else 1)
+            bwd += encodes
+        return fwd + int(updated), bwd
+
+    def run(label, n_steps, first_step, ref_hw, sampler_step, guidance, state):
+        hc.reset_launch_counts()
+        want = [0, 0]
+        ms, history = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, metrics), n_rays, updated = one_step(state, first_step + i, ref_hw,
+                                                         sampler_step, guidance)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            history.append({k: float(v) for k, v in metrics.items()})
+            fwd, bwd = predicted(n_rays, updated)
+            want[0] += fwd
+            want[1] += bwd
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts, plain = dict(hc.launch_counts), dict(hc.plain_counts)
+        per_step = predicted(n_rays, False)
+        print(f"[{card}] stage 1 {label}: {n_steps} steps, reference {n_rays[0]} rays + random "
+              f"{n_rays[1]} rays; launches {json.dumps(counts)}, predicted B4 {want[0]} B5 {want[1]} "
+              f"({per_step[0]} + {per_step[1]} per step, + 1 B4 per occupancy update); plain "
+              f"versions {json.dumps(plain)}; {statistics.median(ms[1:] or ms):.2f} ms/step (median "
+              f"after the first; all: {', '.join(f'{x:.0f}' for x in ms)}); peak memory {peak:.2f} GiB")
+        check(counts["hashgrid_cell_fwd"] == want[0], f"{label}: B4 launches != predicted")
+        check(counts["hashgrid_cell_bwd"] == want[1], f"{label}: B5 launches != predicted")
+        check(sum(plain.values()) == 0, f"{label}: the plain version ran on the card")
+        check(all(math.isfinite(v) for m in history for v in m.values()), f"{label}: non-finite metric")
+        check(("loss_sds" in history[0]) == guidance, f"{label}: unexpected metrics")
+        return state, history, counts, statistics.median(ms[1:] or ms), peak
+
+    results = {}
+    state, hist, counts_first, results["first_ms"], results["first_peak"] = run(
+        "first milestone", S1_FIRST_STEPS, 0, S1_REF_HW[0], 0, True, state)
+    pair = [h["loss_rgb"] + h["loss_mask"] for h in hist]
+    print("metrics: " + ", ".join(sorted(hist[0])))
+    print(f"  loss_rgb + loss_mask: step 0 {pair[0]:.6g} -> step {len(pair) - 1} {pair[-1]:.6g}; "
+          f"psnr {hist[0]['psnr']:.4g} -> {hist[-1]['psnr']:.4g}; occupied share of the grid after "
+          f"each update: {', '.join(f'{x:.4f}' for x in occ_share)}")
+    check(pair[-1] < pair[0], "loss_rgb + loss_mask did not fall over the first-milestone steps")
+    check(len(occ_share) >= 2 and occ_share[1] < 1.0, "the second occupancy update pruned nothing")
+    check(state.step == S1_FIRST_STEPS, "the step counter did not advance")
+    after = tree_leaves(state.geo_params)
+    check(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameter after training")
+    moved = [float((a.detach() - b).abs().max()) for a, b in zip(after, before)]
+    print(f"parameters moved (max |delta|): tables {moved[0]:.3g}, MLP leaves "
+          f"{min(moved[1:]):.3g}..{max(moved[1:]):.3g}")
+    check(min(moved) > 0, "a parameter leaf did not change")
+
+    # the last milestone's shapes from the same state (steps numbered on,
+    # so that no occupancy update falls into the timed steps)
+    last_step = rcfg.grid_update_every * (S1_FIRST_STEPS // rcfg.grid_update_every + 1) + 1
+    milestone = cams.resolution_milestones[-1]
+    state, hist_last, counts_last, results["last_ms"], results["last_peak"] = run(
+        "last milestone", S1_LAST_STEPS, last_step, S1_REF_HW[1], milestone, True, state)
+    snapshot = tree_map(lambda p: p.detach().clone(), state.geo_params)
+
+    def fresh():
+        return init_nerf_state(snapshot, lr=0.01, betas=(0.9, 0.99), eps=1e-8, step=last_step + 8,
+                               device=device)
+
+    _, _, _, results["first_bare_ms"], _ = run("first milestone, guidance_fn=None", S1_BARE_STEPS,
+                                               last_step + 8, S1_REF_HW[0], 0, False, fresh())
+    _, _, _, results["last_bare_ms"], _ = run("last milestone, guidance_fn=None", S1_BARE_STEPS,
+                                              last_step + 8, S1_REF_HW[1], milestone, False, fresh())
+    # all rays at once (no chunks, no rematerialisation) at the first
+    # milestone: what the chunking saves
+    steps["whole"] = make_zero123_train_step(geo, dataclasses.replace(rcfg, ray_chunk_train=0), losses,
+                                             material, guidance_fn=guidance_stand_in, device=device)
+    s = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):  # the first step of this shape also grows the allocator's pool
+        hc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (s, _), n_rays, _ = one_step(s, last_step + 8, S1_REF_HW[0], 0, "whole")
+        torch.cuda.synchronize()
+        results["whole_ms"] = (time.perf_counter() - t0) * 1e3
+    results["whole_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] stage 1 first milestone, all {sum(n_rays)} rays at once (ray_chunk_train=0): "
+          f"launches per step {json.dumps(hc.launch_counts)}, {results['whole_ms']:.2f} ms (the second "
+          f"of two steps), peak memory {results['whole_peak']:.2f} GiB")
+    check(hc.launch_counts["hashgrid_cell_fwd"] == 3 and hc.launch_counts["hashgrid_cell_bwd"] == 3,
+          "ray_chunk_train=0: expected 3 encodes, each with one backward")
+
+    launches = {k: counts_first[k] + counts_last[k] for k in counts_first}
+    profile_state = [fresh()]
+
+    def profiled_step():
+        (profile_state[0], _), _, _ = one_step(profile_state[0], last_step + 8, S1_REF_HW[0], 0, True)
+
+    return launches, results, geo, state.geo_params, profiled_step
+
+
+def drive_export(torch, np, hc, card, geo, params):
+    """The export pass: the dense density grid of the isosurface export,
+    through B4 (features only), checked at random cells against the plain
+    version."""
+    from dreammesh4d_tpu_torch.models.geometry import implicit_volume as iv
+    from dreammesh4d_tpu_torch.ops.hashgrid import hashgrid_encode_cell
+
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = iv.export_density_grid(params, geo, EXPORT_RES)
+    seconds = time.perf_counter() - t0
+    counts = dict(hc.launch_counts)
+    n_chunks = -(-EXPORT_RES ** 3 // 65536)
+    check(grid.shape == (EXPORT_RES,) * 3 and np.isfinite(grid).all(), "export: bad density grid")
+    check(counts["hashgrid_cell_fwd"] == n_chunks and counts["hashgrid_cell_bwd"] == 0
+          and sum(hc.plain_counts.values()) == 0, f"export: launches {counts}, expected {n_chunks} B4")
+    rng = np.random.default_rng(0)
+    ijk = rng.integers(0, EXPORT_RES, (4096, 3))
+    lin = np.linspace(-geo.radius, geo.radius, EXPORT_RES, dtype=np.float32)
+    pts = torch.as_tensor(lin[ijk], device=params["density_mlp"][0]["w"].device)
+    with torch.no_grad():
+        enc = hashgrid_encode_cell(params["encoding"], geo.hashgrid, iv._contract(geo, pts))
+        ref = iv._activate_density(geo, iv._mlp_apply(params["density_mlp"], enc)
+                                   + iv.density_bias(geo, pts))[:, 0].cpu().numpy()
+    got = grid[ijk[:, 0], ijk[:, 1], ijk[:, 2]]
+    err = float(np.abs(got - ref).max())
+    print(f"[{card}] export_density_grid {EXPORT_RES}^3: {seconds:.2f} s, {counts['hashgrid_cell_fwd']} "
+          f"B4 launches (features only), 0 B5; density in [{grid.min():.4g}, {grid.max():.4g}], "
+          f"{float((grid > 1.0).mean()):.4f} of the cells above 1; 4096 cells vs the plain version: "
+          f"max |d| {err:.3g} (limit 1e-4 x {max(float(np.abs(ref).max()), 1.0):.3g})")
+    check(err <= 1e-4 * max(float(np.abs(ref).max()), 1.0), "export: density differs from the plain version")
+    check(float((grid > 1.0).mean()) > 0, "export: the grid holds no density")
+    return counts["hashgrid_cell_fwd"], seconds
+
+
 def kernel_bounds(args, stats, table_rows, per_pair):
     """The least time the card could take for one backward launch on these
     inputs: bytes (rows, pairs, starts, counts, out and cotangent read once,
@@ -511,6 +947,7 @@ def main():
     sys.path.insert(0, REPO)
     try:
         from dreammesh4d_tpu_torch import cuda_build
+        from dreammesh4d_tpu_torch.ops import hashgrid_cell as hc
         from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
         from dreammesh4d_tpu_torch.serving import Viewer4D
     except ImportError as e:
@@ -557,6 +994,9 @@ def main():
             old = bwd_err.get(k, (0.0, 0.0))
             bwd_err[k] = (max(old[0], rel), max(old[1], absolute))
 
+    hg_cases = hashgrid_cases(torch, stage1_configs()[4], dev)
+    hg_err = check_hashgrid(torch, hc, hg_cases)
+
     # 4. the serving main path, through the entry points a user calls
     rb.reset_launch_counts()
     frame0 = viewer.render(5.0, 0.0, 3.8, t=0.0)
@@ -594,7 +1034,11 @@ def main():
     train_launches, pair_launches, step_ms, one_step = drive_training(
         torch, np, rb, card, make_step, sample_batch, dparams, dev)
 
-    # 6. times (CUDA events, median of 30 after warm-up)
+    # 6. the stage-1 training main path, 7. the export pass
+    s1_launches, s1, s1_geo, s1_params, s1_step = drive_stage1(torch, np, hc, card, dev)
+    export_launches, export_s = drive_export(torch, np, hc, card, s1_geo, s1_params)
+
+    # 8. times (CUDA events, median of 30 after warm-up)
     args = cases[7]["main_view"]
     b1_ms = time_ms(torch, lambda: rb.blend_pairs_cuda(*args))
     plain_ms = time_ms(torch, lambda: rb.blend_pairs_plain(*args))
@@ -628,19 +1072,49 @@ def main():
         red_ms = time_ms(torch, lambda: rb.reduce_pair_grads(pp, *seg[1:], seg[0].shape[0]))
         print(f"[{card}] B3's reduction outside the kernel (index_add_ of {pp.shape[0] * pp.shape[1]} "
               f"rows) C={C}: {red_ms:.4f} ms")
+    hg_cfg, hg_tables, hg_x, _ = hg_cases["main_chunk"]
+    hg_bound, hg_rows = hashgrid_bounds(torch, hg_cfg, hg_x)
+    gen5 = torch.Generator(device=dev).manual_seed(5)
+    g_f = torch.randn((hg_x.shape[0], hg_cfg.out_dim), generator=gen5, device=dev)
+    g_d = torch.randn((hg_x.shape[0], hg_cfg.out_dim, 3), generator=gen5, device=dev)
+    hg_ms = {
+        "hashgrid_cell_fwd": (time_ms(torch, lambda: hc.encode_cell_fwd_cuda(hg_tables, hg_x, hg_cfg), reps=10),
+                              time_ms(torch, lambda: hc.encode_cell_fwd_plain(hg_tables, hg_x, hg_cfg), n=5)),
+        "hashgrid_cell_bwd": (time_ms(torch, lambda: hc.encode_cell_bwd_cuda(hg_x, hg_cfg, g_f, g_d), reps=10),
+                              time_ms(torch, lambda: hc.encode_cell_bwd_plain(hg_x, hg_cfg, g_f, g_d), n=5)),
+    }
+    feats_only_ms = time_ms(
+        torch, lambda: hc.encode_cell_fwd_cuda(hg_tables, hg_x, hg_cfg, with_dfeats=False), reps=10)
+    bwd_feats_only_ms = time_ms(torch, lambda: hc.encode_cell_bwd_cuda(hg_x, hg_cfg, g_f, None), reps=10)
+    gathered = 64 * hg_x.shape[0] * hg_cfg.n_levels
+    for kernel, kid in (("hashgrid_cell_fwd", "B4"), ("hashgrid_cell_bwd", "B5")):
+        b_ms, b_by, nb, no = hg_bound[kernel]
+        print(f"[{card}] {kid} {kernel} at {hg_x.shape[0]} points x {hg_cfg.n_levels} levels: "
+              f"{hg_ms[kernel][0]:.4f} ms (plain {hg_ms[kernel][1]:.4f} ms; bound {b_ms:.4f} ms by {b_by}: "
+              f"{nb} B with the {hg_rows} rows touched read once, {no} ops; {gathered} B of rows are "
+              f"gathered)")
+    print(f"[{card}] B4 features only (with_dfeats=False): {feats_only_ms:.4f} ms; B5 from g_feats only: "
+          f"{bwd_feats_only_ms:.4f} ms")
     print(f"[{card}] Viewer4D.render {RES}x{RES}: {render_ms:.3f} ms; play({VIDEO_LEN}): {play_ms:.2f} ms "
           f"= {VIDEO_LEN * 1e3 / play_ms:.1f} frames/s")
     print(f"[{card}] train step: {step_ms:.2f} ms/step")
     profile_call(torch, "render", lambda: viewer.render(5.0, 0.0, 3.8, t=0.25), card)
     profile_call(torch, "train step", one_step, card)
+    print(f"[{card}] stage-1 train step: first milestone {s1['first_ms']:.2f} ms/step "
+          f"({s1['first_bare_ms']:.2f} with guidance_fn=None; {s1['whole_ms']:.2f} unchunked), peak "
+          f"{s1['first_peak']:.2f} GiB (unchunked {s1['whole_peak']:.2f} GiB); last milestone "
+          f"{s1['last_ms']:.2f} ms/step ({s1['last_bare_ms']:.2f} with guidance_fn=None), peak "
+          f"{s1['last_peak']:.2f} GiB; export {EXPORT_RES}^3: {export_s:.2f} s")
+    profile_call(torch, "stage-1 train step (first milestone)", s1_step, card)
 
-    # 7. result lines
+    # 9. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu, "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
+    hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"
     b2, b3 = bwd["resident_bwd_accum", 4], bwd["resident_bwd_pairs", 4]
     print(json.dumps({"kernels": [
         entry("resident_fwd", "B1", "dreammesh4d_tpu_torch/csrc/resident_fwd.cu",
@@ -656,6 +1130,15 @@ def main():
               "ops/gs/pallas_resident.py::_bwd_kernel", pair_launches["resident_bwd_pairs"],
               bwd_err["resident_bwd_pairs"][1], *b3, max_rel_err=bwd_err["resident_bwd_pairs"][0],
               n_channels=4, ms_c7=bwd["resident_bwd_pairs", 7][0]),
+        entry("hashgrid_cell_fwd", "B4", hg_src, "dreammesh4d_tpu/ops/hashgrid_pallas.py:224",
+              "ops/hashgrid_pallas.py::_fwd_kernel", s1_launches["hashgrid_cell_fwd"],
+              hg_err["fwd_abs"], *hg_ms["hashgrid_cell_fwd"], *hg_bound["hashgrid_cell_fwd"][:2],
+              max_rel_err=hg_err["dfeats_rel"], max_rel_err_feats=hg_err["feats_rel"],
+              launches_export=export_launches, ms_features_only=feats_only_ms),
+        entry("hashgrid_cell_bwd", "B5", hg_src, "dreammesh4d_tpu/ops/hashgrid_pallas.py:251",
+              "ops/hashgrid_pallas.py::_bwd_kernel", s1_launches["hashgrid_cell_bwd"],
+              hg_err["bwd_abs"], *hg_ms["hashgrid_cell_bwd"], *hg_bound["hashgrid_cell_bwd"][:2],
+              max_rel_err=hg_err["bwd_rel"], ms_g_feats_only=bwd_feats_only_ms),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

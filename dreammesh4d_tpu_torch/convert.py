@@ -18,7 +18,13 @@ are read back as Python values.  This module imports no jax.
   ``init_dyn_state`` on both sides);
 - :func:`config` — a JAX config dataclass / NamedTuple as the port's
   (``DeformationConfig``, ``DynamicSuGaRConfig``, ``SuGaRConfig``,
-  ``RasterizerConfig``).
+  ``RasterizerConfig``);
+- stage 1: :func:`hashgrid_config`, :func:`implicit_volume_config`,
+  :func:`nerf_renderer_config`, :func:`zero123_losses`,
+  :func:`implicit_volume_params` (the tree ``{"encoding": {"tables"},
+  "density_mlp": [{w, b}, …], "feature_mlp": […]}``), :func:`occgrid_state`
+  and :func:`nerf_train_state` (optax Adam's ``mu`` / ``nu`` / ``count``
+  become ``exp_avg`` / ``exp_avg_sq`` / ``step``).
 """
 
 from __future__ import annotations
@@ -30,10 +36,15 @@ import torch
 
 from .models.geometry.deformation import DeformationConfig
 from .models.geometry.dynamic_sugar import DynamicStatic, DynamicSuGaRConfig
+from .models.geometry.implicit_volume import ImplicitVolumeConfig
 from .models.geometry.sugar import SuGaRConfig, SuGaRParams, SuGaRStatic
+from .models.renderers.nerf_volume_renderer import NeRFRendererConfig, OccGridState
 from .models.renderers.sugar_rasterizer import CameraBatch
 from .ops.gs.rasterize import RasterizerConfig
+from .ops.hashgrid import HashGridConfig
 from .systems.sugar_4dgen import DynTrainState, Sugar4DGenLosses, init_dyn_state
+from .systems.zero123_system import NeRFTrainState, Zero123Losses, init_nerf_state
+from .utils.tree import tree_leaves
 
 
 def _get(src, name):
@@ -125,3 +136,55 @@ def config(src):
         fields["deformation"] = DeformationConfig(**fields["deformation"])
         return DynamicSuGaRConfig(**fields)
     raise TypeError(f"no port counterpart for {name}")
+
+
+# --- stage 1: the implicit volume, its renderer and the zero123 step --------
+
+
+def hashgrid_config(src) -> HashGridConfig:
+    return HashGridConfig(**dataclasses.asdict(src))
+
+
+def implicit_volume_config(src) -> ImplicitVolumeConfig:
+    fields = dataclasses.asdict(src)
+    fields["hashgrid"] = HashGridConfig(**fields["hashgrid"])
+    return ImplicitVolumeConfig(**fields)
+
+
+def nerf_renderer_config(src) -> NeRFRendererConfig:
+    return NeRFRendererConfig(**dataclasses.asdict(src))
+
+
+def zero123_losses(src) -> Zero123Losses:
+    return Zero123Losses(**dataclasses.asdict(src))
+
+
+def implicit_volume_params(tree, device="cuda"):
+    """The ``init_implicit_volume`` tree as float32 tensors (same nesting)."""
+    return deformation_params(tree, device)
+
+
+def occgrid_state(src, device="cuda") -> OccGridState:
+    return OccGridState(_f32(_get(src, "occ"), device), _f32(_get(src, "binary"), device))
+
+
+def nerf_train_state(src, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8,
+                     device="cuda") -> NeRFTrainState:
+    """``src``: the JAX ``NeRFTrainState`` (or a dict) with ``geo_params``,
+    ``step`` and optionally ``opt_state`` as numpy.  Without ``opt_state``
+    Adam starts from zero moments; with optax Adam's state
+    (``(ScaleByAdamState(count, mu, nu), …)``) its moments and count are
+    carried over."""
+    state = init_nerf_state(implicit_volume_params(_get(src, "geo_params"), "cpu"), lr=lr,
+                            betas=betas, eps=eps, step=int(_item(_get(src, "step"))), device=device)
+    opt_state = src.get("opt_state") if isinstance(src, dict) else getattr(src, "opt_state", None)
+    if opt_state is not None:
+        # optax.adam's state is (ScaleByAdamState, EmptyState); the first alone is taken too
+        adam = opt_state if isinstance(opt_state, dict) or hasattr(opt_state, "mu") else opt_state[0]
+        mu = tree_leaves(implicit_volume_params(_get(adam, "mu"), device))
+        nu = tree_leaves(implicit_volume_params(_get(adam, "nu"), device))
+        count = float(_item(_get(adam, "count")))
+        for p, m, v in zip(tree_leaves(state.geo_params), mu, nu):
+            state.opt_state.state[p] = {"step": torch.tensor(count), "exp_avg": m.clone(),
+                                        "exp_avg_sq": v.clone()}
+    return state

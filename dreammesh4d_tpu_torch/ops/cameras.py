@@ -1,19 +1,72 @@
-"""Gaussian-splatting camera math (counterpart of the GS half of
-``dreammesh4d_tpu/ops/cameras.py:132-222``).
+"""Camera and ray math (counterpart of ``dreammesh4d_tpu/ops/cameras.py``).
 
-Cameras are OpenGL-style c2w matrices (camera looks down -z, y up); the GS
-path flips (y, z) to COLMAP convention and builds ROW-MAJOR world->view and
-projection transforms (row-vector convention: p' = [p, 1] @ M).  All
-functions broadcast over a leading batch axis and compute in float32.
+Cameras are OpenGL-style c2w matrices (camera looks down -z, y up).  NeRF
+rays use them as they are (:func:`get_ray_directions`, :func:`get_rays`);
+the GS path flips (y, z) to COLMAP convention and builds ROW-MAJOR
+world->view and projection transforms (row-vector convention:
+p' = [p, 1] @ M).  All functions broadcast over a leading batch axis and
+compute in float32.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .quaternion import cross
+
+
+def get_ray_directions(H: int, W: int, focal: Union[float, Tuple[float, float]],
+                       principal: Optional[Tuple[float, float]] = None,
+                       use_pixel_centers: bool = True, device="cuda") -> torch.Tensor:
+    """Per-pixel ray directions in the camera frame (H, W, 3); -z forward."""
+    pixel_center = 0.5 if use_pixel_centers else 0.0
+    if isinstance(focal, (int, float)):
+        fx = fy = float(focal)
+        cx, cy = W / 2.0, H / 2.0
+    else:
+        fx, fy = focal
+        if principal is None:
+            raise ValueError("a (fx, fy) focal needs the principal point")
+        cx, cy = principal
+    i, j = torch.meshgrid(
+        torch.arange(W, dtype=torch.float32, device=device) + pixel_center,
+        torch.arange(H, dtype=torch.float32, device=device) + pixel_center, indexing="xy")
+    return torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)], -1)
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor, keepdim: bool = False,
+             normalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame directions -> world rays (rays_o, rays_d), for
+    directions (N,3) / (H,W,3) / (B,H,W,3) with c2w (4,4) / (B,4,4)."""
+    if directions.shape[-1] != 3:
+        raise ValueError(f"directions must end in 3, got {tuple(directions.shape)}")
+    if directions.ndim == 2:
+        if c2w.ndim == 2:
+            c2w = c2w[None]
+        rays_d = (directions[:, None, :] * c2w[:, :3, :3]).sum(-1)
+        rays_o = c2w[:, :3, 3].expand(rays_d.shape)
+    elif directions.ndim == 3:
+        if c2w.ndim == 2:
+            rays_d = (directions[:, :, None, :] * c2w[None, None, :3, :3]).sum(-1)
+            rays_o = c2w[None, None, :3, 3].expand(rays_d.shape)
+        else:
+            rays_d = (directions[None, :, :, None, :] * c2w[:, None, None, :3, :3]).sum(-1)
+            rays_o = c2w[:, None, None, :3, 3].expand(rays_d.shape)
+    elif directions.ndim == 4:
+        if c2w.ndim != 3:
+            raise ValueError("(B,H,W,3) directions need (B,4,4) c2w")
+        rays_d = (directions[:, :, :, None, :] * c2w[:, None, None, :3, :3]).sum(-1)
+        rays_o = c2w[:, None, None, :3, 3].expand(rays_d.shape)
+    else:
+        raise ValueError(f"Unsupported directions rank {directions.ndim}")
+    if normalize:
+        rays_d = rays_d / (torch.linalg.norm(rays_d, dim=-1, keepdim=True) + 1e-12)
+    if not keepdim:
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    return rays_o, rays_d
 
 
 def convert_pose(c2w: torch.Tensor) -> torch.Tensor:
@@ -102,3 +155,17 @@ def look_at_c2w(camera_position: torch.Tensor, center: Optional[torch.Tensor] = 
     c2w[:, :3, 3] = pos
     c2w[:, 3, 3] = 1.0
     return c2w if batched else c2w[0]
+
+
+def binary_cross_entropy(inputs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """BCE written out, inputs clipped to [1e-6, 1 - 1e-6]."""
+    eps = 1e-6
+    x = torch.clamp(inputs, eps, 1.0 - eps)
+    return -(target * torch.log(x) + (1 - target) * torch.log(1 - x)).mean()
+
+
+def make_c2w_numpy(elevation_deg: float, azimuth_deg: float, distance: float,
+                   center=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """OpenGL c2w (4, 4) as numpy, computed on the host."""
+    pos = camera_position_from_spherical(elevation_deg, azimuth_deg, distance, device="cpu")
+    return look_at_c2w(pos, torch.as_tensor(center, dtype=torch.float32)).numpy()

@@ -32,7 +32,10 @@ print(len(names), " ".join(names), bad, sep="|")
 """
 
 NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule", "utils.tree",
-               "ops.meshops", "ops.gs.resident_blend", "models.geometry.deformation", "convert")
+               "ops.meshops", "ops.gs.resident_blend", "models.geometry.deformation", "convert",
+               "ops.hashgrid", "ops.hashgrid_cell", "models.geometry.implicit_volume",
+               "models.materials", "models.renderers.nerf_volume_renderer", "data.uncond",
+               "ops.cameras")
 
 
 def test_port_imports_no_jax():
@@ -41,7 +44,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 39
     for name in NEW_MODULES:
         assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad
@@ -66,6 +69,37 @@ def test_train_entry_points_default_to_cuda():
     leaf = state.deform_params["trunk"][0]["w"]
     assert leaf.requires_grad and leaf.is_leaf and state.step == 0
     assert callable(make_dynamic_train_step(*args, device="cpu"))
+
+
+def test_stage1_entry_points_default_to_cuda():
+    from dreammesh4d_tpu_torch.data.uncond import RandomCameraConfig, RandomCameraSampler
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import (ImplicitVolumeConfig,
+                                                                        init_implicit_volume)
+    from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import (
+        NeRFRendererConfig, init_occgrid, make_occgrid_update)
+    from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+    from dreammesh4d_tpu_torch.systems.zero123_system import Zero123Losses, make_zero123_train_step
+
+    geo = ImplicitVolumeConfig(hashgrid=HashGridConfig(n_levels=2, log2_hashmap_size=6, layout="cell"),
+                               n_neurons=4)
+    rcfg = NeRFRendererConfig(grid_resolution=2)
+    cam_cfg = RandomCameraConfig(height=4, width=4, batch_size=1)
+    makers = (lambda **kw: init_implicit_volume(geo, **kw)["encoding"]["tables"],
+                lambda **kw: init_occgrid(rcfg, **kw).binary,
+                lambda **kw: RandomCameraSampler(cam_cfg, **kw).sample()["rays_o"])
+    for build in makers:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+        assert build(device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            make_occgrid_update(geo, rcfg)
+        with pytest.raises((RuntimeError, AssertionError)):
+            make_zero123_train_step(geo, rcfg, Zero123Losses())
+    assert callable(make_zero123_train_step(geo, rcfg, Zero123Losses(), device="cpu"))
 
 
 def _tiny_scene(device):
