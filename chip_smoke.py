@@ -17,14 +17,22 @@ Phases, each of which fails the run on a failed check:
    cell hash-grid encode (B4, ``hashgrid_cell_fwd``) and its table-gradient
    backward (B5, ``hashgrid_cell_bwd``) at 524,288 points sampled along
    rays, 16 levels of 2^16 rows, and at odd sizes, one shared cell, points on
-   cell faces, a level mask, single cotangents and a 2^8-row table;
+   cell faces, a level mask, single cotangents and a 2^8-row table; the
+   (T, K)-table compositing (B6, ``table_fwd``) and its replay backward (B7,
+   ``table_bwd``) on the inputs the static refine scene's renders hand B6
+   (recorded during one evaluation render, C = 7, and one rgb-only
+   ``render_batch``, C = 4: 512², T = 1024, K = 2048), and at a tile at and one over capacity, empty
+   tiles, tiles that exit in their first group, one Gaussian over the whole
+   image and a row count that is no multiple of the group;
 4. the serving main path — ``Viewer4D.render / orbit / play`` — at the full
    width of ``configs/sugar_dynamic_dg.yaml`` (icosphere(4) SuGaR mesh:
    30,720 Gaussians, SH 3; 1000-node geodesic graph, hybrid skinning;
    HexPlane 64-wide, 32 channels, [64,64,64,25] × [1,2,4,8]; 512², tile 32,
    capacity 2048, 6 tiles per Gaussian; fovy 20°, distance 3.8, elevation
    5°), with random weights from a seed and the deformation heads perturbed;
-   launch counts are zeroed just before and read just after;
+   launch counts are zeroed just before and read just after; then one
+   ``Viewer4D.render`` with ``backend: pallas`` (16-px tiles, 16 tiles per
+   Gaussian: one B6 launch) against the ``pallas_resident`` frame;
 5. the dynamic-stage training main path — ``make_dynamic_train_step`` →
    ``train_step`` on the same scene with the YAML's loss weights, 4 of 32
    frames per step of a target video rendered once from a second,
@@ -57,13 +65,23 @@ Phases, each of which fails the run on a failed check:
    ``guidance_fn=None``; B4/B5 launch counts are held to what the code path
    predicts;
 7. the export pass — ``export_density_grid`` at 256³ through B4;
-8. CUDA-event times (median of 30 after warm-up), ms per train step, peak
+8. the static SuGaR refine main path — ``make_static_train_step`` →
+   ``train_step`` at the full width of ``configs/sugar_static_refine.yaml``
+   (the icosphere(4) mesh with 6 Gaussians per face, SH 3, the YAML's
+   geometry, loss weights and learning rates through ``sugar_optimizer``,
+   ``invert_bg_prob`` 1, no guidance; 1 reference + 4 random views at 512²,
+   fovy 20°, distance 3.8; the reference image rendered once from a perturbed
+   copy of the parameters), driven from the same start on the YAML's
+   ``pallas_resident`` (B1/B2) and on ``backend: pallas`` with 16 tiles per
+   Gaussian (B6/B7), with the launches of each held to 5 + 5 per step;
+9. CUDA-event times (median of 30 after warm-up), ms per train step, peak
    memory and profiles of one render and one train step of each stage;
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {...}}``.
+10. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+    last line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -75,8 +93,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-# sources; resident_bwd holds B2 and B3, hashgrid_cell B4 and B5
-KERNELS = ["resident_fwd", "resident_bwd", "hashgrid_cell"]
+# sources; resident_bwd holds B2 and B3, hashgrid_cell B4 and B5, table_blend B6 and B7
+KERNELS = ["resident_fwd", "resident_bwd", "hashgrid_cell", "table_blend"]
 N_TIMED = 30
 RES = 512  # image side of every render
 MESH_LEVEL = 4  # icosphere subdivisions: 5120 faces x 6 = 30,720 Gaussians
@@ -94,6 +112,11 @@ S1_FIRST_STEPS = 18  # steps 0..17: the occupancy update runs at steps 0 and 16
 S1_LAST_STEPS = 3
 S1_BARE_STEPS = 2  # steps with guidance_fn=None at each milestone
 EXPORT_RES = 256
+# stage 4 (configs/sugar_static_refine.yaml)
+STATIC_STEPS = 10
+STATIC_RAND_VIEWS = 4  # data.random_camera.batch_size
+STATIC_M = 16  # max_tiles_per_gaussian with backend: pallas (the YAML's 6 counts 32-px tiles)
+TABLE_FWD_TOL = 1e-5  # B6 vs plain, max |d| over every channel
 FEAT_TOL = 1e-6  # B4 feats vs plain, of each level's max |feats|
 DFEAT_TOL = 1e-5  # B4 dfeats vs plain, of each level's max |dfeats| (they carry the resolution)
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
@@ -915,6 +938,325 @@ def drive_export(torch, np, hc, card, geo, params):
     return counts["hashgrid_cell_fwd"], seconds
 
 
+def static_configs():
+    """configs/sugar_static_refine.yaml at full width: the geometry, the
+    YAML's rasterizer config (``pallas_resident``, 32-px tiles) and the same
+    with ``backend: pallas`` and 16 tiles per Gaussian, the loss weights and
+    the optimizer's learning rates."""
+    from dreammesh4d_tpu_torch.models.geometry.sugar import SuGaRConfig
+    from dreammesh4d_tpu_torch.ops.gs.rasterize import RasterizerConfig
+    from dreammesh4d_tpu_torch.systems.sugar_static import SugarStaticLosses
+
+    geo = SuGaRConfig(n_gaussians_per_surface_triangle=6, sh_degree=3, init_gs_opacity=0.9,
+                      init_gs_scales_s=1.3, spatial_extent=3.8)
+    t = math.tan(math.radians(20.0) / 2)
+    resident = RasterizerConfig(RES, RES, t, t, tile_capacity=2048, max_tiles_per_gaussian=6,
+                                chunk=32, backend="pallas_resident", bf16_matmuls=True,
+                                binning="pairs", stream_rows=True, tile_px=32)
+    table = resident._replace(backend="pallas", max_tiles_per_gaussian=STATIC_M)
+    losses = SugarStaticLosses(
+        lambda_sds=0.01, lambda_rgb=1000.0, lambda_mask=100.0, lambda_normal_consistency=10.0,
+        lambda_laplacian_smoothing=1.0, lambda_opacity_max=0.0, lambda_rgb_tv=1.0,
+        lambda_normal_tv=1.0, lambda_depth_tv=1.0, lambda_depth=0.0, lambda_depth_rel=0.0,
+        lambda_normal=0.0, lambda_normal_depth_consistency=0.0)
+    optimizer = dict(position_lr=0.00048, scaling_lr=0.005, feature_lr=0.001, opacity_lr=0.02,
+                     rotation_lr=0.001, spatial_lr_scale=1.0)
+    return geo, resident, table, losses, optimizer
+
+
+def static_scene(torch, np, device):
+    """The refine stage's scene: the icosphere(4) mesh of ``full_width_scene``
+    turned by a seeded rotation (no mirror plane of the mesh then holds a
+    camera axis, so no two overlapping Gaussians tie in depth) and coloured
+    by a smooth seeded field; returns (params, static, target params) — the
+    target is the same mesh 2 % larger under a second colour field."""
+    from dreammesh4d_tpu_torch.models.geometry.sugar import create_sugar, gaussian_centers
+    from dreammesh4d_tpu_torch.ops.sh import rgb_to_sh_dc
+    from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
+
+    rng = np.random.default_rng(0)
+    mesh = make_icosphere(MESH_LEVEL, radius=0.6)
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    mesh.v_pos = (mesh.v_pos @ rot.T).astype(np.float32)
+    freq, phase = rng.uniform(2.0, 5.0, (2, 3)), rng.uniform(0.0, 2 * np.pi, (2, 3))
+    colour = lambda i: (0.5 + 0.4 * np.sin(freq[i] * mesh.v_pos + phase[i])).astype(np.float32)  # noqa: E731
+    mesh.v_rgb = colour(0)
+    params, static = create_sugar(static_configs()[0], mesh, device=device)
+    pts = gaussian_centers(params.points, static).cpu().numpy()
+    rgb = (0.5 + 0.4 * np.sin(freq[1] * pts + phase[1])).astype(np.float32)
+    target = params._replace(points=params.points * 1.02,
+                             sh_dc=rgb_to_sh_dc(torch.as_tensor(rgb, device=device))[:, None, :])
+    return params, static, target
+
+
+def random_views(torch, np, rng, n, device):
+    """``n`` random cameras with the YAML's ranges: elevation [-10, 80]°,
+    azimuth [-180, 180]°, distance 3.8, fovy 20°."""
+    from dreammesh4d_tpu_torch.data.uncond import assemble_camera_batch
+
+    f32 = dict(dtype=torch.float32, device=device)
+    el = np.radians(rng.uniform(-10.0, 80.0, n))
+    az = np.radians(rng.uniform(-180.0, 180.0, n))
+    pos = torch.as_tensor(3.8 * np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                          np.sin(el)], -1), **f32)
+    up = torch.tensor([0.0, 0.0, 1.0], **f32).expand(pos.shape)
+    fovy = torch.full((n,), math.radians(20.0), **f32)
+    return assemble_camera_batch(pos, torch.zeros_like(pos), up, fovy, 0.01, 100.0)
+
+
+def reference_view(torch, device):
+    """The refine stage's reference camera: elevation 5°, azimuth 0°, distance 3.8."""
+    from dreammesh4d_tpu_torch.data.uncond import assemble_camera_batch
+
+    f32 = dict(dtype=torch.float32, device=device)
+    el = math.radians(5.0)
+    pos = torch.tensor([[3.8 * math.cos(el), 0.0, 3.8 * math.sin(el)]], **f32)
+    up = torch.tensor([[0.0, 0.0, 1.0]], **f32)
+    return assemble_camera_batch(pos, torch.zeros_like(pos), up,
+                                 torch.full((1,), math.radians(20.0), **f32), 0.01, 100.0)
+
+
+def captured_table_inputs(torch, tb, render):
+    """B6's inputs as the main path hands them over: runs ``render()`` once
+    under ``no_grad`` with recorders on ``table_blend.blend_table_cuda`` and
+    on the rasterizer's ``bin_gaussians``, and returns the first view's
+    (rows, tile_gauss, counts, tiles_x, group, C) and its tile report: the
+    largest tile count against K, and the Gaussians whose tile span exceeds
+    ``max_tiles_per_gaussian`` at 16 px and the YAML's 6 tiles of 32 px."""
+    # the module, not the function the package exports under its name
+    rz = importlib.import_module("dreammesh4d_tpu_torch.ops.gs.rasterize")
+
+    blends, binnings = [], []
+    real_blend, real_bin = tb.blend_table_cuda, rz.bin_gaussians
+
+    def record_blend(*args):
+        blends.append(args)
+        return real_blend(*args)
+
+    def record_bin(*args, **kw):
+        out = real_bin(*args, **kw)
+        binnings.append((args, out))
+        return out
+
+    tb.blend_table_cuda, rz.bin_gaussians = record_blend, record_bin
+    try:
+        with torch.no_grad():
+            render()
+    finally:
+        tb.blend_table_cuda, rz.bin_gaussians = real_blend, real_bin
+    check(len(blends) >= 1 and len(binnings) == len(blends), "the render did not reach B6 through the table")
+    (means2d, radii, _, mask, _, _, K, M), assign = binnings[0]
+
+    def spans(tile):
+        r = radii.float()
+        lo = lambda c: torch.floor((c - r) / tile)  # noqa: E731
+        hi = lambda c: torch.floor((c + r) / tile) + 1  # noqa: E731
+        n = (hi(means2d[:, 0]) - lo(means2d[:, 0])) * (hi(means2d[:, 1]) - lo(means2d[:, 1]))
+        return torch.where(mask & (radii > 0), n, torch.zeros_like(n))
+
+    report = {"max_tile_count": int(assign.tile_counts.max()), "K": K,
+              "over_M16_at_16px": int((spans(16) > M).sum()),
+              "over_M6_at_32px": int((spans(32) > 6).sum()), "visible": int(mask.sum())}
+    return blends[0], report
+
+
+def synthetic_table_inputs(torch, case, device, n_channels):
+    """Adversarial (T, K) tables at RES², K = 2048, group 128."""
+    from dreammesh4d_tpu_torch.ops.gs.binning import bin_gaussians
+    from dreammesh4d_tpu_torch.ops.gs.resident_blend import _pack_rows
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    rnd = lambda *s: torch.rand(s, generator=gen, device=device)  # noqa: E731
+    full = lambda n, v: torch.full((n,), v, device=device)  # noqa: E731
+    tiles, M = RES // 16, 16
+    if case == "capacity":  # 2048 faint splats inside one tile (at K), 3000 inside another (over)
+        n = 5048
+        corner = torch.tensor([[16.0, 16.0]] * 2048 + [[16.0 * (tiles - 3), 16.0 * (tiles // 2)]] * 3000,
+                              device=device)
+        means = corner + 5.0 + 6.0 * rnd(n, 2)  # radius 5: no pair leaves the tile
+        spread, op = full(n, 0.5), full(n, 0.005)
+    elif case == "empty_tiles":  # a small cluster: most tiles hold nothing
+        n = 200
+        means = 0.1 * RES + 0.1 * RES * rnd(n, 2)
+        spread, op = full(n, 0.3), 0.2 + 0.7 * rnd(n)
+    elif case == "first_group_exit":  # an opaque wall: the tiles it covers stop after one group
+        n = 600
+        means = 0.4 * RES + 0.2 * RES * rnd(n, 2)
+        spread, op = full(n, 0.002), full(n, 0.99)
+        M = tiles * tiles  # every tile the wall reaches holds all of it
+    elif case == "whole_image":  # one Gaussian reaching every pixel, over small splats
+        n = 501
+        means = torch.cat([full(1, RES / 2.0)[:, None].expand(1, 2), RES * rnd(n - 1, 2)])
+        spread = torch.cat([full(1, 12.0 / RES ** 2), full(n - 1, 0.05)])
+        op = torch.cat([full(1, 0.5), 0.2 + 0.7 * rnd(n - 1)])
+        M = tiles * tiles
+    else:  # "rows_1001": N + 1 = 1001 rows, no multiple of the group
+        n = 1000
+        means = RES * rnd(n, 2)
+        spread, op = 0.01 + 0.05 * rnd(n), 0.2 + 0.7 * rnd(n)
+    conics = torch.stack([spread, 0.1 * spread * (rnd(n) - 0.5), spread], -1)
+    depths = 1.0 + 2.0 * rnd(n)
+    radii = torch.ceil(3.0 / torch.sqrt(spread)).int()
+    assign = bin_gaussians(means, radii, depths, torch.ones(n, dtype=torch.bool, device=device),
+                           RES, RES, 2048, M, conics=conics, opacities=op)
+    colors = torch.cat([rnd(n, 6)[:, :n_channels - 1], depths[:, None]], -1)
+    rows = _pack_rows(means, conics, colors, op)
+    # the raw counts: the kernels cut them at K themselves
+    return (rows, assign.tile_gauss, assign.tile_counts, tiles, 128, n_channels)
+
+
+def check_table(torch, tb, cases):
+    """B6 and B7 against their plain versions.  Forward: every channel within
+    TABLE_FWD_TOL = 1e-5 — the live tests decide on bit-equal conic
+    quadratics and exponentials, and only the accumulation order differs.
+    Backward, on a seeded random cotangent: per column group (means, conic,
+    colours, opacity) within GRAD_TOL = 1e-4 of the group's max |value| in
+    the plain result, as for B2 (atomics in a run-dependent order against
+    ``index_add_``).  Returns the worst errors and the work of each case."""
+    groups = lambda C: (("means", slice(0, 2)), ("conic", slice(2, 5)),  # noqa: E731
+                        ("colours", slice(5, 5 + C)), ("opacity", slice(tb.OP_COL, tb.OP_COL + 1)))
+    worst = {"fwd_abs": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}
+    work = {}
+    for name, args in cases.items():
+        rows, tile_gauss, counts, tiles_x, group, C = args
+        stats_f, stats_b = {}, {}
+        out_k = tb.blend_table_cuda(*args)
+        out_p = tb.blend_table_plain(*args, stats=stats_f)
+        torch.cuda.synchronize()
+        check(torch.isfinite(out_k).all(), f"B6 {name}: non-finite kernel output")
+        err = float((out_k - out_p).abs().max())
+        gen = torch.Generator(device=rows.device).manual_seed(5)
+        cot = torch.randn(out_p.shape, generator=gen, device=rows.device)
+        g_k = tb.blend_table_bwd_cuda(rows, tile_gauss, counts, out_p, cot, tiles_x, group, C)
+        g_p = tb.blend_table_bwd_plain(rows, tile_gauss, counts, out_p, cot, tiles_x, group, C,
+                                       stats=stats_b)
+        torch.cuda.synchronize()
+        check(torch.isfinite(g_k).all(), f"B7 {name}: non-finite kernel output")
+        check(float(g_k[-1].abs().max()) == 0.0, f"B7 {name}: the sentinel row got a gradient")
+        line = []
+        for gname, sl in groups(C):
+            scale = float(g_p[:, sl].abs().max())
+            g_err = float((g_k[:, sl] - g_p[:, sl]).abs().max())
+            check(g_err <= GRAD_TOL * scale,
+                  f"B7 {name} C={C} {gname}: |d| {g_err:.3g} > {GRAD_TOL} x {scale:.3g}")
+            worst["bwd_rel"] = max(worst["bwd_rel"], g_err / max(scale, 1e-30))
+            worst["bwd_abs"] = max(worst["bwd_abs"], g_err)
+            line.append(f"{gname} {g_err / max(scale, 1e-30):.2g}")
+        raw = counts.long()
+        K = tile_gauss.shape[1]
+        print(f"B6/B7 {name} C={C}: tiles {raw.numel()}, entries {int(torch.clamp(raw, max=K).sum())}, "
+              f"largest count {int(raw.max())} (K {K}; at K {int((raw == K).sum())}, over "
+              f"{int((raw > K).sum())}), empty tiles {int((raw == 0).sum())}, entries walked "
+              f"{stats_f['pairs_read']}; B6 max|d| {err:.3g} (limit {TABLE_FWD_TOL}); B7 |d| / group "
+              f"max (limit {GRAD_TOL}): " + "; ".join(line))
+        check(err <= TABLE_FWD_TOL, f"B6 {name} C={C}: kernel vs plain {err:.3g} > {TABLE_FWD_TOL}")
+        check(stats_f == stats_b, f"B6/B7 {name}: the replay walked other entries than the forward")
+        worst["fwd_abs"] = max(worst["fwd_abs"], err)
+        work[name] = stats_f
+    return worst, work
+
+
+def table_bounds(args, stats, backward):
+    """The least time the card could take for one B6 or B7 launch on these
+    inputs: bytes (the rows and the counts, the index entries the tiles walk,
+    the output — or the output, its cotangent and the written gradient
+    table — once) over 3.35 TB/s, and FP32 operations over 67 TFLOP/s: 19
+    per evaluated (entry, pixel), and per composited one 3 + 2C (B6) or
+    24 + 4C (B7), as ``kernel_bounds`` counts them."""
+    rows, tile_gauss, counts, _, _, C = args
+    T, P = tile_gauss.shape[0], 256
+    blocks = (2 if backward else 1) * T * (C + 1) * P
+    n_bytes = 4 * (rows.numel() * (2 if backward else 1) + counts.numel() + stats["pairs_read"]
+                   + blocks)
+    n_ops = stats["pairs_read"] * P * 19 + stats["live_pixels"] * ((24 + 4 * C) if backward
+                                                                   else (3 + 2 * C))
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", n_bytes, n_ops
+
+
+def drive_static(torch, np, rb, tb, card, scene, device):
+    """The static refine main path on both backends from the same start and
+    the same batches; ``scene`` is (params, static, target params, reference
+    camera).  Returns the results of each backend (metrics, ms/step, peak
+    memory, launches) and, for the profiles, a callable per backend that
+    takes one more step."""
+    from dreammesh4d_tpu_torch.systems.sugar_static import (init_static_state, make_render_eval,
+                                                            make_static_train_step)
+
+    _, resident, table, losses, optimizer = static_configs()
+    params, static, target, ref_cams = scene
+    with torch.no_grad():
+        ref = make_render_eval(static, resident, device=device)(target, ref_cams)
+    ref_batch = {"ref_cameras": ref_cams, "ref_rgb": ref["comp_rgb"],
+                 "ref_mask": (ref["comp_mask"] > 0.5).float()}
+    cover = float(ref_batch["ref_mask"].mean())
+    print(f"static scene: {params.log_scales.shape[0]} gaussians, reference mask covers {cover:.4f}")
+    check(cover > 0.05, "the static reference image is empty")
+    rng = np.random.default_rng(1)
+    batches = [{**ref_batch, "rand_cameras": random_views(torch, np, rng, STATIC_RAND_VIEWS, device)}
+               for _ in range(STATIC_STEPS)]
+    views = 1 + STATIC_RAND_VIEWS
+    expected = {"pallas_resident": {"resident_fwd": views, "resident_bwd_accum": views},
+                "pallas": {"table_fwd": views, "table_bwd": views}}
+    results, profiled = {}, {}
+    for label, cfg in (("pallas_resident", resident), ("pallas", table)):
+        train_step = make_static_train_step(static, cfg, losses, guidance_fn=None, invert_bg_prob=1.0,
+                                            device=device)
+        state = init_static_state(params, optimizer, device=device)
+        before = [p.detach().clone() for p in state.params]
+        gen = torch.Generator().manual_seed(0)
+        rb.reset_launch_counts()
+        tb.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ms, history = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            history.append({k: float(v) for k, v in metrics.items()})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {**rb.launch_counts, **tb.launch_counts}
+        want = {k: STATIC_STEPS * expected[label].get(k, 0) for k in counts}
+        print(f"[{card}] static refine on {label}: {STATIC_STEPS} steps x {views} views, launches "
+              f"{json.dumps(counts)}; {statistics.median(ms[1:]):.2f} ms/step (median of steps "
+              f"2..{STATIC_STEPS}; all: {', '.join(f'{x:.1f}' for x in ms)}); peak memory {peak:.2f} GiB")
+        check(counts == want, f"static refine on {label}: launches {counts} != predicted {want}")
+        check(all(math.isfinite(v) for m in history for v in m.values()), f"{label}: non-finite metric")
+        check(state.step == STATIC_STEPS, f"{label}: the step counter did not advance")
+        moved = [float((a.detach() - b).abs().max()) for a, b in zip(state.params, before)]
+        print(f"  metrics: {', '.join(sorted(history[0]))}; loss_rgb step 0 {history[0]['loss_rgb']:.6g} "
+              f"-> step {STATIC_STEPS - 1} {history[-1]['loss_rgb']:.6g}, loss_total "
+              f"{history[0]['loss_total']:.6g} -> {history[-1]['loss_total']:.6g}; parameters moved "
+              f"(max |delta|): " + ", ".join(f"{f} {m:.3g}" for f, m in zip(params._fields, moved)))
+        check(history[-1]["loss_rgb"] < history[0]["loss_rgb"], f"{label}: loss_rgb did not fall")
+        check(min(moved[:2] + moved[3:4]) > 0, f"{label}: points, scales or colours did not move")
+        results[label] = dict(history=history, ms=statistics.median(ms[1:]), peak=peak,
+                              launches=counts)
+        profiled[label] = one_more_step(train_step, state, batches[0], gen)
+    # the two backends' first steps: the same losses on 16-px and 32-px tiles
+    first = {label: r["history"][0] for label, r in results.items()}
+    worst = 0.0
+    for k, ref_v in first["pallas_resident"].items():
+        d = abs(first["pallas"][k] - ref_v)
+        worst = max(worst, d / max(abs(ref_v), 1e-12))
+        check(d <= 3e-3 * abs(ref_v) + 1e-7,
+              f"first-step {k}: pallas {first['pallas'][k]:.8g} vs pallas_resident {ref_v:.8g}")
+    print(f"first-step metrics, pallas vs pallas_resident: max relative |d| {worst:.3g} (limit 3e-3)")
+    return results, profiled
+
+
+def one_more_step(train_step, state, batch, gen):
+    """A callable that advances ``state`` by one step of ``train_step``."""
+    box = [state]
+
+    def run():
+        box[0] = train_step(box[0], batch, gen)[0]
+
+    return run
+
+
 def kernel_bounds(args, stats, table_rows, per_pair):
     """The least time the card could take for one backward launch on these
     inputs: bytes (rows, pairs, starts, counts, out and cotangent read once,
@@ -949,7 +1291,11 @@ def main():
         from dreammesh4d_tpu_torch import cuda_build
         from dreammesh4d_tpu_torch.ops import hashgrid_cell as hc
         from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
+        from dreammesh4d_tpu_torch.ops.gs import table_blend as tb
+        from dreammesh4d_tpu_torch.models.geometry.sugar import gaussian_attributes
+        from dreammesh4d_tpu_torch.models.renderers.sugar_rasterizer import render_batch
         from dreammesh4d_tpu_torch.serving import Viewer4D
+        from dreammesh4d_tpu_torch.systems.sugar_static import make_render_eval
     except ImportError as e:
         fail(f"the port is not importable next to chip_smoke.py: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -997,6 +1343,43 @@ def main():
     hg_cases = hashgrid_cases(torch, stage1_configs()[4], dev)
     hg_err = check_hashgrid(torch, hc, hg_cases)
 
+    # B6/B7 at the static refine scene's reference view, and adversarial tables
+    static_params, static_sugar, static_target = static_scene(torch, np, dev)
+    ref_cams = reference_view(torch, dev)
+    table_cfg = static_configs()[2]
+    # C = 7: the static step's blend (rgb, face normals, depth) through its
+    # evaluation render; C = 4: the rgb-only blend of ``render_batch``
+    render_eval = make_render_eval(static_sugar, table_cfg, device=dev)
+    attrs = gaussian_attributes(static_params, static_sugar)
+    white = torch.ones(3, device=dev)
+    main_views = {
+        7: captured_table_inputs(torch, tb, lambda: render_eval(static_params, ref_cams)),
+        4: captured_table_inputs(torch, tb, lambda: render_batch(
+            attrs.means3d, attrs.quats, attrs.scales, attrs.opacities, attrs.sh, static_sugar.sh_degree,
+            None, ref_cams, white, table_cfg))}
+    report = main_views[7][1]
+    table_cases = {}
+    for C in (7, 4):
+        table_cases[C] = {"main_view": main_views[C][0]}
+        check(main_views[C][0][-1] == C, f"the captured main-view blend has {main_views[C][0][-1]} channels, not {C}")
+        for case in ("capacity", "empty_tiles", "first_group_exit", "whole_image", "rows_1001"):
+            table_cases[C][case] = synthetic_table_inputs(torch, case, dev, C)
+    print(f"static scene, reference view, backend pallas: {json.dumps(report)} (largest tile count "
+          f"against K; Gaussians whose tile span exceeds 16 tiles of 16 px, and 6 of 32 px)")
+    table_err, table_work = {"fwd_abs": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}, {}
+    for C in (7, 4):
+        worst, table_work[C] = check_table(torch, tb, table_cases[C])
+        table_err = {k: max(v, worst[k]) for k, v in table_err.items()}
+    cap_counts = table_cases[7]["capacity"][2]
+    check(int((cap_counts == 2048).sum()) >= 1 and int((cap_counts > 2048).sum()) >= 1,
+          "the capacity case has no tile at K and none over it")
+    check(int((table_cases[7]["empty_tiles"][2] == 0).sum()) >= 1, "the empty-tile case has no empty tile")
+    wall = table_cases[7]["first_group_exit"]
+    check(table_work[7]["first_group_exit"]["pairs_read"] < int(torch.clamp(wall[2], max=2048).sum()),
+          "the opaque wall did not stop any tile early")
+    check(int((table_cases[7]["whole_image"][2] > 0).sum()) == table_cases[7]["whole_image"][2].numel(),
+          "the whole-image Gaussian does not reach every tile")
+
     # 4. the serving main path, through the entry points a user calls
     rb.reset_launch_counts()
     frame0 = viewer.render(5.0, 0.0, 3.8, t=0.0)
@@ -1024,6 +1407,21 @@ def main():
     render_err = float(np.abs(plain_frame - frame0).max())
     print(f"render through the kernel vs through the plain blend: max|d| {render_err:.3g}")
     check(render_err <= 1e-4, "kernel render and plain render differ by more than 1e-4")
+    # the same frame with backend: pallas (16-px tiles, the (T, K) table, B6)
+    table_viewer = Viewer4D(params, static, dparams, dyn_cfg,
+                            raster_cfg._replace(backend="pallas", max_tiles_per_gaussian=STATIC_M),
+                            RES, RES, 20.0, VIDEO_LEN, device=dev)
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    table_frame = table_viewer.render(5.0, 0.0, 3.8, t=0.0)
+    torch.cuda.synchronize()
+    serving_table = {**rb.launch_counts, **tb.launch_counts}
+    table_render_err = float(np.abs(table_frame - frame0).max())
+    print(f"render with backend pallas: launches {json.dumps(serving_table)}; vs the pallas_resident "
+          f"frame max|d| {table_render_err:.3g} (limit 7e-4)")
+    check(serving_table == {"resident_fwd": 0, "resident_bwd_accum": 0, "resident_bwd_pairs": 0,
+                            "table_fwd": 1, "table_bwd": 0}, "backend pallas: expected one B6 launch")
+    check(table_render_err <= 7e-4, "backend pallas and pallas_resident frames differ by more than 7e-4")
 
     # 5. the training main path
     make_step, video, sample_batch = training_setup(torch, np, viewer, params, static, dparams,
@@ -1038,7 +1436,11 @@ def main():
     s1_launches, s1, s1_geo, s1_params, s1_step = drive_stage1(torch, np, hc, card, dev)
     export_launches, export_s = drive_export(torch, np, hc, card, s1_geo, s1_params)
 
-    # 8. times (CUDA events, median of 30 after warm-up)
+    # 8. the static refine main path on both backends
+    static_res, static_steps = drive_static(torch, np, rb, tb, card,
+                                            (static_params, static_sugar, static_target, ref_cams), dev)
+
+    # 9. times (CUDA events, median of 30 after warm-up)
     args = cases[7]["main_view"]
     b1_ms = time_ms(torch, lambda: rb.blend_pairs_cuda(*args))
     plain_ms = time_ms(torch, lambda: rb.blend_pairs_plain(*args))
@@ -1106,8 +1508,31 @@ def main():
           f"{s1['last_ms']:.2f} ms/step ({s1['last_bare_ms']:.2f} with guidance_fn=None), peak "
           f"{s1['last_peak']:.2f} GiB; export {EXPORT_RES}^3: {export_s:.2f} s")
     profile_call(torch, "stage-1 train step (first milestone)", s1_step, card)
+    table_ms = {}
+    for C in (7, 4):
+        a = table_cases[C]["main_view"]
+        rows, tile_gauss, counts, tiles_x, group, _ = a
+        out = tb.blend_table_cuda(*a)
+        cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        for kernel, kid, run, plain, backward in (
+                ("table_fwd", "B6", lambda: tb.blend_table_cuda(*a), lambda: tb.blend_table_plain(*a), False),
+                ("table_bwd", "B7", lambda: tb.blend_table_bwd_cuda(rows, tile_gauss, counts, out, cot,
+                                                                    tiles_x, group, C),
+                 lambda: tb.blend_table_bwd_plain(rows, tile_gauss, counts, out, cot, tiles_x, group, C),
+                 True)):
+            ms = time_ms(torch, run, reps=10)
+            p_ms = time_ms(torch, plain, n=5)
+            b_ms, b_by, nb, no = table_bounds(a, table_work[C]["main_view"], backward)
+            table_ms[kernel, C] = (ms, p_ms, b_ms, b_by)
+            print(f"[{card}] {kid} {kernel} C={C} (T {tile_gauss.shape[0]}, K {tile_gauss.shape[1]}, "
+                  f"{table_work[C]['main_view']['pairs_read']} entries walked): {ms:.4f} ms (plain "
+                  f"{p_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nb} B, {no} ops)")
+    for label, r in static_res.items():
+        print(f"[{card}] static refine step on {label} (1 + {STATIC_RAND_VIEWS} views at {RES}x{RES}): "
+              f"{r['ms']:.2f} ms/step, peak memory {r['peak']:.2f} GiB")
+        profile_call(torch, f"static refine step ({label})", static_steps[label], card)
 
-    # 9. result lines
+    # 10. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu, "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1115,17 +1540,22 @@ def main():
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"
+    table_src = "dreammesh4d_tpu_torch/csrc/table_blend.cu"
+    static_table = static_res["pallas"]["launches"]
+    static_resident = static_res["pallas_resident"]["launches"]
     b2, b3 = bwd["resident_bwd_accum", 4], bwd["resident_bwd_pairs", 4]
     print(json.dumps({"kernels": [
         entry("resident_fwd", "B1", "dreammesh4d_tpu_torch/csrc/resident_fwd.cu",
               "dreammesh4d_tpu/ops/gs/pallas_resident.py:121", "ops/gs/pallas_resident.py::_fwd_kernel",
               launches["resident_fwd"] + train_launches["resident_fwd"], b1_err, b1_ms, plain_ms,
               bound_ms, bound_by, max_abs_diff=b1_err, launches_serving=launches["resident_fwd"],
-              launches_training=train_launches["resident_fwd"]),
+              launches_training=train_launches["resident_fwd"],
+              launches_static=static_resident["resident_fwd"]),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
               "ops/gs/pallas_resident.py::_bwd_kernel_accum", train_launches["resident_bwd_accum"],
               bwd_err["resident_bwd_accum"][1], *b2, max_rel_err=bwd_err["resident_bwd_accum"][0],
-              n_channels=4, ms_c7=bwd["resident_bwd_accum", 7][0]),
+              n_channels=4, ms_c7=bwd["resident_bwd_accum", 7][0],
+              launches_static=static_resident["resident_bwd_accum"]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",
               "ops/gs/pallas_resident.py::_bwd_kernel", pair_launches["resident_bwd_pairs"],
               bwd_err["resident_bwd_pairs"][1], *b3, max_rel_err=bwd_err["resident_bwd_pairs"][0],
@@ -1139,6 +1569,15 @@ def main():
               "ops/hashgrid_pallas.py::_bwd_kernel", s1_launches["hashgrid_cell_bwd"],
               hg_err["bwd_abs"], *hg_ms["hashgrid_cell_bwd"], *hg_bound["hashgrid_cell_bwd"][:2],
               max_rel_err=hg_err["bwd_rel"], ms_g_feats_only=bwd_feats_only_ms),
+        entry("table_fwd", "B6", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:286",
+              "ops/gs/pallas_blend.py::_fwd_kernel", static_table["table_fwd"] + serving_table["table_fwd"],
+              table_err["fwd_abs"], *table_ms["table_fwd", 7], n_channels=7,
+              launches_static=static_table["table_fwd"], launches_serving=serving_table["table_fwd"],
+              ms_c4=table_ms["table_fwd", 4][0]),
+        entry("table_bwd", "B7", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:316",
+              "ops/gs/pallas_blend.py::_bwd_kernel", static_table["table_bwd"], table_err["bwd_abs"],
+              *table_ms["table_bwd", 7], max_rel_err=table_err["bwd_rel"], n_channels=7,
+              ms_c4=table_ms["table_bwd", 4][0]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ are read back as Python values.  This module imports no jax.
   :func:`implicit_volume_params` (the tree ``{"encoding": {"tables"},
   "density_mlp": [{w, b}, …], "feature_mlp": […]}``), :func:`occgrid_state`
   and :func:`nerf_train_state` (optax Adam's ``mu`` / ``nu`` / ``count``
-  become ``exp_avg`` / ``exp_avg_sq`` / ``step``).
+  become ``exp_avg`` / ``exp_avg_sq`` / ``step``);
+- stage 4: :func:`sugar_static_losses` and :func:`static_train_state` (the
+  params and the ``optax.multi_transform`` Adam moments of every
+  ``SuGaRParams`` field).  ``RasterizerConfig`` crosses over through
+  :func:`config` as it is.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from .models.renderers.sugar_rasterizer import CameraBatch
 from .ops.gs.rasterize import RasterizerConfig
 from .ops.hashgrid import HashGridConfig
 from .systems.sugar_4dgen import DynTrainState, Sugar4DGenLosses, init_dyn_state
+from .systems.sugar_static import StaticTrainState, SugarStaticLosses, init_static_state
 from .systems.zero123_system import NeRFTrainState, Zero123Losses, init_nerf_state
 from .utils.tree import tree_leaves
 
@@ -177,14 +182,51 @@ def nerf_train_state(src, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8
     carried over."""
     state = init_nerf_state(implicit_volume_params(_get(src, "geo_params"), "cpu"), lr=lr,
                             betas=betas, eps=eps, step=int(_item(_get(src, "step"))), device=device)
-    opt_state = src.get("opt_state") if isinstance(src, dict) else getattr(src, "opt_state", None)
+    opt_state = _opt_state(src)
     if opt_state is not None:
         # optax.adam's state is (ScaleByAdamState, EmptyState); the first alone is taken too
         adam = opt_state if isinstance(opt_state, dict) or hasattr(opt_state, "mu") else opt_state[0]
         mu = tree_leaves(implicit_volume_params(_get(adam, "mu"), device))
         nu = tree_leaves(implicit_volume_params(_get(adam, "nu"), device))
-        count = float(_item(_get(adam, "count")))
         for p, m, v in zip(tree_leaves(state.geo_params), mu, nu):
-            state.opt_state.state[p] = {"step": torch.tensor(count), "exp_avg": m.clone(),
-                                        "exp_avg_sq": v.clone()}
+            _set_adam(state.opt_state, p, _get(adam, "count"), m, v)
+    return state
+
+
+def _opt_state(src):
+    return src.get("opt_state") if isinstance(src, dict) else getattr(src, "opt_state", None)
+
+
+def _set_adam(optimizer: torch.optim.Optimizer, param: torch.Tensor, count, mu, nu) -> None:
+    """optax Adam's ``count`` / ``mu`` / ``nu`` of one leaf as torch Adam's state."""
+    optimizer.state[param] = {"step": torch.tensor(float(_item(count))), "exp_avg": mu.clone(),
+                              "exp_avg_sq": nu.clone()}
+
+
+# --- stage 4: the static SuGaR refine step ---------------------------------
+
+
+def sugar_static_losses(src) -> SugarStaticLosses:
+    return SugarStaticLosses(**dataclasses.asdict(src))
+
+
+def static_train_state(src, optimizer=None, device="cuda") -> StaticTrainState:
+    """``src``: the JAX static ``TrainState`` (or a dict) with ``params``,
+    ``step`` and optionally ``opt_state`` as numpy; ``optimizer`` the
+    keyword arguments of ``sugar_optimizer`` (the schedules are not part of
+    the JAX state).  Without ``opt_state`` Adam starts from zero moments;
+    with the ``optax.multi_transform`` state of ``sugar_optimizer`` —
+    ``inner_states[field].inner_state[0]`` a ``ScaleByAdamState`` whose
+    ``mu`` / ``nu`` hold that field and masked nodes elsewhere — every
+    field's moments and count are carried over."""
+    state = init_static_state(sugar_params(_get(src, "params"), "cpu"), optimizer,
+                              step=int(_item(_get(src, "step"))), device=device)
+    opt_state = _opt_state(src)
+    if opt_state is not None:
+        inner = _get(opt_state, "inner_states")
+        for field, param in zip(SuGaRParams._fields, state.params):
+            adam = _get(inner[field], "inner_state")[0]
+            _set_adam(state.opt_state, param, _get(adam, "count"),
+                      _f32(_get(_get(adam, "mu"), field), device),
+                      _f32(_get(_get(adam, "nu"), field), device))
     return state

@@ -24,17 +24,8 @@
 //   accum: grads (N+1, 16) f32;  pairs: grads (T, cap, 16) f32
 //   columns [d_mx, d_my, d_ca, d_cb, d_cc, d_c_0..d_c_{C-1}, 0.., d_op@14, 0]
 //
-// Per tile, pixel p, pair i (front to back), with g = cot:
-//   S = sum_c out[c] g[c] + g[C] out[C]
-//   alpha_i, live exactly as the forward (resident_fwd.cu); raw = op exp(power)
-//   w_i = alpha_i T_excl;  gdotc_i = sum_c colour_i[c] g[c]
-//   prefix_i = sum_{j<=i} gdotc_j w_j
-//   d_alpha = T_excl gdotc_i - (S - prefix_i) / max(1 - alpha_i, 1e-6)
-//   d_power = (raw > 0.99 ? 0 : d_alpha) alpha_i      (zero where not live)
-//   summed over the tile's pixels: s0 = sum d_power, sx = sum d_power dx, ...
-//   d_mx = -(ca sx + cb sy), d_my = -(cc sy + cb sx), d_ca = -sxx/2,
-//   d_cb = -sxy, d_cc = -syy/2, d_colour[c] = sum w_i g[c],
-//   d_op = s0 / max(op, 1e-12)
+// Per tile, pixel and pair (front to back): the replay step and the block
+// reduction of blend_common.cuh, with the forward's live test.
 // The tile stops before a group of `group` pairs once every pixel's replayed
 // transmittance is <= 1e-4: the same vote, on the same products, as the
 // forward, so both agree about which pairs exist.
@@ -48,25 +39,13 @@
 // block sums and emits the 32 rows together, so there are three barriers per
 // 32 pairs instead of one per pair.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kRow = 16;
-constexpr int kOpCol = 14;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPixelsPerThread = 4;  // tile * tile <= 1024
-constexpr int kChunk = 32;              // pairs staged and reduced together
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using namespace blend;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kMaxPixelsPerThread = 4;  // tile * tile <= 1024
 
 template <int C, bool PER_PAIR>
 __global__ void __launch_bounds__(kThreads)
@@ -76,8 +55,7 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
                     float* __restrict__ grads, int tiles_x, int tile, int cap, int group) {
   __shared__ float4 srow4[kChunk * (kRow / 4)];
   __shared__ int sidx[kChunk];
-  __shared__ float spart[kWarps][kChunk][kRow];
-  __shared__ unsigned char sflag[kWarps][kChunk];
+  __shared__ Partials part;
   const float* srow = reinterpret_cast<const float*>(srow4);
 
   const int t = blockIdx.x;
@@ -125,107 +103,34 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
 
     for (int c0 = g0; c0 < g_end; c0 += kChunk) {
       const int n = min(kChunk, g_end - c0);
-      for (int i = threadIdx.x; i < n * (kRow / 4); i += kThreads) {
-        const int idx = pairs[start + c0 + (i >> 2)];
-        if ((i & 3) == 0) sidx[i >> 2] = idx;
-        srow4[i] = rows[static_cast<size_t>(idx) * (kRow / 4) + (i & 3)];
-      }
+      stage_rows(srow4, sidx, rows, pairs + start + c0, n);
       __syncthreads();
 
       for (int j = 0; j < n; ++j) {
         const float* r = srow + j * kRow;
-        const float mx = r[0], my = r[1], ca = r[2], cb = r[3], cc = r[4];
-        const float op = r[kOpCol];
-        float col[C], dcol[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          col[c] = r[5 + c];
-          dcol[c] = 0.0f;
-        }
-        float s0 = 0.0f, sx = 0.0f, sy = 0.0f, sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
+        Sums<C> sums;
+        sums.zero();
         bool any_live = false;
 #pragma unroll
         for (int k = 0; k < kMaxPixelsPerThread; ++k) {
           if (k >= n_pix) break;
-          const float dx = mx - px[k];
-          const float dy = my - py[k];
-          const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-          const float raw = op * expf(power);
-          const float alpha = fminf(kAlphaMax, raw);
-          if (power <= 0.0f && power >= -4.5f && alpha >= kAlphaMin && valid[k]) {
+          const Hit h = evaluate(r, px[k], py[k]);
+          if (h.live && valid[k]) {
             any_live = true;
-            const float w = alpha * trans[k];
-            float gdotc = 0.0f;
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-              gdotc += col[c] * gc[k][c];
-              dcol[c] += w * gc[k][c];
-            }
-            prefix[k] += gdotc * w;
-            const float one_m = fmaxf(1.0f - alpha, 1e-6f);
-            const float d_alpha = trans[k] * gdotc - (s_tot[k] - prefix[k]) / one_m;
-            const float d_power = (raw > kAlphaMax) ? 0.0f : d_alpha * alpha;
-            const float t1 = d_power * dx;
-            const float t2 = d_power * dy;
-            s0 += d_power;
-            sx += t1;
-            sy += t2;
-            sxx += t1 * dx;
-            sxy += t1 * dy;
-            syy += t2 * dy;
-            trans[k] *= (1.0f - alpha);
+            replay<C>(r, h, gc[k], s_tot[k], trans[k], prefix[k], sums);
           }
         }
-        // a warp none of whose pixels composites this pair adds nothing
-        const bool warp_live = __any_sync(0xffffffffu, any_live);
-        if (warp_live) {
-          s0 = warp_sum(s0);
-          sx = warp_sum(sx);
-          sy = warp_sum(sy);
-          sxx = warp_sum(sxx);
-          sxy = warp_sum(sxy);
-          syy = warp_sum(syy);
-#pragma unroll
-          for (int c = 0; c < C; ++c) dcol[c] = warp_sum(dcol[c]);
-          if (lane == 0) {
-            float* pr = spart[warp][j];
-            pr[0] = -(ca * sx + cb * sy);
-            pr[1] = -(cc * sy + cb * sx);
-            pr[2] = -0.5f * sxx;
-            pr[3] = -sxy;
-            pr[4] = -0.5f * syy;
-#pragma unroll
-            for (int c = 0; c < C; ++c) pr[5 + c] = dcol[c];
-#pragma unroll
-            for (int c = 5 + C; c < kRow; ++c) pr[c] = 0.0f;
-            pr[kOpCol] = s0 / fmaxf(op, 1e-12f);
-          }
-        }
-        if (lane == 0) sflag[warp][j] = warp_live ? 1 : 0;
+        warp_partial<C>(r, any_live, sums, part, j);
       }
       __syncthreads();
 
-      // sum the warps' partial rows and emit them
-      for (int i = threadIdx.x; i < n * kRow; i += kThreads) {
-        const int j = i >> 4;
-        const int c = i & (kRow - 1);
-        if (c >= 5 + C && c != kOpCol) continue;  // structurally zero columns
-        float v = 0.0f;
-        bool any = false;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          if (sflag[w][j]) {
-            v += spart[w][j][c];
-            any = true;
-          }
-        }
-        if (!any) continue;
+      emit_rows<C>(part, n, [&](int j, int c, float v) {
         if (PER_PAIR) {
           grads[(static_cast<size_t>(t) * cap + (c0 + j)) * kRow + c] = v;
         } else {
           atomicAdd(grads + static_cast<size_t>(sidx[j]) * kRow + c, v);
         }
-      }
+      });
       // the next chunk's staging rewrites sidx, which the emit still reads
       __syncthreads();
     }

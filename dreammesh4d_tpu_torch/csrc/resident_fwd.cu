@@ -17,13 +17,10 @@
 //          transmittance; pixel p = y * tile + x inside the tile.
 //
 // Semantics shared with the plain version (resident_blend.blend_pairs_plain)
-// and the TPU kernel:
-//   power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy, dx = mx - px, px = tile
-//           origin + x (no +0.5);  alpha = min(0.99, op exp(power));
-//   a pair is live iff -4.5 <= power <= 0 and alpha >= 1/255;
-//   only the first min(count, cap) pairs of a segment are read;
-//   the tile stops before a group of `group` pairs once every pixel's
-//   transmittance is <= 1e-4 (one __syncthreads_or per group).
+// and the TPU kernel: the live test and the forward step of blend_common.cuh,
+// with px = tile origin + x; only the first min(count, cap) pairs of a
+// segment are read; the tile stops before a group of `group` pairs once every
+// pixel's transmittance is <= 1e-4 (one __syncthreads_or per group).
 //
 // Bound on this card: the work is (live pairs) x (pixels) exp + ~30 FP32
 // operations with no reuse across tiles, so it is bounded by operations,
@@ -32,17 +29,13 @@
 // reads the same row (a broadcast), so the inner loop is pure register
 // arithmetic on 4 pixels per thread.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kRow = 16;
-constexpr int kOpCol = 14;
-constexpr int kThreads = 256;
+using namespace blend;
+
 constexpr int kMaxPixelsPerThread = 4;  // tile * tile <= 1024
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -81,32 +74,16 @@ resident_fwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
     if (!__syncthreads_or(alive)) break;
 
     const int n = min(group, count - g0);
-    for (int i = threadIdx.x; i < n * (kRow / 4); i += kThreads) {
-      const int idx = pairs[start + g0 + (i >> 2)];
-      smem4[i] = rows[static_cast<size_t>(idx) * (kRow / 4) + (i & 3)];
-    }
+    stage_rows(smem4, nullptr, rows, pairs + start + g0, n);
     __syncthreads();
 
     for (int j = 0; j < n; ++j) {
       const float* r = srow + j * kRow;
-      const float mx = r[0], my = r[1], ca = r[2], cb = r[3], cc = r[4];
-      const float op = r[kOpCol];
-      float col[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) col[c] = r[5 + c];
 #pragma unroll
       for (int k = 0; k < kMaxPixelsPerThread; ++k) {
         if (k >= n_pix) break;
-        const float dx = mx - px[k];
-        const float dy = my - py[k];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float alpha = fminf(kAlphaMax, op * expf(power));
-        if (power <= 0.0f && power >= -4.5f && alpha >= kAlphaMin) {
-          const float w = alpha * trans[k];
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[k][c] += w * col[c];
-          trans[k] *= (1.0f - alpha);
-        }
+        const Hit h = evaluate(r, px[k], py[k]);
+        if (h.live) composite<C>(r, h, trans[k], acc[k]);
       }
     }
   }
@@ -140,7 +117,7 @@ extern "C" int resident_fwd(const float* rows, const int* pairs, const int* star
                             const int* counts, float* out, int n_tiles, int tiles_x,
                             int tile, int cap, int group, int n_channels, void* stream) {
   if (tile < 1 || tile * tile > kThreads * kMaxPixelsPerThread || group < 1 ||
-      group > 512) {
+      group > kMaxGroup) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return 0;

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C entry point.  It
-is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``_build/lib<name>_<hash>.so`` on first use and loaded with ``ctypes``; the
-hash covers the source and the flags, so an edited source rebuilds.  No
+Each kernel is one source ``csrc/<name>.cu`` with a plain C entry point; the
+sources may include the shared headers ``csrc/*.cuh``.  It is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` on first
+use and loaded with ``ctypes``; the hash covers the source, the headers and
+the flags, so an edited source or header rebuilds.  No
 PyTorch headers are compiled, which keeps a build to seconds.
 
     from dreammesh4d_tpu_torch import cuda_build
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

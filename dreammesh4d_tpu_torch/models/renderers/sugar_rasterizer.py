@@ -5,7 +5,9 @@ The per-Gaussian colour channels are CONCATENATED (rgb ⊕ normal) and blended
 in one pass — six colour channels plus depth, C = 7 in the compositing
 kernel.  Outputs are channel-last ``(B, H, W, C)``: comp_rgb / comp_depth /
 comp_mask / comp_normal / raw_normal + radii / visibility_filter.  Normal
-and depth gradients are kept only where alpha > 0.99.
+and depth gradients are kept only where alpha > 0.99.  :func:`depth_to_normal`
+derives a normal map from a rendered depth map (the normal–depth consistency
+term of the static refine stage).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ...ops.cameras import GSCameraInfo
 from ...ops.gs.rasterize import RasterizerConfig, rasterize
+from ...ops.quaternion import cross
 from ...ops.safe_math import safe_normalize
 from ...ops.sh import sh_to_rgb
 
@@ -85,3 +88,17 @@ def render_batch(means3d, quats, scales, opacities, sh, sh_degree: int, gs_norma
             n = None if t_normals is None else t_normals[i]
         outs.append(render_view(m, q, s, opacities, sh, sh_degree, n, cam, bg_b[i], cfg))
     return {k: torch.stack([o[k] for o in outs], 0) for k in outs[0]}
+
+
+def depth_to_normal(depth: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    alpha: torch.Tensor) -> torch.Tensor:
+    """Normals from the depth map by finite differences of the world-space
+    positions (``sugar_rasterizer.py:173``): depth/alpha (..., H, W, 1),
+    rays (..., H, W, 3); returns n·0.5·alpha + 0.5 in [0, 1].  The
+    differences are ``jnp.gradient``'s: central inside, one-sided at the
+    edges (``torch.gradient``'s ``edge_order=1``)."""
+    xyz = rays_o + depth * rays_d
+    (dx,) = torch.gradient(xyz, dim=-2)
+    (dy,) = torch.gradient(xyz, dim=-3)
+    n = safe_normalize(cross(dy, dx))
+    return n * 0.5 * alpha + 0.5

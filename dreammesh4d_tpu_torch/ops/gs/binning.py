@@ -1,15 +1,24 @@
-"""Tile binning for the Gaussian rasterizer (counterpart of the pair path of
+"""Tile binning for the Gaussian rasterizer (counterpart of
 ``dreammesh4d_tpu/ops/gs/binning.py``: ``_tile_cull`` :60,
-``_expand_pairs_mn`` :109, ``bin_gaussians_pairs`` :220).
+``_expand_pairs_mn`` :109, ``bin_gaussians`` :140, ``bin_gaussians_pairs``
+:220).
 
 Every Gaussian emits up to ``max_tiles_per_gaussian`` (tile, depth, id)
-pairs — its tile AABB enumerated row-major, each pair kept only if the
-Gaussian can reach alpha ≥ 1/255 inside the tile (exact ellipse–rectangle
-cull).  One sort over the packed key ``tile << 20 | quantized depth`` groups
-the pairs by tile, front to back; per-tile segment starts and counts come
-from a binary search on the sorted keys.  Keys are int64 here (the JAX
-package packs them into int32).  The sort is unstable by contract: pairs
-with the same tile and quantized depth come out in any order.
+pairs — its tile AABB enumerated row-major (``getRect`` clipping), each pair
+kept only if the Gaussian can reach alpha ≥ 1/255 inside the tile (exact
+ellipse–rectangle cull).  Two layouts of the result:
+
+- :func:`bin_gaussians_pairs` (the ``pallas_resident`` and ``xla``
+  backends): one sort over the packed key ``tile << 20 | quantized depth``
+  groups the pairs by tile, front to back; per-tile segment starts and counts
+  come from a binary search on the sorted keys.  Keys are int64 here (the JAX
+  package packs them into int32).  The sort is unstable by contract: pairs
+  with the same tile and quantized depth come out in any order.
+- :func:`bin_gaussians` (the ``pallas`` backend): fixed 16-px tiles, the
+  Gaussians ranked by a stable depth argsort, one sort over the packed key
+  ``tile << rank_bits | depth rank``, and each tile's first ``K`` entries
+  gathered into a dense ``(T, K)`` index table.  The order is exact, so the
+  table equals the JAX package's entry for entry.
 """
 
 from __future__ import annotations
@@ -19,6 +28,13 @@ from typing import NamedTuple
 import torch
 
 TILE = 16  # default pixels per tile side
+
+
+class TileAssignment(NamedTuple):
+    """Dense per-tile index table (``bin_gaussians``)."""
+
+    tile_gauss: torch.Tensor  # (T, K) int32 Gaussian ids, front to back; N past a tile's count
+    tile_counts: torch.Tensor  # (T,) int32 per-tile counts before the cut at K (may exceed K)
 
 
 class PairAssignment(NamedTuple):
@@ -106,6 +122,15 @@ def _expand_pairs_mn(means2d, radii, mask, tiles_x, tiles_y, M,
     return tile_ids, pair_valid
 
 
+def _tile_segments(sorted_keys: torch.Tensor, T: int, shift: int):
+    """Per-tile (starts, counts), int64, of keys ``tile << shift | low bits``
+    sorted ascending: a binary search for each tile's first key."""
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(T + 1, device=sorted_keys.device, dtype=torch.int64) << shift,
+        side="left")
+    return bounds[:T], bounds[1:] - bounds[:-1]
+
+
 def bin_gaussians_pairs(means2d: torch.Tensor, radii: torch.Tensor, depths: torch.Tensor,
                         mask: torch.Tensor, W: int, H: int,
                         max_tiles_per_gaussian: int = 16, depth_bits: int = 20,
@@ -136,9 +161,43 @@ def bin_gaussians_pairs(means2d: torch.Tensor, radii: torch.Tensor, depths: torc
     # sentinel pairs (tile T) carry gauss id N for padded reads
     sorted_gauss = torch.where(sorted_keys >= (T << depth_bits),
                                torch.full_like(sorted_gauss, N), sorted_gauss)
-    bounds = torch.searchsorted(
-        sorted_keys, torch.arange(T + 1, device=dev, dtype=torch.int64) << depth_bits,
-        side="left")
-    starts = bounds[:T].to(torch.int32)
-    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
-    return PairAssignment(sorted_gauss, starts, counts, sorted_keys)
+    starts, counts = _tile_segments(sorted_keys, T, depth_bits)
+    return PairAssignment(sorted_gauss, starts.to(torch.int32), counts.to(torch.int32), sorted_keys)
+
+
+def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor, depths: torch.Tensor,
+                  mask: torch.Tensor, W: int, H: int, tile_capacity: int = 512,
+                  max_tiles_per_gaussian: int = 16, conics=None, opacities=None) -> TileAssignment:
+    """(T, K)-table binning on fixed ``TILE``-px tiles, K = ``tile_capacity``.
+
+    The within-tile order is the exact depth rank of a STABLE argsort, as
+    ``jnp.argsort`` gives it, so Gaussians of equal depth keep their index
+    order.  Raises ``ValueError`` where the JAX package's int32 key would
+    overflow (rank bits + tile bits > 31), so both fail on the same inputs.
+    Tiles holding more than K entries keep the K nearest; ``tile_counts``
+    keeps the true count."""
+    N = means2d.shape[0]
+    tiles_x, tiles_y = num_tiles(W, H)
+    T = tiles_x * tiles_y
+    M = max_tiles_per_gaussian
+    K = tile_capacity
+    dev = means2d.device
+    rank_bits = N.bit_length()  # rank < N
+    tile_bits = (T + 1).bit_length()
+    if rank_bits + tile_bits > 31:
+        raise ValueError(
+            f"Packed binning key overflow: {N} gaussians x {T} tiles needs "
+            f"{rank_bits}+{tile_bits} bits; reduce image size or gaussian count")
+
+    tile_ids, _ = _expand_pairs_mn(means2d, radii, mask, tiles_x, tiles_y, M, conics, opacities)
+    depth_order = torch.argsort(depths, stable=True)  # (N,) front to back
+    rank = torch.arange(N, device=dev)[None, :]
+    keys = ((tile_ids[:, depth_order] << rank_bits) | rank).reshape(-1)
+    sorted_keys, _ = torch.sort(keys)
+    sorted_gauss = depth_order[sorted_keys & ((1 << rank_bits) - 1)]
+
+    starts, counts = _tile_segments(sorted_keys, T, rank_bits)
+    k = torch.arange(K, device=dev)[None, :]
+    idx = torch.clamp(starts[:, None] + k, 0, max(N * M - 1, 0))
+    tile_gauss = torch.where(k < counts[:, None], sorted_gauss[idx], torch.full_like(idx, N))
+    return TileAssignment(tile_gauss.to(torch.int32), counts.to(torch.int32))

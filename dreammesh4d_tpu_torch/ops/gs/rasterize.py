@@ -4,28 +4,35 @@
     rasterize(means3d, opacities, camera, cfg, background, colors|sh,
               scales+quats|cov3d, device="cuda") -> (rgb, radii, depth, alpha)
 
-Pipeline: EWA projection (projection.py) → pair binning with exact tile
-culling (binning.py, on detached inputs: which pairs exist is not
-differentiated) → per-tile front-to-back compositing (resident_blend.py).
-Differentiable in means3d, scales, quats / cov3d, colors / sh, opacities
-and the background.
+Pipeline: EWA projection (projection.py) → binning with exact tile culling
+(binning.py, on detached inputs: which pairs exist is not differentiated) →
+per-tile front-to-back compositing.  Differentiable in means3d, scales,
+quats / cov3d, colors / sh, opacities and the background.
 
 Backends (``RasterizerConfig.backend``):
-- ``pallas_resident`` — the pair path.  On CUDA tensors the compositing is
-  the hand-written Hopper kernel ``csrc/resident_fwd.cu`` and its backward
+- ``pallas_resident`` — pair binning on ``tile_px`` tiles and the pair
+  compositing of ``resident_blend.py``.  On CUDA tensors that is the
+  hand-written Hopper kernel ``csrc/resident_fwd.cu`` (B1) and its backward
   ``csrc/resident_bwd.cu`` — ``bwd_accum: true`` sums the gradients per
-  Gaussian inside the kernel (``resident_bwd_accum``), ``false`` writes
-  them per pair (``resident_bwd_pairs``) and sums them with ``index_add_``;
-  on CPU tensors their plain PyTorch versions.
-- ``xla`` — the same pair path with the plain PyTorch compositing, forward
-  and backward, on any device.
-- ``pallas`` — the (T, K)-table kernel: not ported yet (ROADMAP.md queue B,
-  B6/B7); raises ``NotImplementedError``.
+  Gaussian inside the kernel (``resident_bwd_accum``, B2), ``false`` writes
+  them per pair (``resident_bwd_pairs``, B3) and sums them with
+  ``index_add_``; on CPU tensors their plain PyTorch versions.
+- ``pallas`` — the (T, K) index table of ``bin_gaussians`` on fixed 16-px
+  tiles whatever ``tile_px`` says, K = ``tile_capacity``, and the table
+  compositing of ``table_blend.py``: on CUDA tensors the Hopper kernels
+  ``csrc/table_blend.cu`` (B6 forward, B7 backward), on CPU tensors their
+  plain versions.  Tiles with more than K entries drop the farthest, and a
+  Gaussian spanning more than ``max_tiles_per_gaussian`` 16-px tiles loses
+  the rest, as in the JAX package.  The group (the entries between two
+  tile-exit checks) comes from ``_auto_group``, which counts ``tile_px``
+  tiles even here, as the JAX package does.
+- ``xla`` — the pair path with the plain PyTorch compositing, forward and
+  backward, on any device.
 
 ``RasterizerConfig`` accepts every field of the JAX package's config so every
 YAML loads.  Fields that only chose a TPU strategy and that the port ignores:
 ``interpret`` (Pallas interpreter mode), ``group`` beyond its role as the
-number of pairs between two tile-exit checks, ``bf16_matmuls`` and
+number of entries between two tile-exit checks, ``bf16_matmuls`` and
 ``grad_reduce`` (the port composites and reduces gradients in exact
 float32), ``stream_rows`` (row dump for the TPU backward), ``chunk`` (the
 XLA scan's chunk size).  ``binning: rank`` raises
@@ -43,9 +50,10 @@ import torch
 
 from ..cameras import GSCameraInfo
 from ..sh import sh_to_rgb
-from .binning import bin_gaussians_pairs
+from .binning import bin_gaussians, bin_gaussians_pairs
 from .projection import ProjectedGaussians, project_gaussians, project_gaussians_sq
 from .resident_blend import blend_image_resident
+from .table_blend import blend_image_table
 
 
 class RasterizeOutput(NamedTuple):
@@ -135,10 +143,19 @@ def _auto_group(cfg: RasterizerConfig, n_gaussians: int) -> int:
 def _rasterize_projected(proj: ProjectedGaussians, colors: torch.Tensor,
                          opacities: torch.Tensor, cfg: RasterizerConfig,
                          background: torch.Tensor) -> RasterizeOutput:
+    group = _auto_group(cfg, proj.means2d.shape[0])
     if cfg.backend == "pallas":
-        raise NotImplementedError(
-            "backend 'pallas' (the (T, K)-table kernel) is not ported yet: "
-            "ROADMAP.md queue B, B6/B7; use backend 'pallas_resident'")
+        assign = bin_gaussians(
+            proj.means2d.detach(), proj.radii, proj.depths.detach(), proj.mask, cfg.width,
+            cfg.height, cfg.tile_capacity, cfg.max_tiles_per_gaussian,
+            conics=proj.conics.detach(), opacities=opacities.detach(),
+        )
+        rgb, alpha, depth = blend_image_table(
+            assign.tile_gauss, torch.clamp(assign.tile_counts, max=cfg.tile_capacity),
+            proj.means2d, proj.conics, colors, opacities, proj.depths, cfg.width, cfg.height,
+            background, group=group,
+        )
+        return RasterizeOutput(rgb, proj.radii, depth, alpha)
     if cfg.backend not in ("pallas_resident", "xla"):
         raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
     if cfg.backend == "pallas_resident" and cfg.binning == "rank":
@@ -152,8 +169,7 @@ def _rasterize_projected(proj: ProjectedGaussians, colors: torch.Tensor,
     )
     rgb, alpha, depth = blend_image_resident(
         pa, proj.means2d, proj.conics, colors, opacities, proj.depths,
-        cfg.width, cfg.height, background, cap=cfg.tile_capacity,
-        group=_auto_group(cfg, proj.means2d.shape[0]), tile=cfg.tile_px,
+        cfg.width, cfg.height, background, cap=cfg.tile_capacity, group=group, tile=cfg.tile_px,
         plain=cfg.backend == "xla", bwd_accum=cfg.bwd_accum,
     )
     return RasterizeOutput(rgb, proj.radii, depth, alpha)

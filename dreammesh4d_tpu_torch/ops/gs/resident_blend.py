@@ -16,7 +16,8 @@ and of the math it shares with ``pallas_blend.py``.
 - :func:`blend_pairs` — the differentiable entry: CUDA tensors launch the
   kernels (or raise), CPU tensors take the plain versions;
 - :func:`blend_image_resident` — depth as an extra channel, background,
-  untiling (``pallas_resident.py:628``).  Row packing, untiling and the
+  untiling (``pallas_resident.py:628``; :func:`finish_image`, shared with
+  ``table_blend.py``).  Row packing, untiling and the
   background stay plain PyTorch, so autograd carries the rows' gradient on
   to means2d, conics, colours, depths, opacities and the background.
 
@@ -403,12 +404,23 @@ def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torc
     colors_aug = torch.cat([colors, depths[:, None]], -1)
     C = C_user + 1
     tiles_x = (W + tile - 1) // tile
-    tiles_y = (H + tile - 1) // tile
     rows = _pack_rows(means2d, conics, colors_aug, opacities)
     out = blend_pairs(rows, pa.sorted_gauss.to(torch.int32).contiguous(),
                       pa.starts.to(torch.int32).contiguous(),
                       pa.counts.to(torch.int32).contiguous(),
                       tiles_x, tile, cap, group, C, plain=plain, bwd_accum=bwd_accum)
+    return finish_image(out, C_user, W, H, tile, background)
+
+
+def finish_image(out: torch.Tensor, C_user: int, W: int, H: int, tile: int,
+                 background: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The blocks (T, C_user + 2, tile²) of colours, depth and transmittance
+    as images: (rgb (H,W,C_user) with the background added, alpha = 1 − T,
+    depth).  Plain PyTorch, so autograd folds the alpha and background
+    cotangents into the transmittance row the backward kernels read."""
+    tiles_x = (W + tile - 1) // tile
+    tiles_y = (H + tile - 1) // tile
+    C = C_user + 1
 
     def untile(flat, ch):
         img = flat.reshape(tiles_y, tiles_x, ch, tile, tile)

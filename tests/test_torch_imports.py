@@ -35,7 +35,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "ops.meshops", "ops.gs.resident_blend", "models.geometry.deformation", "convert",
                "ops.hashgrid", "ops.hashgrid_cell", "models.geometry.implicit_volume",
                "models.materials", "models.renderers.nerf_volume_renderer", "data.uncond",
-               "ops.cameras")
+               "ops.cameras", "ops.gs.table_blend", "ops.gs.binning", "systems.optim",
+               "systems.sugar_static", "models.renderers.sugar_rasterizer")
 
 
 def test_port_imports_no_jax():
@@ -44,7 +45,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
-    assert int(n_modules) >= 39
+    assert int(n_modules) >= 42
     for name in NEW_MODULES:
         assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad
@@ -100,6 +101,29 @@ def test_stage1_entry_points_default_to_cuda():
         with pytest.raises((RuntimeError, AssertionError)):
             make_zero123_train_step(geo, rcfg, Zero123Losses())
     assert callable(make_zero123_train_step(geo, rcfg, Zero123Losses(), device="cpu"))
+
+
+def test_static_entry_points_default_to_cuda():
+    from dreammesh4d_tpu_torch.systems.sugar_static import (SugarStaticLosses, init_static_state,
+                                                            make_render_eval, make_static_train_step)
+
+    params, static, _, _, raster = _tiny_scene("cpu")
+    sugar_static = static.sugar
+    raster = raster._replace(backend="pallas")
+    if torch.cuda.is_available():
+        assert init_static_state(params).params.points.device.type == "cuda"
+        make_static_train_step(sugar_static, raster, SugarStaticLosses())
+    else:
+        for build in (lambda: init_static_state(params),
+                      lambda: make_static_train_step(sugar_static, raster, SugarStaticLosses()),
+                      lambda: make_render_eval(sugar_static, raster)):
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+    state = init_static_state(params, device="cpu")
+    assert state.params.points.requires_grad and state.params.points.is_leaf and state.step == 0
+    assert [g["name"] for g in state.opt_state.param_groups] == list(params._fields)
+    assert all(g["betas"] == (0.9, 0.999) and g["eps"] == 1e-15 for g in state.opt_state.param_groups)
+    assert callable(make_static_train_step(sugar_static, raster, SugarStaticLosses(), device="cpu"))
 
 
 def _tiny_scene(device):

@@ -252,8 +252,7 @@ def test_rasterize_matches_jax_xla(tile):
     assert float(out.alpha.max()) > 0.5
 
 
-@pytest.mark.parametrize("overrides", [dict(backend="pallas"),
-                                       dict(backend="pallas_resident", binning="rank")])
+@pytest.mark.parametrize("overrides", [dict(backend="pallas_resident", binning="rank")])
 def test_unported_backends_raise(overrides):
     scene, cam = make_scene(N=20), camera()
     t = float(np.tan(FOV / 2))
