@@ -23,7 +23,14 @@ Phases, each of which fails the run on a failed check:
    (recorded during one evaluation render, C = 7, and one rgb-only
    ``render_batch``, C = 4: 512², T = 1024, K = 2048), and at a tile at and one over capacity, empty
    tiles, tiles that exit in their first group, one Gaussian over the whole
-   image and a row count that is no multiple of the group;
+   image and a row count that is no multiple of the group.  B1-B3 also write
+   the pair slots each quadrant CTA walked, which must equal the plain
+   version's count for every tile, on every case, including an opaque wall
+   over one quadrant of several tiles (``quadrant_wall``: the tile-wide exit
+   vote must keep them going) and thin rotated Gaussians whose -4.5 contour
+   ends at a quadrant edge (``cull_edges``: the per-quadrant row cull); and
+   the rows each quadrant CTA's cull kept, which must equal
+   ``quadrant_kept_plain``'s count;
 4. the serving main path — ``Viewer4D.render / orbit / play`` — at the full
    width of ``configs/sugar_dynamic_dg.yaml`` (icosphere(4) SuGaR mesh:
    30,720 Gaussians, SH 3; 1000-node geodesic graph, hybrid skinning;
@@ -74,8 +81,11 @@ Phases, each of which fails the run on a failed check:
    copy of the parameters), driven from the same start on the YAML's
    ``pallas_resident`` (B1/B2) and on ``backend: pallas`` with 16 tiles per
    Gaussian (B6/B7), with the launches of each held to 5 + 5 per step;
-9. CUDA-event times (median of 30 after warm-up), ms per train step, peak
-   memory and profiles of one render and one train step of each stage;
+9. CUDA-event times (median of 30 after warm-up; a kernel's ``ms`` as the
+   earlier versions of this script took it: B1-B3 one launch per event
+   pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
+   from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
+   and profiles of one render and one train step of each stage;
 10. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +168,26 @@ def time_ms(torch, fn, n=N_TIMED, warmup=3, reps=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, key, n=N_TIMED):
+    """Device milliseconds per launch of the kernels whose name holds
+    ``key`` over ``n`` calls of ``fn``, from ``torch.profiler``: no host
+    time in it.  The profiler may drop a few records; the mean is over those
+    it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if key in e.key]
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events)
+    count = sum(e.count for e in events)
+    check(0 < count <= n, f"device time of {key}: {count} kernel records for {n} calls")
+    return total / 1e3 / count
 
 
 def moving_deformation(torch, dcfg, seed, device):
@@ -244,22 +274,66 @@ def view_blend_inputs(torch, viewer, params, static, dparams, dyn_cfg, raster_cf
 
 
 def synthetic_blend_inputs(torch, case, device, n_channels=7):
-    """Adversarial segments at 512², tile 32, cap 2048."""
+    """Adversarial segments at 512², tile 32, cap 2048, group 128.
+
+    - ``saturated``: 3000 faint splats on one tile, count > cap;
+    - ``empty_tiles``: a small cluster, most tiles hold nothing;
+    - ``quadrant_wall``: in each of 6 tiles an opaque wall over one quadrant
+      (a different one from tile to tile), five sharp disks (op 50: alpha =
+      0.99 out to power -3.9, nothing past -4.5) in front of ~400 faint
+      splats per tile: the quadrant's transmittance falls under 1e-4 in the
+      first group while the other quadrants composite on, so the tiles must
+      walk their whole segments (a vote per quadrant would stop early);
+    - ``cull_edges``: 1500 thin, rotated, anisotropic Gaussians over 16
+      tiles whose power = -4.5 box ends within a pixel of a quadrant edge."""
     from dreammesh4d_tpu_torch.ops.gs.binning import bin_gaussians_pairs
     from dreammesh4d_tpu_torch.ops.gs.resident_blend import _pack_rows
 
     gen = torch.Generator(device=device).manual_seed(1)
     rnd = lambda *s: torch.rand(s, generator=gen, device=device)  # noqa: E731
-    if case == "saturated":  # 3000 faint splats on one tile: count > cap
-        n, lo, hi, op, spread = 3000, 200.0, 220.0, 0.005, 0.02
-    else:  # "empty_tiles": a small cluster, most tiles hold nothing
-        n, lo, hi, op, spread = 200, 40.0, 80.0, 0.6, 0.3
-    means = lo + (hi - lo) * rnd(n, 2)
-    conics = torch.stack([torch.full((n,), spread, device=device), 0.002 * (rnd(n) - 0.5),
-                          torch.full((n,), spread, device=device)], -1)
-    opac = torch.full((n,), op, device=device)
-    depths = 1.0 + 2.0 * rnd(n)
-    radii = torch.ceil(3.0 / torch.sqrt(conics[:, 0])).int()
+    full = lambda n, v: torch.full((n,), v, device=device)  # noqa: E731
+    if case in ("saturated", "empty_tiles"):
+        if case == "saturated":
+            n, lo, hi, op, spread = 3000, 200.0, 220.0, 0.005, 0.02
+        else:
+            n, lo, hi, op, spread = 200, 40.0, 80.0, 0.6, 0.3
+        means = lo + (hi - lo) * rnd(n, 2)
+        conics = torch.stack([full(n, spread), 0.002 * (rnd(n) - 0.5), full(n, spread)], -1)
+        opac = full(n, op)
+        depths = 1.0 + 2.0 * rnd(n)
+        radii = torch.ceil(3.0 / torch.sqrt(conics[:, 0])).int()
+    elif case == "quadrant_wall":  # tiles (4..9, 6)
+        q = torch.arange(6, device=device) % 4  # the wall's quadrant, x-major
+        centre = torch.stack([(4 + torch.arange(6, device=device)) * 32 + (q & 1) * 16 + 7.5,
+                              6 * 32 + (q >> 1) * 16 + 7.5], -1).float()
+        n_wall, n_faint = 30, 2400
+        means = torch.cat([centre.repeat_interleave(5, 0),
+                           torch.stack([128.0 + 192.0 * rnd(n_faint), 192.0 + 32.0 * rnd(n_faint)], -1)])
+        n = n_wall + n_faint
+        spread = torch.cat([full(n_wall, 0.0685), full(n_faint, 0.3)])
+        conics = torch.stack([spread, torch.zeros_like(spread), spread], -1)
+        opac = torch.cat([full(n_wall, 50.0), full(n_faint, 0.05)])
+        depths = torch.cat([0.5 + 0.1 * rnd(n_wall), 1.0 + 2.0 * rnd(n_faint)])
+        radii = torch.cat([full(n_wall, 12.0), full(n_faint, 6.0)]).int()
+    else:  # "cull_edges": tiles (2..5, 2..5)
+        n = 1500
+        theta = math.pi * rnd(n)
+        sa = 3.0 + 9.0 * rnd(n)
+        sb = sa / (3.0 + 27.0 * rnd(n))
+        c, s = torch.cos(theta), torch.sin(theta)
+        ia, ib = 1.0 / sa ** 2, 1.0 / sb ** 2
+        conics = torch.stack([c * c * ia + s * s * ib, c * s * (ia - ib), s * s * ia + c * c * ib], -1)
+        half = torch.stack([3.0 * torch.sqrt(c * c * sa ** 2 + s * s * sb ** 2),
+                            3.0 * torch.sqrt(s * s * sa ** 2 + c * c * sb ** 2)], -1)
+        # the box's end (mean +- half-width) at a quadrant edge 16k - 0.5, +- one pixel
+        edge = 64.0 + 16.0 * torch.floor(9.0 * rnd(n, 2)) - 0.5 + (2.0 * rnd(n, 2) - 1.0)
+        side = torch.where(rnd(n, 2) < 0.5, -1.0, 1.0)
+        means = torch.where(rnd(n, 1) < 0.5,
+                            torch.stack([edge[:, 0] + side[:, 0] * half[:, 0], 64.0 + 128.0 * rnd(n)], -1),
+                            torch.stack([64.0 + 128.0 * rnd(n), edge[:, 1] + side[:, 1] * half[:, 1]], -1))
+        opac = 0.3 + 0.6 * rnd(n)
+        depths = 1.0 + 2.0 * rnd(n)
+        radii = torch.ceil(3.0 * sa).int()
     pa = bin_gaussians_pairs(means, radii, depths, torch.ones(n, dtype=torch.bool, device=device),
                              512, 512, 6, conics=conics, opacities=opac, tile=32)
     colors = torch.cat([rnd(n, 6)[:, :n_channels - 1], depths[:, None]], -1)
@@ -267,13 +341,67 @@ def synthetic_blend_inputs(torch, case, device, n_channels=7):
     return (rows, pa.sorted_gauss, pa.starts, pa.counts, 16, 32, 2048, 128, n_channels)
 
 
+def new_walked(torch, args):
+    """A (2, T, 4) int32 buffer for the kernels' per-quadrant counts (walked
+    pair slots, rows the cull kept), filled with -1 so that a column no CTA
+    wrote shows."""
+    return torch.full((2, args[2].numel(), 4), -1, dtype=torch.int32, device=args[0].device)
+
+
+def same_work(a, b):
+    """Two plain versions' ``stats`` are the same work (the walked counts
+    per tile included)."""
+    return a.keys() == b.keys() and all(
+        bool((a[k] == b[k]).all()) if hasattr(a[k], "shape") else a[k] == b[k] for k in a)
+
+
+def check_walked(torch, rb, kernel, name, walked, stats, args):
+    """Every quadrant CTA of every tile walked the plain version's pair
+    slots and its cull kept as many of their rows as ``quadrant_kept_plain``
+    (column 0 only where a tile is one CTA).  Returns the kept share of the
+    (walked pair, quadrant) evaluations, as the kernel counted it: what it
+    evaluates of the work ``kernel_bounds`` counts."""
+    ref = stats["walked_per_tile"].to(walked.device)
+    nq = 4 if args[5] > 16 else 1
+    cols = walked[:, :, :nq].long()
+    bad = int((cols[0] != ref[:, None]).any(-1).sum())
+    check(bad == 0, f"{kernel} {name}: the walked pair slots of {bad} tiles differ from the plain version's")
+    kept = rb.quadrant_kept_plain(args[0], args[1], args[2], ref, args[4], args[5]).to(walked.device)
+    bad = int((cols[1] != kept).any(-1).sum())
+    check(bad == 0, f"{kernel} {name}: the rows the cull kept in {bad} tiles differ from quadrant_kept_plain")
+    return float(cols[1].sum()) / max(float(cols[0].sum()), 1.0)
+
+
+def check_quadrant_wall(torch, rb, args):
+    """The quadrant_wall case is what it claims (through the plain version):
+    each wall tile holds several groups and walks all of them, its wall
+    quadrant is opaque and another quadrant is not."""
+    stats = {}
+    out = rb.blend_pairs_plain(*args, stats=stats)
+    tiles = 6 * 16 + 4 + torch.arange(6, device=out.device)
+    segment = torch.clamp(args[3][tiles].long(), max=args[6])
+    trans = out[tiles, args[-1]].reshape(6, 32, 32)
+    quads = [((i % 4 >> 1) * 16, (i % 4 & 1) * 16) for i in range(6)]  # the wall's (y, x) offset
+    wall_max = [float(trans[i, y:y + 16, x:x + 16].max()) for i, (y, x) in enumerate(quads)]
+    print(f"quadrant_wall: pairs per wall tile {segment.tolist()}, walked {stats['walked_per_tile'][tiles].tolist()}; "
+          f"max transmittance in the wall quadrant {max(wall_max):.3g}, in the tile "
+          f"{[round(float(t.max()), 3) for t in trans]}")
+    check(int(segment.min()) > 2 * args[7], "quadrant_wall: a wall tile holds fewer than three groups")
+    check(bool((stats["walked_per_tile"][tiles].to(segment.device) == segment).all()),
+          "quadrant_wall: a wall tile stopped before the end of its segment")
+    check(max(wall_max) <= rb.T_EPS and float(trans.amax(dim=(1, 2)).min()) > 0.1,
+          "quadrant_wall: a wall quadrant is not opaque, or a whole tile is")
+
+
 def check_forward(torch, rb, cases):
-    """B1 against its plain version; returns (max error, work of main_view)."""
+    """B1 against its plain version, its walked counts against the plain
+    version's; returns (max error, work of main_view)."""
     b1_err = 0.0
-    main_stats = {}
+    main_stats, main_kept = {}, 0.0
     for name, args in cases.items():
         stats = {}
-        out_k = rb.blend_pairs_cuda(*args)
+        walked = new_walked(torch, args)
+        out_k = rb.blend_pairs_cuda(*args, walked=walked)
         out_p = rb.blend_pairs_plain(*args, stats=stats)
         torch.cuda.synchronize()
         C = args[-1]
@@ -282,9 +410,11 @@ def check_forward(torch, rb, cases):
         err_t = float((out_k[:, C] - out_p[:, C]).abs().max())
         err_d = float((out_k[:, C - 1] - out_p[:, C - 1]).abs().max())
         counts = args[3]
+        kept = check_walked(torch, rb, "B1", name, walked, stats, args)
         print(f"B1 {name}: tiles {counts.shape[0]}, pairs {int(counts.sum())}, "
               f"saturated tiles (count > cap) {int((counts > args[6]).sum())}, "
               f"empty tiles {int((counts == 0).sum())}, pairs read {stats['pairs_read']}, "
+              f"the kernel's cull kept {kept:.4f} of (pair, quadrant) (= quadrant_kept_plain per tile); "
               f"max|d| colors {err_col:.3g} transmittance {err_t:.3g} depth {err_d:.3g} "
               f"(depth scale {depth_scale:.3g})")
         check(torch.isfinite(out_k).all(), f"B1 {name}: non-finite kernel output")
@@ -292,8 +422,8 @@ def check_forward(torch, rb, cases):
         check(err_d <= 1e-4 * depth_scale, f"B1 {name}: depth kernel vs plain > 1e-4 x depth scale")
         b1_err = max(b1_err, err_col, err_t, err_d / depth_scale)
         if name == "main_view":
-            main_stats = stats
-    return b1_err, main_stats
+            main_stats, main_kept = stats, kept
+    return b1_err, main_stats, main_kept
 
 
 def check_backward(torch, rb, cases):
@@ -305,24 +435,27 @@ def check_backward(torch, rb, cases):
     kernels with atomics and shuffles in an order that changes from run to
     run and by the plain version with ``index_add_`` and ``cumsum``, so
     agreement is to rounding (~1e-5 of the max measured), never bitwise.
-    Returns {kernel: (max relative error, max absolute error)} and the work
-    of each case."""
+    Returns {kernel: (max relative error, max absolute error)}, the work of
+    each case and the share B2's cull kept in each case."""
     groups = lambda C: (("means", slice(0, 2)), ("conic", slice(2, 5)),  # noqa: E731
                         ("colours", slice(5, 5 + C)), ("opacity", slice(rb.OP_COL, rb.OP_COL + 1)))
     worst = {"resident_bwd_accum": [0.0, 0.0], "resident_bwd_pairs": [0.0, 0.0]}
-    work = {}
+    work, kept = {}, {}
     for name, args in cases.items():
         seg, shape, C = args[:4], args[4:], args[-1]
-        out = rb.blend_pairs_cuda(*args)
+        walked = {k: new_walked(torch, args) for k in ("B1", "B2", "B3")}
+        out = rb.blend_pairs_cuda(*args, walked=walked["B1"])
         gen = torch.Generator(device=out.device).manual_seed(5)
         cot = torch.randn(out.shape, generator=gen, device=out.device)
         stats = {}
         plain = rb.blend_pairs_bwd_plain(*seg, out, cot, *shape, stats=stats)
-        accum = rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape)
-        per_pair = rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, per_pair=True)
+        accum = rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, walked=walked["B2"])
+        per_pair = rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, per_pair=True, walked=walked["B3"])
         reduced = rb.reduce_pair_grads(per_pair, *seg[1:], seg[0].shape[0])
         torch.cuda.synchronize()
         work[name] = stats
+        for kernel, w in walked.items():
+            kept[kernel, name] = check_walked(torch, rb, kernel, f"{name} C={C}", w, stats, args)
         check(torch.isfinite(accum).all() and torch.isfinite(per_pair).all(),
               f"backward {name}: non-finite kernel output")
         check(float(accum[-1].abs().max()) == 0.0, f"backward {name}: the sentinel row got a gradient")
@@ -341,8 +474,10 @@ def check_backward(torch, rb, cases):
             check(b3_b2 <= GRAD_TOL, f"B3 + index_add_ vs B2 {name} C={C} {gname}: {b3_b2:.3g}")
             line.append(f"{gname} max {scale:.3g}: B2 {errs['resident_bwd_accum']:.2g} "
                         f"B3 {errs['resident_bwd_pairs']:.2g} B3-B2 {b3_b2:.2g}")
-        print(f"B2/B3 {name} C={C} (|d| / group max, limit {GRAD_TOL}): " + "; ".join(line))
-    return {k: tuple(v) for k, v in worst.items()}, work
+        print(f"B2/B3 {name} C={C} (|d| / group max, limit {GRAD_TOL}; walked pairs and kept rows of B1, "
+              f"B2, B3 = the plain versions' in every quadrant, B2 kept {kept['B2', name]:.4f}): "
+              + "; ".join(line))
+    return {k: tuple(v) for k, v in worst.items()}, work, {n: kept["B2", n] for n in cases}
 
 
 def profile_call(torch, label, fn, card, top=12):
@@ -365,10 +500,13 @@ def profile_call(torch, label, fn, card, top=12):
     # device-side records (kernels, copies) only: operator records repeat
     # their kernels' time
     device = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    device_ms = sum(dev_us(e) for e in device) / 1e3
+    busy_ms = sum(dev_us(e) for e in device) / 1e3
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    # B1-B3's cluster launches and PyTorch's GEMMs go through cudaLaunchKernelExC
+    launches_ex = sum(e.count for e in events if e.key == "cudaLaunchKernelExC")
     print(f"[{card}] profile of one {label}: wall {wall_ms:.3f} ms (profiled), device busy "
-          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f} %), {launches} kernel launches")
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), {launches} kernel launches "
+          f"(cudaLaunchKernel) + {launches_ex} cudaLaunchKernelExC")
     for e in sorted(device, key=dev_us, reverse=True)[:top]:
         print(f"  [{card}] device {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:80]}")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]:
@@ -1150,7 +1288,7 @@ def check_table(torch, tb, cases):
               f"{stats_f['pairs_read']}; B6 max|d| {err:.3g} (limit {TABLE_FWD_TOL}); B7 |d| / group "
               f"max (limit {GRAD_TOL}): " + "; ".join(line))
         check(err <= TABLE_FWD_TOL, f"B6 {name} C={C}: kernel vs plain {err:.3g} > {TABLE_FWD_TOL}")
-        check(stats_f == stats_b, f"B6/B7 {name}: the replay walked other entries than the forward")
+        check(same_work(stats_f, stats_b), f"B6/B7 {name}: the replay walked other entries than the forward")
         worst["fwd_abs"] = max(worst["fwd_abs"], err)
         work[name] = stats_f
     return worst, work
@@ -1328,14 +1466,15 @@ def main():
         cases[C] = {
             "main_view": view_blend_inputs(torch, viewer, params, static, dparams, dyn_cfg,
                                            raster_cfg, 0.0, with_normals=C == 7),
-            "saturated": synthetic_blend_inputs(torch, "saturated", dev, C),
-            "empty_tiles": synthetic_blend_inputs(torch, "empty_tiles", dev, C)}
-    b1_err, main_stats = check_forward(torch, rb, cases[7])
+            **{case: synthetic_blend_inputs(torch, case, dev, C)
+               for case in ("saturated", "empty_tiles", "quadrant_wall", "cull_edges")}}
+    b1_err, main_stats, b1_kept = check_forward(torch, rb, cases[7])
     check(int((cases[7]["saturated"][3] > 2048).sum()) >= 1, "saturated case has no saturated tile")
     check(int((cases[7]["empty_tiles"][3] == 0).sum()) >= 1, "empty-tile case has no empty tile")
-    bwd_err, bwd_work = {}, {}
+    check_quadrant_wall(torch, rb, cases[7]["quadrant_wall"])
+    bwd_err, bwd_work, bwd_kept = {}, {}, {}
     for C in (7, 4):
-        errs, bwd_work[C] = check_backward(torch, rb, cases[C])
+        errs, bwd_work[C], bwd_kept[C] = check_backward(torch, rb, cases[C])
         for k, (rel, absolute) in errs.items():
             old = bwd_err.get(k, (0.0, 0.0))
             bwd_err[k] = (max(old[0], rel), max(old[1], absolute))
@@ -1443,6 +1582,8 @@ def main():
     # 9. times (CUDA events, median of 30 after warm-up)
     args = cases[7]["main_view"]
     b1_ms = time_ms(torch, lambda: rb.blend_pairs_cuda(*args))
+    b1_more = {"ms_r10": time_ms(torch, lambda: rb.blend_pairs_cuda(*args), reps=10),
+               "device_ms": device_ms(torch, lambda: rb.blend_pairs_cuda(*args), "resident_fwd_kernel")}
     plain_ms = time_ms(torch, lambda: rb.blend_pairs_plain(*args))
     render_ms = time_ms(torch, lambda: viewer.render(5.0, 0.0, 3.8, t=0.25))
     play_ms = time_ms(torch, lambda: viewer.play(5.0, 0.0, 3.8, n_frames=VIDEO_LEN))
@@ -1455,9 +1596,13 @@ def main():
     n_ops = main_stats["pairs_read"] * P * 19 + main_stats["live_pixels"] * (3 + 2 * C)
     bound_ms = max(n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS) * 1e3
     bound_by = "bytes" if n_bytes / H100_BYTES_PER_S > n_ops / H100_F32_FLOPS else "operations"
-    print(f"[{card}] B1 resident_fwd: {b1_ms:.4f} ms (plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"by {bound_by}: {n_bytes} B, {n_ops} ops)")
-    bwd = {}
+    # the kernels' own counts of the rows their cull kept (phase 3)
+    kept = {"resident_fwd": b1_kept, "resident_bwd": bwd_kept[4]["main_view"]}
+    print(f"[{card}] B1 resident_fwd: {b1_ms:.4f} ms one launch per event pair, {b1_more['ms_r10']:.4f} ms "
+          f"per launch of ten, {b1_more['device_ms']:.4f} ms device time (plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by}: {n_bytes} B, {n_ops} ops; the cull kept {kept['resident_fwd']:.4f} "
+          f"of the (pair, quadrant) evaluations)")
+    bwd, bwd_more = {}, {}
     for C in (4, 7):  # the train step blends C = 4, serving C = 7
         a = cases[C]["main_view"]
         seg, shape = a[:4], a[4:]
@@ -1465,11 +1610,15 @@ def main():
         cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
         plain_bwd_ms = time_ms(torch, lambda: rb.blend_pairs_bwd_plain(*seg, out, cot, *shape), n=10)
         for kernel, per_pair in (("resident_bwd_accum", False), ("resident_bwd_pairs", True)):
-            ms = time_ms(torch, lambda: rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, per_pair=per_pair))
+            run = lambda: rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, per_pair=per_pair)  # noqa: E731
+            ms = time_ms(torch, run)
+            more = bwd_more[kernel, C] = {"ms_r10": time_ms(torch, run, reps=10),
+                                          "device_ms": device_ms(torch, run, "resident_bwd_kernel")}
             b_ms, b_by, nb, no = kernel_bounds(a, bwd_work[C]["main_view"], a[0].shape[0], per_pair)
             bwd[kernel, C] = (ms, plain_bwd_ms, b_ms, b_by)
-            print(f"[{card}] {'B3' if per_pair else 'B2'} {kernel} C={C}: {ms:.4f} ms (plain backward "
-                  f"{plain_bwd_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nb} B, {no} ops)")
+            print(f"[{card}] {'B3' if per_pair else 'B2'} {kernel} C={C}: {ms:.4f} ms one launch per event "
+                  f"pair, {more['ms_r10']:.4f} ms per launch of ten, {more['device_ms']:.4f} ms device time "
+                  f"(plain backward {plain_bwd_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nb} B, {no} ops)")
         pp = rb.blend_pairs_bwd_cuda(*seg, out, cot, *shape, per_pair=True)
         red_ms = time_ms(torch, lambda: rb.reduce_pair_grads(pp, *seg[1:], seg[0].shape[0]))
         print(f"[{card}] B3's reduction outside the kernel (index_add_ of {pp.shape[0] * pp.shape[1]} "
@@ -1485,6 +1634,10 @@ def main():
         "hashgrid_cell_bwd": (time_ms(torch, lambda: hc.encode_cell_bwd_cuda(hg_x, hg_cfg, g_f, g_d), reps=10),
                               time_ms(torch, lambda: hc.encode_cell_bwd_plain(hg_x, hg_cfg, g_f, g_d), n=5)),
     }
+    hg_dev = {"hashgrid_cell_fwd": device_ms(torch, lambda: hc.encode_cell_fwd_cuda(hg_tables, hg_x, hg_cfg),
+                                             "hashgrid_cell_fwd_kernel"),
+              "hashgrid_cell_bwd": device_ms(torch, lambda: hc.encode_cell_bwd_cuda(hg_x, hg_cfg, g_f, g_d),
+                                             "hashgrid_cell_bwd_kernel")}
     feats_only_ms = time_ms(
         torch, lambda: hc.encode_cell_fwd_cuda(hg_tables, hg_x, hg_cfg, with_dfeats=False), reps=10)
     bwd_feats_only_ms = time_ms(torch, lambda: hc.encode_cell_bwd_cuda(hg_x, hg_cfg, g_f, None), reps=10)
@@ -1492,7 +1645,8 @@ def main():
     for kernel, kid in (("hashgrid_cell_fwd", "B4"), ("hashgrid_cell_bwd", "B5")):
         b_ms, b_by, nb, no = hg_bound[kernel]
         print(f"[{card}] {kid} {kernel} at {hg_x.shape[0]} points x {hg_cfg.n_levels} levels: "
-              f"{hg_ms[kernel][0]:.4f} ms (plain {hg_ms[kernel][1]:.4f} ms; bound {b_ms:.4f} ms by {b_by}: "
+              f"{hg_ms[kernel][0]:.4f} ms, {hg_dev[kernel]:.4f} ms device time (plain {hg_ms[kernel][1]:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {b_by}: "
               f"{nb} B with the {hg_rows} rows touched read once, {no} ops; {gathered} B of rows are "
               f"gathered)")
     print(f"[{card}] B4 features only (with_dfeats=False): {feats_only_ms:.4f} ms; B5 from g_feats only: "
@@ -1508,7 +1662,7 @@ def main():
           f"{s1['last_ms']:.2f} ms/step ({s1['last_bare_ms']:.2f} with guidance_fn=None), peak "
           f"{s1['last_peak']:.2f} GiB; export {EXPORT_RES}^3: {export_s:.2f} s")
     profile_call(torch, "stage-1 train step (first milestone)", s1_step, card)
-    table_ms = {}
+    table_ms, table_dev = {}, {}
     for C in (7, 4):
         a = table_cases[C]["main_view"]
         rows, tile_gauss, counts, tiles_x, group, _ = a
@@ -1521,11 +1675,13 @@ def main():
                  lambda: tb.blend_table_bwd_plain(rows, tile_gauss, counts, out, cot, tiles_x, group, C),
                  True)):
             ms = time_ms(torch, run, reps=10)
+            table_dev[kernel, C] = device_ms(torch, run, f"{kernel}_kernel")
             p_ms = time_ms(torch, plain, n=5)
             b_ms, b_by, nb, no = table_bounds(a, table_work[C]["main_view"], backward)
             table_ms[kernel, C] = (ms, p_ms, b_ms, b_by)
             print(f"[{card}] {kid} {kernel} C={C} (T {tile_gauss.shape[0]}, K {tile_gauss.shape[1]}, "
-                  f"{table_work[C]['main_view']['pairs_read']} entries walked): {ms:.4f} ms (plain "
+                  f"{table_work[C]['main_view']['pairs_read']} entries walked): {ms:.4f} ms, "
+                  f"{table_dev[kernel, C]:.4f} ms device time (plain "
                   f"{p_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nb} B, {no} ops)")
     for label, r in static_res.items():
         print(f"[{card}] static refine step on {label} (1 + {STATIC_RAND_VIEWS} views at {RES}x{RES}): "
@@ -1550,34 +1706,42 @@ def main():
               launches["resident_fwd"] + train_launches["resident_fwd"], b1_err, b1_ms, plain_ms,
               bound_ms, bound_by, max_abs_diff=b1_err, launches_serving=launches["resident_fwd"],
               launches_training=train_launches["resident_fwd"],
-              launches_static=static_resident["resident_fwd"]),
+              launches_static=static_resident["resident_fwd"], cull_kept=kept["resident_fwd"], **b1_more),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
               "ops/gs/pallas_resident.py::_bwd_kernel_accum", train_launches["resident_bwd_accum"],
               bwd_err["resident_bwd_accum"][1], *b2, max_rel_err=bwd_err["resident_bwd_accum"][0],
               n_channels=4, ms_c7=bwd["resident_bwd_accum", 7][0],
-              launches_static=static_resident["resident_bwd_accum"]),
+              launches_static=static_resident["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
+              **bwd_more["resident_bwd_accum", 4],
+              device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",
               "ops/gs/pallas_resident.py::_bwd_kernel", pair_launches["resident_bwd_pairs"],
               bwd_err["resident_bwd_pairs"][1], *b3, max_rel_err=bwd_err["resident_bwd_pairs"][0],
-              n_channels=4, ms_c7=bwd["resident_bwd_pairs", 7][0]),
+              n_channels=4, ms_c7=bwd["resident_bwd_pairs", 7][0], cull_kept=kept["resident_bwd"],
+              **bwd_more["resident_bwd_pairs", 4],
+              device_ms_c7=bwd_more["resident_bwd_pairs", 7]["device_ms"]),
         entry("hashgrid_cell_fwd", "B4", hg_src, "dreammesh4d_tpu/ops/hashgrid_pallas.py:224",
               "ops/hashgrid_pallas.py::_fwd_kernel", s1_launches["hashgrid_cell_fwd"],
               hg_err["fwd_abs"], *hg_ms["hashgrid_cell_fwd"], *hg_bound["hashgrid_cell_fwd"][:2],
               max_rel_err=hg_err["dfeats_rel"], max_rel_err_feats=hg_err["feats_rel"],
-              launches_export=export_launches, ms_features_only=feats_only_ms),
+              launches_export=export_launches, ms_features_only=feats_only_ms,
+              device_ms=hg_dev["hashgrid_cell_fwd"]),
         entry("hashgrid_cell_bwd", "B5", hg_src, "dreammesh4d_tpu/ops/hashgrid_pallas.py:251",
               "ops/hashgrid_pallas.py::_bwd_kernel", s1_launches["hashgrid_cell_bwd"],
               hg_err["bwd_abs"], *hg_ms["hashgrid_cell_bwd"], *hg_bound["hashgrid_cell_bwd"][:2],
-              max_rel_err=hg_err["bwd_rel"], ms_g_feats_only=bwd_feats_only_ms),
+              max_rel_err=hg_err["bwd_rel"], ms_g_feats_only=bwd_feats_only_ms,
+              device_ms=hg_dev["hashgrid_cell_bwd"]),
         entry("table_fwd", "B6", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:286",
               "ops/gs/pallas_blend.py::_fwd_kernel", static_table["table_fwd"] + serving_table["table_fwd"],
               table_err["fwd_abs"], *table_ms["table_fwd", 7], n_channels=7,
               launches_static=static_table["table_fwd"], launches_serving=serving_table["table_fwd"],
-              ms_c4=table_ms["table_fwd", 4][0]),
+              ms_c4=table_ms["table_fwd", 4][0], device_ms=table_dev["table_fwd", 7],
+              device_ms_c4=table_dev["table_fwd", 4]),
         entry("table_bwd", "B7", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:316",
               "ops/gs/pallas_blend.py::_bwd_kernel", static_table["table_bwd"], table_err["bwd_abs"],
               *table_ms["table_bwd", 7], max_rel_err=table_err["bwd_rel"], n_channels=7,
-              ms_c4=table_ms["table_bwd", 4][0]),
+              ms_c4=table_ms["table_bwd", 4][0], device_ms=table_dev["table_bwd", 7],
+              device_ms_c4=table_dev["table_bwd", 4]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 // The per-pixel compositing rules that the forward and replay-backward
-// kernels share: resident_fwd.cu (B1), resident_bwd.cu (B2/B3) and
-// table_blend.cu (B6/B7) include this header, so the row layout, the
-// constants, the live test, one entry's forward and replay step and the block
-// reduction of an entry's gradient row exist once, and every backend decides
-// the -4.5 and 1/255 edges alike.
+// kernels share: resident_fwd.cu (B1), resident_bwd.cu (B2/B3, both through
+// cluster_blend.cuh) and table_blend.cu (B6/B7) include this header, so the
+// row layout, the constants, the live test and one entry's forward and
+// replay step exist once, and every backend decides the -4.5 and 1/255 edges
+// alike.  The row staging and block reduction below serve B6/B7.
 //
 // Row layout (N+1, 16) f32: [mx, my, ca, cb, cc, c_0..c_{C-1}, 0.., op@14, 0];
 // row N is a zero sentinel.  Per entry at pixel (px, py), no +0.5:
@@ -12,7 +12,8 @@
 //   raw = op exp(power), alpha = min(0.99, raw),
 //   live iff -4.5 <= power <= 0 and alpha >= 1/255.
 // A tile stops before a group of entries once every pixel's transmittance is
-// <= kTEps (a block-wide vote, at the same entries forward and backward).
+// <= kTEps (a vote of the tile's block or cluster, at the same entries
+// forward and backward).
 // Replay, per pixel with g = cot, S = sum_c out[c] g[c] + g[C] out[C]:
 //   w_i = alpha_i T_excl, gdotc_i = sum_c colour_i[c] g[c],
 //   prefix_i = sum_{j<=i} gdotc_j w_j,

@@ -1,6 +1,6 @@
 // Replay backward of the per-tile alpha compositing (Hopper, sm_90a): one
-// thread block per screen tile, two entry points that differ only in where a
-// pair's 16-wide gradient row goes.
+// cluster of CTAs per screen tile, two entry points that differ only in
+// where a pair's 16-wide gradient row goes.
 //
 // Replaces: dreammesh4d_tpu/ops/gs/pallas_resident.py::_bwd_kernel_accum
 // (entry resident_bwd_accum: rows summed per Gaussian into an (N+1, 16)
@@ -9,157 +9,167 @@
 // the same layout: the TPU kernels form the running transmittance and the
 // prefix sums of a 128-pair group with triangular bf16 matmuls and
 // read-modify-write a VMEM table, which is legal there because the TPU grid
-// is sequential.  Here blocks run in no order: each thread replays its pixels
-// front to back in exact float32, a pair's sums are reduced across the
-// block's pixels (warp shuffles, then shared memory), and the accumulating
-// entry does one atomicAdd per column per (tile, pair).  A Gaussian occurs
-// at most once per tile, so there is no conflict inside a block.
+// is sequential.  Here clusters run in no order: each thread replays its
+// pixel front to back in exact float32, a pair's sums are reduced across the
+// CTA's pixels (warp shuffles, then shared-memory atomics), and each CTA
+// does one atomicAdd per column per (quadrant, pair) into the zeroed table,
+// per Gaussian or per pair slot.  A Gaussian occurs at most once per tile,
+// so a row has at most the cluster's four writers.
 //
 // Inputs
 //   rows   (N+1, 16) f32  [mx, my, ca, cb, cc, c_0..c_{C-1}, 0.., op@14, 0]
 //   pairs  (NM,) i32, starts/counts (T,) i32: per-tile segments, front to back
 //   out    (T, C+1, tile*tile) f32: the forward's output (colours, final T)
 //   cot    (T, C+1, tile*tile) f32: its cotangent
-// Output (zeroed by the caller on the same stream before the launch)
-//   accum: grads (N+1, 16) f32;  pairs: grads (T, cap, 16) f32
-//   columns [d_mx, d_my, d_ca, d_cb, d_cc, d_c_0..d_c_{C-1}, 0.., d_op@14, 0]
+// Outputs
+//   grads (zeroed by the caller on the same stream before the launch)
+//     accum: (N+1, 16) f32;  pairs: (T, cap, 16) f32
+//     columns [d_mx, d_my, d_ca, d_cb, d_cc, d_c_0..d_c_{C-1}, 0.., d_op@14, 0]
+//   walked (2, T, 4) i32, optional (null: none): as in resident_fwd.cu
 //
-// Per tile, pixel and pair (front to back): the replay step and the block
-// reduction of blend_common.cuh, with the forward's live test.
-// The tile stops before a group of `group` pairs once every pixel's replayed
-// transmittance is <= 1e-4: the same vote, on the same products, as the
+// Per tile, pixel and pair (front to back): the replay step of
+// blend_common.cuh, with the forward's live test.  The tile stops before a
+// group of `group` pairs once every pixel's replayed transmittance is
+// <= 1e-4: the same vote of the whole cluster, on the same products, as the
 // forward, so both agree about which pairs exist.
 //
 // Bound on this card: operations, as the forward (the replay is ~3x the
-// forward's arithmetic per evaluated pixel plus the block reduction; inputs
-// and outputs are a few tens of MB, ~10 us at 3.35 TB/s).  Design: pairs are
-// staged 32 at a time in shared memory; a warp owns a contiguous strip of
-// the tile (4 rows of a 32-px tile) and skips the reduction of a pair none of
-// its pixels composites; warps leave partial rows in shared memory and the
-// block sums and emits the 32 rows together, so there are three barriers per
-// 32 pairs instead of one per pair.
+// forward's arithmetic per evaluated pixel plus the reduction; inputs and
+// outputs are a few tens of MB, ~10 us at 3.35 TB/s).  Design
+// (cluster_blend.cuh): four 16x16 quadrant CTAs per 32-px tile, one pixel
+// per thread; a CTA replays only the staged rows that can be live in its
+// quadrant, while the next group's rows arrive by cp.async.  A warp with a
+// live pixel reduces its 6 + C sums of a row in 16 shuffles (a transposed
+// butterfly that leaves column c on lane c) and its lanes add them into the
+// CTA's raw row of that pair in shared memory; after the group each CTA
+// forms the conic and opacity columns of its rows and adds them to the
+// table, so a per-pair slot of resident_bwd_pairs too gets up to four adds
+// in no fixed order and its bits may differ by rounding from run to run.
+// (Summing the four CTAs' rows through distributed shared memory first, one
+// write per column per (tile, pair), was slower on an H100; PERF.md has the times.)
 
-#include "blend_common.cuh"
+#include "cluster_blend.cuh"
 
 namespace {
 
 using namespace blend;
 
-constexpr int kMaxPixelsPerThread = 4;  // tile * tile <= 1024
+// Shared memory: two row buffers of `group` rows, the raw sums of `group`
+// rows, then the cull list.
+__host__ __device__ constexpr size_t smem_bytes(int group) {
+  return static_cast<size_t>(group) * (3 * kRow * sizeof(float) + sizeof(int));
+}
 
 template <int C, bool PER_PAIR>
 __global__ void __launch_bounds__(kThreads)
 resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pairs,
                     const int* __restrict__ starts, const int* __restrict__ counts,
                     const float* __restrict__ out, const float* __restrict__ cot,
-                    float* __restrict__ grads, int tiles_x, int tile, int cap, int group) {
-  __shared__ float4 srow4[kChunk * (kRow / 4)];
-  __shared__ int sidx[kChunk];
-  __shared__ Partials part;
-  const float* srow = reinterpret_cast<const float*>(srow4);
+                    float* __restrict__ grads, int* __restrict__ walked, int nq, int tiles_x,
+                    int tile, int cap, int group) {
+  extern __shared__ float4 smem4[];
+  __shared__ int vote[2];
+  __shared__ int warp_cnt[kMaxRounds * kWarps];
+  // the rows of group k, staged in buffer k & 1
+  auto buffer = [&](int k) { return smem4 + (k & 1) * group * (kRow / 4); };
+  float* part = reinterpret_cast<float*>(smem4 + 2 * group * (kRow / 4));
+  int* list = reinterpret_cast<int*>(part + group * kRow);
+  cg::cluster_group cluster = cg::this_cluster();
 
-  const int t = blockIdx.x;
+  const Quadrant q = quadrant(nq, tiles_x, tile);
   const int P = tile * tile;
-  const int n_pix = (P + kThreads - 1) / kThreads;
-  const int count = min(counts[t], cap);
-  const int start = starts[t];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float ox = static_cast<float>((t % tiles_x) * tile);
-  const float oy = static_cast<float>((t / tiles_x) * tile);
-  const float* o = out + static_cast<size_t>(t) * (C + 1) * P;
-  const float* g = cot + static_cast<size_t>(t) * (C + 1) * P;
+  const int count = min(counts[q.t], cap);
+  const int* seg = pairs + starts[q.t];
 
-  // a warp owns the contiguous pixels [warp * 32 * n_pix, (warp + 1) * 32 * n_pix)
-  float px[kMaxPixelsPerThread], py[kMaxPixelsPerThread], trans[kMaxPixelsPerThread];
-  float s_tot[kMaxPixelsPerThread], prefix[kMaxPixelsPerThread];
-  float gc[kMaxPixelsPerThread][C];
-  bool valid[kMaxPixelsPerThread];
-#pragma unroll
-  for (int k = 0; k < kMaxPixelsPerThread; ++k) {
-    const int p = warp * 32 * n_pix + k * 32 + lane;
-    valid[k] = (k < n_pix) && (p < P);
-    px[k] = ox + static_cast<float>(p % tile);
-    py[k] = oy + static_cast<float>(p / tile);
-    trans[k] = valid[k] ? 1.0f : 0.0f;  // pixels past the tile never keep it alive
-    prefix[k] = 0.0f;
-    float s = 0.0f;
+  float gc[C];
+  float s_tot = 0.0f;
+  float trans = q.valid ? 1.0f : 0.0f;  // pixels past the tile never keep it alive
+  float prefix = 0.0f;
+  if (q.valid) {
+    const float* o = out + static_cast<size_t>(q.t) * (C + 1) * P + q.p;
+    const float* g = cot + static_cast<size_t>(q.t) * (C + 1) * P + q.p;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      gc[k][c] = valid[k] ? g[c * P + p] : 0.0f;
-      if (valid[k]) s += o[c * P + p] * gc[k][c];
+      gc[c] = g[c * P];
+      s_tot += o[c * P] * gc[c];
     }
-    if (valid[k]) s += g[C * P + p] * o[C * P + p];
-    s_tot[k] = s;
+    s_tot += g[C * P] * o[C * P];
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) gc[c] = 0.0f;
   }
 
-  for (int g0 = 0; g0 < count; g0 += group) {
-    int alive = 0;
-#pragma unroll
-    for (int k = 0; k < kMaxPixelsPerThread; ++k) alive |= (trans[k] > kTEps);
-    // tile-wide exit, at the pair where the forward stopped; also a barrier
-    if (!__syncthreads_or(alive)) break;
-    const int g_end = min(g0 + group, count);
+  int n_walked = 0, n_kept = 0;
+  if (count > 0) stage_rows_async(buffer(0), rows, seg, min(group, count));
+  for (int g0 = 0, k = 0; g0 < count; g0 += group, ++k) {
+    // tile-wide exit, at the pair where the forward stopped; also the barrier
+    // after which the CTA is done with the previous group's raw sums
+    if (!tile_alive(vote, k & 1, trans > kTEps, nq)) break;
+    const int n = min(group, count - g0);
+    n_walked += n;
+    const int next = g0 + group;
+    stage_rows_async(buffer(k + 1), rows, seg + next, next < count ? min(group, count - next) : 0);
+    for (int i = threadIdx.x; i < n * kRow; i += kThreads) part[i] = 0.0f;
+    cp_async_wait<1>();
+    __syncthreads();
 
-    for (int c0 = g0; c0 < g_end; c0 += kChunk) {
-      const int n = min(kChunk, g_end - c0);
-      stage_rows(srow4, sidx, rows, pairs + start + c0, n);
-      __syncthreads();
-
-      for (int j = 0; j < n; ++j) {
-        const float* r = srow + j * kRow;
-        Sums<C> sums;
-        sums.zero();
-        bool any_live = false;
-#pragma unroll
-        for (int k = 0; k < kMaxPixelsPerThread; ++k) {
-          if (k >= n_pix) break;
-          const Hit h = evaluate(r, px[k], py[k]);
-          if (h.live && valid[k]) {
-            any_live = true;
-            replay<C>(r, h, gc[k], s_tot[k], trans[k], prefix[k], sums);
-          }
-        }
-        warp_partial<C>(r, any_live, sums, part, j);
-      }
-      __syncthreads();
-
-      emit_rows<C>(part, n, [&](int j, int c, float v) {
-        if (PER_PAIR) {
-          grads[(static_cast<size_t>(t) * cap + (c0 + j)) * kRow + c] = v;
-        } else {
-          atomicAdd(grads + static_cast<size_t>(sidx[j]) * kRow + c, v);
-        }
-      });
-      // the next chunk's staging rewrites sidx, which the emit still reads
-      __syncthreads();
+    const float* srow = reinterpret_cast<const float*>(buffer(k));
+    const int kept = cull_rows(srow, n, q, list, warp_cnt);
+    n_kept += kept;
+    for (int i = 0; i < kept; ++i) {
+      const int j = list[i];
+      float r[kRow];
+      load_row(r, srow + j * kRow);
+      const Hit h = evaluate(r, q.px, q.py);
+      const bool live = h.live && q.valid;
+      Sums<C> sums;
+      sums.zero();
+      if (live) replay<C>(r, h, gc, s_tot, trans, prefix, sums);
+      warp_add_sums<C>(sums, live, part + j * kRow);
+    }
+    // every warp's adds into this CTA's raw sums are done
+    __syncthreads();
+    // each CTA adds its own partial rows: a Gaussian occurs once per tile, so
+    // a row of the table has at most the cluster's four writers here
+    for (int i = threadIdx.x; i < n * kRow; i += kThreads) {
+      const int c = i & (kRow - 1);
+      const int j = i >> 4;
+      const float* R = part + j * kRow;
+      if ((c >= 5 + C && c != kOpCol) || R[kWarpCountCol] == 0.0f) continue;
+      const float v = gradient_column<C>(R, srow + j * kRow, c);
+      atomicAdd(PER_PAIR ? grads + (static_cast<size_t>(q.t) * cap + (g0 + j)) * kRow + c
+                         : grads + static_cast<size_t>(seg[g0 + j]) * kRow + c, v);
     }
   }
+  cp_async_wait<0>();
+  // no CTA leaves while another may still read its vote
+  cluster.sync();
+  if (walked != nullptr && threadIdx.x == 0) write_walked(walked, q, nq, n_walked, n_kept);
 }
 
 template <int C, bool PER_PAIR>
-void launch(const float* rows, const int* pairs, const int* starts, const int* counts,
-            const float* out, const float* cot, float* grads, int n_tiles, int tiles_x,
-            int tile, int cap, int group, cudaStream_t stream) {
-  resident_bwd_kernel<C, PER_PAIR><<<n_tiles, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(rows), pairs, starts, counts, out, cot, grads, tiles_x,
-      tile, cap, group);
+int launch(const float* rows, const int* pairs, const int* starts, const int* counts,
+           const float* out, const float* cot, float* grads, int* walked, int n_tiles,
+           int tiles_x, int tile, int cap, int group, cudaStream_t stream) {
+  return static_cast<int>(launch_clusters(
+      resident_bwd_kernel<C, PER_PAIR>, n_tiles, tile, smem_bytes(group), stream,
+      reinterpret_cast<const float4*>(rows), pairs, starts, counts, out, cot, grads, walked,
+      quads_of(tile), tiles_x, tile, cap, group));
 }
 
 template <bool PER_PAIR>
 int dispatch(const float* rows, const int* pairs, const int* starts, const int* counts,
-             const float* out, const float* cot, float* grads, int n_tiles, int tiles_x,
-             int tile, int cap, int group, int n_channels, void* stream) {
-  if (tile < 1 || tile * tile > kThreads * kMaxPixelsPerThread || group < 1 || cap < 0) {
+             const float* out, const float* cot, float* grads, int* walked, int n_tiles,
+             int tiles_x, int tile, int cap, int group, int n_channels, void* stream) {
+  if (tile < 1 || tile > 2 * kQuad || group < 1 || group > kMaxGroup || cap < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RESIDENT_BWD_CASE(CH)                                                              \
   case CH:                                                                                 \
-    launch<CH, PER_PAIR>(rows, pairs, starts, counts, out, cot, grads, n_tiles, tiles_x,   \
-                         tile, cap, group, s);                                             \
-    break;
+    return launch<CH, PER_PAIR>(rows, pairs, starts, counts, out, cot, grads, walked,      \
+                                n_tiles, tiles_x, tile, cap, group, s);
   switch (n_channels) {
     RESIDENT_BWD_CASE(1)
     RESIDENT_BWD_CASE(2)
@@ -174,28 +184,29 @@ int dispatch(const float* rows, const int* pairs, const int* starts, const int* 
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RESIDENT_BWD_CASE
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both return the CUDA error code of the launch (0 = success).  The caller
-// checks shapes and zeroes `grads` on `stream` before the call.
+// Both return the CUDA error code of the launch (0 = success), also where
+// the card refuses the cluster launch.  The caller checks shapes and zeroes
+// `grads` on `stream` before the call.
 
 // grads (N+1, 16): each pair's row added to its Gaussian's row.
 extern "C" int resident_bwd_accum(const float* rows, const int* pairs, const int* starts,
                                   const int* counts, const float* out, const float* cot,
-                                  float* grads, int n_tiles, int tiles_x, int tile, int cap,
-                                  int group, int n_channels, void* stream) {
-  return dispatch<false>(rows, pairs, starts, counts, out, cot, grads, n_tiles, tiles_x, tile,
-                         cap, group, n_channels, stream);
+                                  float* grads, int* walked, int n_tiles, int tiles_x, int tile,
+                                  int cap, int group, int n_channels, void* stream) {
+  return dispatch<false>(rows, pairs, starts, counts, out, cot, grads, walked, n_tiles, tiles_x,
+                         tile, cap, group, n_channels, stream);
 }
 
-// grads (T, cap, 16): each pair's row written at (tile, slot).
+// grads (T, cap, 16): each pair's row added at (tile, slot) by the quadrant CTAs
+// that composited it (at most four adds into the zeroed slot, in no fixed order).
 extern "C" int resident_bwd_pairs(const float* rows, const int* pairs, const int* starts,
                                   const int* counts, const float* out, const float* cot,
-                                  float* grads, int n_tiles, int tiles_x, int tile, int cap,
-                                  int group, int n_channels, void* stream) {
-  return dispatch<true>(rows, pairs, starts, counts, out, cot, grads, n_tiles, tiles_x, tile,
-                        cap, group, n_channels, stream);
+                                  float* grads, int* walked, int n_tiles, int tiles_x, int tile,
+                                  int cap, int group, int n_channels, void* stream) {
+  return dispatch<true>(rows, pairs, starts, counts, out, cot, grads, walked, n_tiles, tiles_x,
+                        tile, cap, group, n_channels, stream);
 }

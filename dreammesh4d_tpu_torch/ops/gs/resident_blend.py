@@ -7,6 +7,9 @@ and of the math it shares with ``pallas_blend.py``.
   row (``pallas_blend.py:393``), so C ≤ 9;
 - :func:`blend_pairs_plain` / :func:`blend_pairs_bwd_plain` — the plain
   PyTorch versions of the forward and of the replay backward;
+- :func:`quadrant_keep_plain` — the kernels' per-quadrant row cull written
+  in PyTorch (a 32-px tile is four 16×16 quadrant CTAs, :func:`quadrant_bounds`),
+  and :func:`quadrant_kept_plain`, the rows it keeps per tile and quadrant;
 - :func:`blend_pairs_cuda` — the wrapper of the hand-written Hopper kernel
   ``csrc/resident_fwd.cu`` (replaces ``pallas_resident.py::_fwd_kernel``);
 - :func:`blend_pairs_bwd_cuda` — the wrapper of ``csrc/resident_bwd.cu``:
@@ -66,6 +69,12 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 MAX_GROUP = 512  # the kernel stages a group of rows in shared memory
+QUAD = 16  # the kernels cut a tile of side > 16 into four 16x16 quadrant CTAs
+MAX_QUADS = 4  # columns of the kernels' ``walked`` counts
+# the quadrant cull (csrc/cluster_blend.cuh row_box): the box of
+# power >= -4.5 inflated by 5 %, rows of a conic with det <= 1e-4 ca cc kept
+CULL_POWER = 9.45
+CULL_DET_REL = 1e-4
 
 # kernel launches, counted by the wrapper where it launches (and nowhere else)
 launch_counts = {"resident_fwd": 0, "resident_bwd_accum": 0, "resident_bwd_pairs": 0}
@@ -129,6 +138,62 @@ def _group_geometry(r, px, py, valid):
     return torch.where(live, alpha, torch.zeros_like(alpha)), live, raw > ALPHA_MAX, dx, dy
 
 
+def quadrant_bounds(T: int, tiles_x: int, tile: int, device=None):
+    """The pixel-coordinate box of every quadrant CTA of every tile:
+    (x0, x1, y0, y1), each (T, nq) float32, first and last pixel included;
+    nq = 4 quadrants (x-major) for tile > 16, else 1 covering the tile."""
+    t = torch.arange(T, device=device)
+    ox, oy = (t % tiles_x) * tile, (t // tiles_x) * tile
+    q = torch.arange(MAX_QUADS if tile > QUAD else 1, device=device)
+    qx, qy = (q & 1) * QUAD, (q >> 1) * QUAD
+    x0, y0 = ox[:, None] + qx[None], oy[:, None] + qy[None]
+    x1 = ox[:, None] + torch.clamp(qx + QUAD, max=tile)[None] - 1
+    y1 = oy[:, None] + torch.clamp(qy + QUAD, max=tile)[None] - 1
+    return tuple(v.float() for v in (x0, x1, y0, y1))
+
+
+def quadrant_keep_plain(r: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
+    """Whether rows r (..., ROW) can be live at a pixel of the box
+    [x0, x1] × [y0, y1] (broadcast against r's leading shape): the cull of
+    the kernels (``row_box`` + ``box_meets`` in ``csrc/cluster_blend.cuh``,
+    applied to each CTA's 16×16 quadrant), in the same float32 operations
+    and order.  False only for an opacity < 1/255 (α = min(0.99,
+    op·exp(power)) ≤ op where power ≤ 0) or a finite conic with ca, cc > 0
+    and det = ca·cc − cb² > 1e-4·ca·cc whose box of power ≥ −4.5 —
+    half-widths √(9·cc/det), √(9·ca/det), with 9 raised by 5 % and one pixel
+    added against the rounding of the power — misses the box.  Conservative:
+    a dropped row is dead at every pixel of the box, so culling changes no
+    output bit."""
+    mx, my, ca, cb, cc, op = (r[..., i] for i in (0, 1, 2, 3, 4, OP_COL))
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca) & torch.isfinite(cb)
+              & torch.isfinite(cc))
+    det = ca * cc - cb * cb
+    definite = finite & (ca > 0.0) & (cc > 0.0) & (det > CULL_DET_REL * ca * cc)
+    hx = torch.sqrt(CULL_POWER * cc / det) + 1.0
+    hy = torch.sqrt(CULL_POWER * ca / det) + 1.0
+    meets = (mx + hx >= x0) & (mx - hx <= x1) & (my + hy >= y0) & (my - hy <= y1)
+    return ~(op < ALPHA_MIN) & (~definite | meets)
+
+
+def quadrant_kept_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
+                        walked_per_tile: torch.Tensor, tiles_x: int, tile: int) -> torch.Tensor:
+    """How many of the pair slots each tile walked (``walked_per_tile`` of
+    the plain versions' ``stats``) :func:`quadrant_keep_plain` keeps in each
+    quadrant CTA: (T, nq) int64, what the kernels count in plane 1 of their
+    ``walked``."""
+    T = starts.shape[0]
+    nq = MAX_QUADS if tile > QUAD else 1
+    walked = walked_per_tile.to(rows.device)
+    if T == 0 or int(walked.max()) == 0:
+        return torch.zeros((T, nq), dtype=torch.long, device=rows.device)
+    slot = torch.arange(int(walked.max()), device=rows.device)
+    valid = slot[None] < walked[:, None]  # (T, S)
+    pos = torch.clamp(starts.long()[:, None] + slot[None], max=pairs.numel() - 1)
+    r = rows[pairs[pos].long()][:, :, None, :]  # (T, S, 1, ROW)
+    x0, x1, y0, y1 = (b[:, None] for b in quadrant_bounds(T, tiles_x, tile, rows.device))
+    return (quadrant_keep_plain(r, x0, x1, y0, y1) & valid[..., None]).sum(1)
+
+
 def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                       counts: torch.Tensor, tiles_x: int, tile: int, cap: int,
                       group: int, n_channels: int,
@@ -137,7 +202,9 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
     step (a (T, group, tile²) working set; never a (T, cap, tile²) one).
 
     ``stats``, when given, receives the work the kernel does on these
-    inputs: ``pairs_read``, the pair slots the tiles walked, and
+    inputs: ``pairs_read``, the pair slots the tiles walked,
+    ``walked_per_tile``, the same per tile ((T,) int64, summing to
+    ``pairs_read``: what every quadrant CTA of the kernel walks), and
     ``live_pixels``, the (pair, pixel) evaluations that composited."""
     _check_group(group, tile)
     T = starts.shape[0]
@@ -149,7 +216,8 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
     trans = rows.new_ones((T, 1, P))
     acc = rows.new_zeros((T, C, P))
     n_groups = (int(count.max()) + group - 1) // group if T else 0
-    pairs_read = live_pixels = 0
+    live_pixels = 0
+    walked = torch.zeros(T, dtype=torch.long, device=rows.device)
     for g in range(n_groups):
         active = (g * group < count) & (trans.amax(dim=(1, 2)) > T_EPS)  # (T,)
         if not bool(active.any()):
@@ -158,7 +226,7 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
         r = rows[idx]  # (T, G, ROW)
         alpha, live, _, _, _ = _group_geometry(r, px, py, valid)
         if stats is not None:
-            pairs_read += int(valid.sum())
+            walked += valid.sum(1)
             live_pixels += int(live.sum())
         incl = torch.cumprod(1.0 - alpha, dim=1)  # (T, G, P)
         excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1)
@@ -166,7 +234,8 @@ def blend_pairs_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Ten
         acc = acc + torch.einsum("tgc,tgp->tcp", r[..., 5:5 + C], w)
         trans = trans * incl[:, -1:]
     if stats is not None:
-        stats.update(pairs_read=pairs_read, live_pixels=live_pixels)
+        stats.update(pairs_read=int(walked.sum()), walked_per_tile=walked,
+                     live_pixels=live_pixels)
     return torch.cat([acc, trans], 1)
 
 
@@ -185,16 +254,37 @@ def _check_cuda_inputs(rows, pairs, starts, counts, n_channels: int) -> None:
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     if rows.shape[1] != ROW:
         raise ValueError(f"rows must be (N+1, {ROW}), got {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: the kernels copy 16-byte pieces of it, need a 16-byte aligned start")
     if counts.shape[0] != starts.shape[0]:
         raise ValueError("starts and counts must have the same length")
 
 
+def _walked_ptr(walked: Optional[torch.Tensor], T: int, dev) -> int:
+    """The pointer the kernels write their per-quadrant counts to (0 for
+    none): a contiguous (2, T, 4) int32 tensor on the kernels' device."""
+    if walked is None:
+        return 0
+    shape = (2, T, MAX_QUADS)
+    if (walked.device != dev or walked.dtype != torch.int32 or tuple(walked.shape) != shape
+            or not walked.is_contiguous()):
+        raise ValueError(f"walked: need a contiguous {shape} int32 tensor on {dev}, "
+                         f"got {tuple(walked.shape)} {walked.dtype} on {walked.device}")
+    return walked.data_ptr()
+
+
 def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                      counts: torch.Tensor, tiles_x: int, tile: int, cap: int,
-                     group: int, n_channels: int) -> torch.Tensor:
+                     group: int, n_channels: int,
+                     walked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the Hopper kernel ``csrc/resident_fwd.cu`` on the current
-    stream.  Same contract as :func:`blend_pairs_plain`; raises on a tensor
-    it does not take or a launch that fails."""
+    stream: one cluster of four 16×16 quadrant CTAs per tile (one CTA for
+    tile ≤ 16).  Same contract as :func:`blend_pairs_plain`; raises on a
+    tensor it does not take or a launch that fails (a refused cluster launch
+    too).  ``walked``, a (2, T, 4) int32 tensor, receives per quadrant CTA
+    (column 0 only for tile ≤ 16) the pair slots it stepped through, which
+    must equal the plain version's ``walked_per_tile``, and how many of
+    those rows its cull kept, which must equal :func:`quadrant_kept_plain`."""
     from ... import cuda_build
 
     _check_group(group, tile)
@@ -204,13 +294,14 @@ def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tens
 
     lib = cuda_build.load("resident_fwd")
     fn = lib.resident_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    walked_ptr = _walked_ptr(walked, T, dev)
     out = torch.empty((T, C + 1, tile * tile), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(rows.data_ptr(), pairs.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                    out.data_ptr(), T, tiles_x, tile, cap, group, C, stream)
+                    out.data_ptr(), walked_ptr, T, tiles_x, tile, cap, group, C, stream)
     if status != 0:
         raise RuntimeError(f"resident_fwd launch failed with CUDA error {status}")
     launch_counts["resident_fwd"] += 1
@@ -228,7 +319,8 @@ def blend_pairs_bwd_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch
     ``per_pair`` the (T, cap, 16) rows per pair slot, zero past
     ``min(count, cap)`` and past a tile's exit.
 
-    ``stats`` receives ``pairs_read`` and ``live_pixels`` as in the forward."""
+    ``stats`` receives ``pairs_read``, ``walked_per_tile`` and
+    ``live_pixels`` as in the forward."""
     _check_group(group, tile)
     T = starts.shape[0]
     P = tile * tile
@@ -246,7 +338,8 @@ def blend_pairs_bwd_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch
         grads = rows.new_zeros((T, n_groups * group, ROW))
     else:
         grads = rows.new_zeros((N + 1, ROW))
-    pairs_read = live_pixels = 0
+    live_pixels = 0
+    walked = torch.zeros(T, dtype=torch.long, device=rows.device)
     for g in range(n_groups):
         active = (g * group < count) & (trans.amax(dim=(1, 2)) > T_EPS)
         if not bool(active.any()):
@@ -255,7 +348,7 @@ def blend_pairs_bwd_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch
         r = rows[idx]  # (T, G, ROW)
         alpha, live, clamped, dx, dy = _group_geometry(r, px, py, valid)
         if stats is not None:
-            pairs_read += int(valid.sum())
+            walked += valid.sum(1)
             live_pixels += int(live.sum())
         incl = torch.cumprod(1.0 - alpha, dim=1)
         t_excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1) * trans
@@ -288,7 +381,8 @@ def blend_pairs_bwd_plain(rows: torch.Tensor, pairs: torch.Tensor, starts: torch
         trans = trans * incl[:, -1:]
         gpre = prefix[:, -1:]
     if stats is not None:
-        stats.update(pairs_read=pairs_read, live_pixels=live_pixels)
+        stats.update(pairs_read=int(walked.sum()), walked_per_tile=walked,
+                     live_pixels=live_pixels)
     if per_pair:
         grads = grads[:, :cap]
         if grads.shape[1] < cap:
@@ -313,13 +407,15 @@ def reduce_pair_grads(tile_grads: torch.Tensor, pairs: torch.Tensor, starts: tor
 def blend_pairs_bwd_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tensor,
                          counts: torch.Tensor, out: torch.Tensor, cot: torch.Tensor,
                          tiles_x: int, tile: int, cap: int, group: int, n_channels: int,
-                         per_pair: bool = False) -> torch.Tensor:
+                         per_pair: bool = False,
+                         walked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the Hopper kernel ``csrc/resident_bwd.cu`` on the current
-    stream: entry ``resident_bwd_accum`` (gradients summed per Gaussian with
-    atomics, (N+1, 16)) or, with ``per_pair``, ``resident_bwd_pairs`` (rows
-    per pair slot, (T, cap, 16)).  Same contract as
-    :func:`blend_pairs_bwd_plain`; raises on a tensor it does not take or a
-    launch that fails."""
+    stream, in clusters as :func:`blend_pairs_cuda`: entry
+    ``resident_bwd_accum`` (gradients summed per Gaussian with atomics,
+    (N+1, 16)) or, with ``per_pair``, ``resident_bwd_pairs`` (rows per pair
+    slot, (T, cap, 16)).  Same contract as :func:`blend_pairs_bwd_plain`;
+    raises on a tensor it does not take or a launch that fails; ``walked``
+    as in :func:`blend_pairs_cuda`."""
     from ... import cuda_build
 
     _check_group(group, tile)
@@ -334,16 +430,17 @@ def blend_pairs_bwd_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     name = "resident_bwd_pairs" if per_pair else "resident_bwd_accum"
     fn = getattr(cuda_build.load("resident_bwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    walked_ptr = _walked_ptr(walked, T, dev)
     with torch.cuda.device(dev):
         # zeroed on the launch's stream: blocks run in no order and add into it
         shape = (T, cap, ROW) if per_pair else (rows.shape[0], ROW)
         grads = torch.zeros(shape, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(rows.data_ptr(), pairs.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                    out.data_ptr(), cot.data_ptr(), grads.data_ptr(), T, tiles_x, tile, cap,
-                    group, C, stream)
+                    out.data_ptr(), cot.data_ptr(), grads.data_ptr(), walked_ptr, T, tiles_x,
+                    tile, cap, group, C, stream)
     if status != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {status}")
     launch_counts[name] += 1

@@ -74,7 +74,8 @@ def blend_table_plain(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: torc
                       tiles_x: int, group: int, n_channels: int,
                       stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch compositing of every tile: (T, C+1, 256).  ``stats``
-    receives ``pairs_read`` and ``live_pixels`` (the work the kernel does)."""
+    receives ``pairs_read``, ``walked_per_tile`` and ``live_pixels`` (the
+    work the kernel does)."""
     pairs, starts, count = _segments(tile_gauss, counts)
     return blend_pairs_plain(rows, pairs, starts, count, tiles_x, TILE, tile_gauss.shape[1],
                              group, n_channels, stats=stats)
