@@ -81,12 +81,29 @@ Phases, each of which fails the run on a failed check:
    copy of the parameters), driven from the same start on the YAML's
    ``pallas_resident`` (B1/B2) and on ``backend: pallas`` with 16 tiles per
    Gaussian (B6/B7), with the launches of each held to 5 + 5 per step;
-9. CUDA-event times (median of 30 after warm-up; a kernel's ``ms`` as the
-   earlier versions of this script took it: B1-B3 one launch per event
-   pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
-   from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
-   and profiles of one render and one train step of each stage;
-10. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+9. the launcher main path — ``dreammesh4d_tpu_torch.launch.main`` as a user
+   calls it, guidance off, at the YAMLs' full width: assets in a temporary
+   directory (the icosphere(4, 0.6) bind mesh as an OBJ; phase 5's target
+   video, 32 frames at 512², as RGBA PNGs from the port's encoder, frame 0
+   the reference image); ``configs/sugar_static_refine.yaml --train`` for 4
+   steps (a checkpoint every 2, one validation, the 120-view test), then
+   ``configs/sugar_dynamic_dg.yaml --train`` with ``system.weights`` of its
+   last checkpoint for 4 steps, then ``resume=LAST`` to 6; launch counts
+   zeroed before and read after.  Checks the checkpoint layout, the resumed
+   start step, the B1/B2 launches of every step against the YAMLs' batches
+   (static 5 + 5; dynamic 8 + 4: with the guidance off and the YAML's zero
+   TV weights the random views reach no loss), and one ``Viewer4D.from_trial``
+   frame (one B1 launch) against the experiment's own render of the same
+   state; prints ms/step beside the direct steps of phases 5 and 8, the
+   seconds of setup (mesh, graph, frame decode), checkpoint save and load
+   and the test pass, peak memory, and which of yaml, PIL, imageio and cv2
+   the machine has;
+10. CUDA-event times (median of 30 after warm-up; a kernel's ``ms`` as the
+    earlier versions of this script took it: B1-B3 one launch per event
+    pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
+    from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
+    and profiles of one render and one train step of each stage;
+11. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,6 +146,10 @@ STATIC_M = 16  # max_tiles_per_gaussian with backend: pallas (the YAML's 6 count
 TABLE_FWD_TOL = 1e-5  # B6 vs plain, max |d| over every channel
 FEAT_TOL = 1e-6  # B4 feats vs plain, of each level's max |feats|
 DFEAT_TOL = 1e-5  # B4 dfeats vs plain, of each level's max |dfeats| (they carry the resolution)
+# the launcher (dreammesh4d_tpu_torch.launch) on both Gaussian YAMLs
+LAUNCH_STEPS = 4  # trainer.max_steps of each stage's first run
+LAUNCH_RESUMED_STEPS = 6  # the dynamic stage resumed from LAST
+LAUNCH_CKPT_EVERY = 2  # checkpoint.every_n_train_steps
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 
@@ -582,8 +603,9 @@ def drive_training(torch, np, rb, card, make_step, sample_batch, dparams, device
     """The training main path: N_TRAIN_STEPS steps through ``train_step``
     with the launch counts zeroed just before and read just after, then one
     step with ``bwd_accum=False`` and one with ``bwd_accum=True`` from the
-    same state.  Returns (launch counts, the bwd_accum=False step's counts,
-    ms per step, a callable that takes one more step)."""
+    same state, then steps with ``guidance_fn=None``.  Returns (launch
+    counts, the bwd_accum=False step's counts, ms per step, ms per step with
+    ``guidance_fn=None``, a callable that takes one more step)."""
     from dreammesh4d_tpu_torch.systems.sugar_4dgen import init_dyn_state
     from dreammesh4d_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -676,7 +698,8 @@ def drive_training(torch, np, rb, card, make_step, sample_batch, dparams, device
           "guidance_fn=None: expected 8 forward and 4 backward launches per step")
     check("loss_sds_zero123" not in m and all(math.isfinite(float(v)) for v in m.values()),
           "guidance_fn=None: unexpected metrics")
-    return launches, pair_counts, ms, lambda: train_step(state, sample_batch(), gen)
+    return (launches, pair_counts, ms, statistics.median(bare_ms[1:]),
+            lambda: train_step(state, sample_batch(), gen))
 
 
 def stage1_configs():
@@ -1395,6 +1418,238 @@ def one_more_step(train_step, state, batch, gen):
     return run
 
 
+def write_obj(path, mesh):
+    """``mesh`` as a vertex-coloured OBJ (float32 written exactly)."""
+    with open(path, "w") as f:
+        for v, c in zip(mesh.v_pos, mesh.v_rgb):
+            f.write("v %.9g %.9g %.9g %.9g %.9g %.9g\n" % (*v, *c))
+        for t in mesh.t_pos_idx:
+            f.write("f %d %d %d\n" % tuple(int(i) + 1 for i in t))
+
+
+class Spans:
+    """Wraps functions and methods in place to time their calls (the card
+    synchronised around each) and, for ``train_step``, to record the kernel
+    launches of each step; ``close`` puts the originals back."""
+
+    def __init__(self, torch, counts):
+        self.torch, self.counts = torch, counts
+        self.seconds = {}
+        self.steps = []  # (label, step, state.step at entry, ms, launches, metrics)
+        self.results = {}
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        fn = getattr(owner, name)
+        setattr(owner, name, make(fn))
+        self._undo.append((owner, name, fn))
+
+    def time(self, owner, name, label, keep=False):
+        def make(fn):
+            def timed(*a, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                self.seconds.setdefault(label, []).append(time.perf_counter() - t0)
+                if keep:
+                    self.results.setdefault(label, []).append(out)
+                return out
+            return timed
+        self._patch(owner, name, make)
+
+    def train_steps(self, cls, label):
+        def make(fn):
+            def timed(exp, step):
+                before, at_entry = self.counts(), exp.state.step
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = fn(exp, step)
+                self.torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = self.counts()
+                self.steps.append((label, step, at_entry, ms, {k: after[k] - before[k] for k in after},
+                                   {k: float(v) for k, v in metrics.items()}))
+                return metrics
+            return timed
+        self._patch(cls, "train_step", make)
+
+    def close(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
+def drive_launcher(torch, np, rb, tb, card, video, device):
+    """The launcher main path: ``dreammesh4d_tpu_torch.launch.main`` as a
+    user calls it, at the YAMLs' full width with the guidance off.  Assets in
+    a temporary directory: the icosphere(4, 0.6) bind mesh as an OBJ, and the
+    target video of phase 5 (32 frames at 512², moving) as RGBA PNGs written
+    by the port's encoder, frame 0 the static stage's reference image.  Runs
+    configs/sugar_static_refine.yaml --train (LAUNCH_STEPS steps, a
+    checkpoint every LAUNCH_CKPT_EVERY, one validation, then the 120-view
+    test), configs/sugar_dynamic_dg.yaml --train with system.weights of its
+    last checkpoint, then resume=LAST to LAUNCH_RESUMED_STEPS; then one
+    ``Viewer4D.from_trial`` frame against the experiment's own render of the
+    same state.  Returns the numbers of the phase."""
+    import importlib.util
+    import tempfile
+
+    from dreammesh4d_tpu_torch import launch, trainer
+    from dreammesh4d_tpu_torch.data.png import write_png
+    from dreammesh4d_tpu_torch.data.temporal_image import TemporalImageDataModule
+    from dreammesh4d_tpu_torch.serving import Viewer4D
+    from dreammesh4d_tpu_torch.systems import assembly
+    from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
+    from dreammesh4d_tpu_torch.utils.schedule import C_max
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts}
+
+    static_yaml = os.path.join(REPO, "configs", "sugar_static_refine.yaml")
+    dyn_yaml = os.path.join(REPO, "configs", "sugar_dynamic_dg.yaml")
+    res = {"modules": {m: importlib.util.find_spec(m) is not None
+                       for m in ("yaml", "PIL", "imageio", "cv2")}}
+    print(f"on this machine: {json.dumps(res['modules'])} (importable; the port needs none of them)")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_path = os.path.join(tmp, "mesh.obj")
+        write_obj(mesh_path, make_icosphere(MESH_LEVEL, radius=0.6))
+        frames_dir = os.path.join(tmp, "frames")
+        os.makedirs(frames_dir)
+        rgba = (torch.cat(video, -1).clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+        t0 = time.perf_counter()
+        for i, frame in enumerate(rgba):
+            write_png(os.path.join(frames_dir, f"{i:03d}_rgba.png"), frame)
+        res["encode_s"] = time.perf_counter() - t0
+        out = os.path.join(tmp, "out")
+        common = ["system.guidance.pretrained_model_name_or_path=none",
+                  f"system.geometry.surface_mesh_to_bind_path={mesh_path}", f"exp_root_dir={out}",
+                  "use_timestamp=false", f"checkpoint.every_n_train_steps={LAUNCH_CKPT_EVERY}"]
+        static_trial = os.path.join(out, "sugar-refine", "static")
+        dyn_trial = os.path.join(out, "sugar-dynamic", "dynamic")
+        static_ckpt = os.path.join(static_trial, "ckpts", f"step_{LAUNCH_STEPS:08d}")
+        dyn = common + [f"data.video_frames_dir={frames_dir}", f"system.weights={static_ckpt}",
+                        "tag=dynamic"]
+        spans = Spans(torch, counts)
+        spans.time(launch, "build_experiment", "setup", keep=True)
+        for owner, name, label in (
+                (assembly, "load_mesh", "mesh load"),
+                (assembly.SugarStaticExperiment, "train_batch", "static batch"),
+                (assembly.Sugar4DGenExperiment, "train_batch", "dynamic batch"),
+                (assembly, "create_sugar", "create_sugar"), (assembly, "build_dynamic_static", "graph"),
+                (TemporalImageDataModule, "frames_at", "frame decode"),
+                (trainer, "save_checkpoint", "checkpoint save"),
+                (trainer, "restore_checkpoint", "checkpoint load (resume)"),
+                (assembly, "restore_checkpoint", "checkpoint load (system.weights)"),
+                (trainer.Trainer, "fit", "fit"), (trainer.Trainer, "test", "test")):
+            spans.time(owner, name, label)
+        spans.train_steps(assembly.SugarStaticExperiment, "static")
+        spans.train_steps(assembly.Sugar4DGenExperiment, "dynamic")
+        rb.reset_launch_counts()
+        tb.reset_launch_counts()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            launch.main(launch.make_args(static_yaml, "train"), common + [
+                f"data.image_path={frames_dir}/000_rgba.png", f"trainer.max_steps={LAUNCH_STEPS}",
+                f"trainer.val_check_interval={LAUNCH_STEPS}", "tag=static"])
+            res["static_peak"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            launch.main(launch.make_args(dyn_yaml, "train"), dyn + [f"trainer.max_steps={LAUNCH_STEPS}"])
+            launch.main(launch.make_args(dyn_yaml, "train"),
+                        dyn + [f"trainer.max_steps={LAUNCH_RESUMED_STEPS}", "resume=LAST"])
+            res["dyn_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            spans.close()
+        torch.cuda.synchronize()
+        res["launches"] = launches = counts()
+        print(f"launcher main path launches: {json.dumps(launches)}")
+        check(launches["resident_fwd"] > 0 and launches["resident_bwd_accum"] > 0,
+              "the launcher path did not launch B1 and B2")
+        check(launches["table_fwd"] == launches["table_bwd"] == launches["resident_bwd_pairs"] == 0,
+              "the launcher path (backend pallas_resident, bwd_accum) launched another kernel")
+
+        # the checkpoint layout of both trials
+        want = {static_trial: [LAUNCH_CKPT_EVERY, LAUNCH_STEPS],
+                dyn_trial: list(range(LAUNCH_CKPT_EVERY, LAUNCH_RESUMED_STEPS + 1, LAUNCH_CKPT_EVERY))}
+        for trial, steps in want.items():
+            got = sorted(os.listdir(os.path.join(trial, "ckpts")))
+            check(got == [f"step_{k:08d}" for k in steps], f"{trial}: checkpoints {got}")
+            check(all(os.listdir(os.path.join(trial, "ckpts", d)) == ["state.pt"] for d in got),
+                  f"{trial}: a checkpoint directory holds more than state.pt")
+            for name in ("configs/parsed.yaml", "cmd.txt", "metrics.csv", "train_summary.json"):
+                check(os.path.exists(os.path.join(trial, name)), f"{trial}: no {name}")
+
+        print(f"checkpoints: {json.dumps({os.path.basename(t): sorted(os.listdir(os.path.join(t, 'ckpts'))) for t in want})}")
+
+        # steps: the resumed run starts where the checkpoint ends; launches per step
+        static_exp, dyn_exp = spans.results["setup"][0], spans.results["setup"][-1]
+        n_test = static_exp.data.cfg.random_camera.n_test_views
+        check(len(os.listdir(os.path.join(static_trial, "save", f"it{LAUNCH_STEPS}-test"))) == n_test,
+              f"the static test pass did not write {n_test} views")
+        views = {"static": 1 + static_exp.data.cfg.random_camera.batch_size}
+        frames = dyn_exp.data.cfg.num_frames
+        lw = dyn_exp.losses
+        rand_in_loss = any(C_max(w) > 0 for w in (lw.lambda_rgb_tv, lw.lambda_normal_tv, lw.lambda_depth_tv))
+        predicted = {"static": {"resident_fwd": views["static"], "resident_bwd_accum": views["static"]},
+                     "dynamic": {"resident_fwd": 2 * frames,
+                                 "resident_bwd_accum": frames * (2 if rand_in_loss else 1)}}
+        steps = {label: [s for s in spans.steps if s[0] == label] for label in predicted}
+        check([s[1] for s in steps["static"]] == list(range(LAUNCH_STEPS)), "static: steps taken")
+        check([s[1] for s in steps["dynamic"]] == list(range(LAUNCH_STEPS)) + list(
+            range(LAUNCH_STEPS, LAUNCH_RESUMED_STEPS)), "dynamic: steps taken")
+        resumed = steps["dynamic"][LAUNCH_STEPS]
+        print(f"resumed run: first step {resumed[1]}, the restored state's step {resumed[2]}")
+        check(resumed[1] == resumed[2] == LAUNCH_STEPS, "the resumed run did not start at the saved step")
+        for label, rows in steps.items():
+            for _, step, _, _, launched, metrics in rows:
+                got = {k: v for k, v in launched.items() if v}
+                check(got == predicted[label], f"{label} step {step}: launches {got} != {predicted[label]}")
+                check(all(math.isfinite(v) for v in metrics.values()), f"{label} step {step}: non-finite metric")
+            ms = [r[3] for r in rows]
+            batch_ms = [1e3 * x for x in spans.seconds[f"{label} batch"]]
+            res[f"{label}_ms"] = statistics.median(ms[1:LAUNCH_STEPS] + ms[LAUNCH_STEPS + 1:])
+            res[f"{label}_batch_ms"] = statistics.median(batch_ms[1:LAUNCH_STEPS] + batch_ms[LAUNCH_STEPS + 1:])
+            print(f"[{card}] launcher {label} train_step ({json.dumps(predicted[label])} per step): "
+                  f"{res[f'{label}_ms']:.2f} ms/step (median without each run's first step; all: "
+                  f"{', '.join(f'{x:.1f}' for x in ms)}), of it the data module's batch "
+                  f"{res[f'{label}_batch_ms']:.2f} ms (all: {', '.join(f'{x:.1f}' for x in batch_ms)}); "
+                  f"loss_total step 0 {rows[0][5]['loss_total']:.6g} "
+                  f"-> step {rows[-1][1]} {rows[-1][5]['loss_total']:.6g}")
+        check(dyn_exp.state.step == LAUNCH_RESUMED_STEPS, "the last experiment is not at the last step")
+
+        # Viewer4D.from_trial against the experiment's own render of that state
+        viewer = Viewer4D.from_trial(dyn_trial, device=device)
+        rb.reset_launch_counts()
+        tb.reset_launch_counts()
+        frame = viewer.render(5.0, 30.0, 3.8, t=0.37)
+        torch.cuda.synchronize()
+        view_launches = {k: v for k, v in counts().items() if v}
+        ts = torch.tensor([0.37], device=device)
+        ref = dyn_exp.render(viewer._cameras(5.0, 30.0, 3.8), ts, viewer._frame_indices(ts))["comp_rgb"][0]
+        res["from_trial_err"] = float(np.abs(frame - ref).max())
+        res["view_launches"] = view_launches
+        cover = float((np.abs(frame - 1.0).max(-1) > 1e-3).mean())
+        print(f"Viewer4D.from_trial frame: launches {json.dumps(view_launches)}, coverage {cover:.4f}, "
+              f"max|d| against the experiment's render {res['from_trial_err']:.3g} (limit 1e-6)")
+        check(view_launches == {"resident_fwd": 1}, "from_trial: expected one B1 launch per view")
+        check(frame.shape == (RES, RES, 3) and np.isfinite(frame).all() and cover > 0.05,
+              "from_trial: empty, non-finite or misshapen frame")
+        check(res["from_trial_err"] <= 1e-6, "from_trial renders another state than the experiment")
+
+    sec = spans.seconds
+    res["seconds"] = sec
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+    print(f"[{card}] launcher seconds: setup (build_experiment) static {sec['setup'][0]:.3f}, dynamic "
+          f"{fmt(sec['setup'][1:])}; of it mesh load {fmt(sec['mesh load'])}, create_sugar "
+          f"{fmt(sec['create_sugar'])}, graph {fmt(sec['graph'])}, frame decode ({VIDEO_LEN} frames at {RES}²) "
+          f"{fmt(x for x in sec['frame decode'] if x > 1e-3)}; checkpoint save {fmt(sec['checkpoint save'])}, load "
+          f"{fmt(sec['checkpoint load (resume)'] + sec['checkpoint load (system.weights)'])}; test "
+          f"{fmt(sec['test'])}; fit {fmt(sec['fit'])}; the smoke's own PNG encode of {VIDEO_LEN} frames "
+          f"{res['encode_s']:.3f}")
+    print(f"[{card}] launcher peak memory: static {res['static_peak']:.2f} GiB, dynamic "
+          f"{res['dyn_peak']:.2f} GiB")
+    return res
+
+
 def kernel_bounds(args, stats, table_rows, per_pair):
     """The least time the card could take for one backward launch on these
     inputs: bytes (rows, pairs, starts, counts, out and cotangent read once,
@@ -1568,7 +1823,7 @@ def main():
     print(f"target video: {tuple(video[0].shape)} on {video[0].device}, "
           f"mask coverage {float(video[1].mean()):.4f}")
     check(float(video[1].mean()) > 0.05, "the target video is empty")
-    train_launches, pair_launches, step_ms, one_step = drive_training(
+    train_launches, pair_launches, step_ms, bare_step_ms, one_step = drive_training(
         torch, np, rb, card, make_step, sample_batch, dparams, dev)
 
     # 6. the stage-1 training main path, 7. the export pass
@@ -1579,7 +1834,15 @@ def main():
     static_res, static_steps = drive_static(torch, np, rb, tb, card,
                                             (static_params, static_sugar, static_target, ref_cams), dev)
 
-    # 9. times (CUDA events, median of 30 after warm-up)
+    # 9. the launcher main path: both Gaussian YAMLs through dreammesh4d_tpu_torch.launch.main
+    launcher = drive_launcher(torch, np, rb, tb, card, video, dev)
+    print(f"[{card}] launcher ms/step: static {launcher['static_ms']:.2f} (direct make_static_train_step "
+          f"on pallas_resident, phase 8: {static_res['pallas_resident']['ms']:.2f}); dynamic "
+          f"{launcher['dynamic_ms']:.2f} (direct make_dynamic_train_step with guidance_fn=None, phase 5: "
+          f"{bare_step_ms:.2f})")
+    del video
+
+    # 10. times (CUDA events, median of 30 after warm-up)
     args = cases[7]["main_view"]
     b1_ms = time_ms(torch, lambda: rb.blend_pairs_cuda(*args))
     b1_more = {"ms_r10": time_ms(torch, lambda: rb.blend_pairs_cuda(*args), reps=10),
@@ -1688,7 +1951,7 @@ def main():
               f"{r['ms']:.2f} ms/step, peak memory {r['peak']:.2f} GiB")
         profile_call(torch, f"static refine step ({label})", static_steps[label], card)
 
-    # 10. result lines
+    # 11. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu, "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1703,15 +1966,19 @@ def main():
     print(json.dumps({"kernels": [
         entry("resident_fwd", "B1", "dreammesh4d_tpu_torch/csrc/resident_fwd.cu",
               "dreammesh4d_tpu/ops/gs/pallas_resident.py:121", "ops/gs/pallas_resident.py::_fwd_kernel",
-              launches["resident_fwd"] + train_launches["resident_fwd"], b1_err, b1_ms, plain_ms,
-              bound_ms, bound_by, max_abs_diff=b1_err, launches_serving=launches["resident_fwd"],
-              launches_training=train_launches["resident_fwd"],
-              launches_static=static_resident["resident_fwd"], cull_kept=kept["resident_fwd"], **b1_more),
+              launches["resident_fwd"] + train_launches["resident_fwd"] + launcher["launches"]["resident_fwd"],
+              b1_err, b1_ms, plain_ms, bound_ms, bound_by, max_abs_diff=b1_err,
+              launches_serving=launches["resident_fwd"], launches_training=train_launches["resident_fwd"],
+              launches_static=static_resident["resident_fwd"],
+              launches_launcher=launcher["launches"]["resident_fwd"], cull_kept=kept["resident_fwd"],
+              **b1_more),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
-              "ops/gs/pallas_resident.py::_bwd_kernel_accum", train_launches["resident_bwd_accum"],
+              "ops/gs/pallas_resident.py::_bwd_kernel_accum",
+              train_launches["resident_bwd_accum"] + launcher["launches"]["resident_bwd_accum"],
               bwd_err["resident_bwd_accum"][1], *b2, max_rel_err=bwd_err["resident_bwd_accum"][0],
               n_channels=4, ms_c7=bwd["resident_bwd_accum", 7][0],
-              launches_static=static_resident["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
+              launches_static=static_resident["resident_bwd_accum"],
+              launches_launcher=launcher["launches"]["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
               **bwd_more["resident_bwd_accum", 4],
               device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",

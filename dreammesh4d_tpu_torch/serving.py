@@ -1,6 +1,7 @@
 """Serving surface: render a trained dynamic-stage scene at any (camera, time)
 (counterpart of ``dreammesh4d_tpu/serving.py:29`` ``Viewer4D``).
 
+    viewer = Viewer4D.from_trial("outputs/sugar-dynamic/<tag>")   # a trial of the port
     viewer = Viewer4D(sugar_params, static, deform_params, dyn_cfg, raster_cfg,
                       height=512, width=512, fovy_deg=20, num_frames=32)
     rgb = viewer.render(elevation_deg=15, azimuth_deg=30, distance=2.2, t=0.4)
@@ -16,14 +17,21 @@ arrays.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .config import load_config
 from .data.temporal_image import frame_timestamps
 from .data.uncond import assemble_camera_batch
+from .export.mesh_io import load_mesh
+from .models.geometry.dynamic_sugar import build_dynamic_static
+from .models.geometry.sugar import create_sugar
+from .systems.assembly import build_raster_config, dynamic_config, load_static_weights, sugar_config
 from .systems.sugar_4dgen import make_dynamic_render_eval
+from .utils.checkpoint import restore_checkpoint
 from .utils.tree import tree_to
 
 
@@ -44,15 +52,41 @@ class Viewer4D:
 
     @classmethod
     def from_trial(cls, trial_dir: str, checkpoint: str = "LAST", height: Optional[int] = None,
-                   width: Optional[int] = None):
-        """Load a trained dynamic-stage trial.  Not available in the port yet:
-        the JAX package's trials are orbax checkpoints, which cannot be read
-        without jax.  It comes with the trainer/checkpoint slice (ROADMAP.md
-        queue A); until then build the viewer from its parts, with weights
-        carried across by ``dreammesh4d_tpu_torch.convert``."""
-        raise NotImplementedError(
-            "Viewer4D.from_trial needs the trainer/checkpoint slice (ROADMAP.md queue A); "
-            "construct Viewer4D directly")
+                   width: Optional[int] = None, device="cuda"):
+        """Load a dynamic-stage trial that the port's launcher wrote:
+        ``configs/parsed.yaml``, the bind mesh, the static stage's refined
+        weights (``system.weights``, loaded before the deformation graph is
+        built from them, as the experiment does), and the checkpoint
+        (``"LAST"``: the newest).  The size is ``height``/``width``, else the
+        random camera's ``eval_height``/``eval_width`` (its ``height``/``width``
+        when those are absent; the last milestone when they are lists).  A
+        trial of the JAX package (orbax checkpoints) raises ``ValueError``."""
+        dev = torch.device(device)
+        cfg = load_config(os.path.join(trial_dir, "configs", "parsed.yaml"), makedirs=False)
+        system = cfg.system
+        geo = dict(system.get("geometry", {}))
+        sugar_params, sugar_static = create_sugar(
+            sugar_config(geo), load_mesh(str(geo["surface_mesh_to_bind_path"])), device=dev)
+        if system.get("weights"):
+            sugar_params = load_static_weights(system["weights"], sugar_params, dev)
+        dyn_cfg = dynamic_config(geo)
+        static = build_dynamic_static(dyn_cfg, sugar_static, sugar_params.points.cpu().numpy(),
+                                      device=dev)
+
+        if checkpoint == "LAST":
+            checkpoint = os.path.join(trial_dir, "ckpts", "LAST")
+        deform_params = restore_checkpoint(str(checkpoint), dev)["deform_params"]
+
+        d = dict(cfg.data.get("random_camera", {}))
+        H = int(height or d.get("eval_height", d.get("height", 512)))
+        W = int(width or d.get("eval_width", d.get("width", 512)))
+        if isinstance(d.get("height"), (list, tuple)):
+            H = int(height or d["height"][-1])
+            W = int(width or d["width"][-1])
+        fovy_deg = float(cfg.data.get("default_fovy_deg", 40.0))
+        return cls(sugar_params, static, deform_params, dyn_cfg,
+                   build_raster_config(H, W, fovy_deg, system), H, W, fovy_deg,
+                   dyn_cfg.num_frames, device=dev)
 
     # ------------------------------------------------------------------
     def _cameras(self, elevation_deg, azimuth_deg, distance):

@@ -1,0 +1,476 @@
+"""Experiment assembly: config -> runnable stage experiments (counterpart of
+``dreammesh4d_tpu/systems/assembly.py`` for the stages the port runs from
+their YAML, the static SuGaR refine and the dynamic stage).
+
+For each ``system_type`` it builds the data module, the geometry, the
+optimizer and the train step, and exposes the trainer-facing callbacks
+(``train_step`` / ``validate`` / ``export`` / checkpoint state).  Everything
+lives on ``device`` (default the card).  Randomness: the data modules draw
+from ``np.random.RandomState(cfg.seed)`` as the JAX ones do; the step's own
+draws (the background inversion) come from a ``torch.Generator`` seeded with
+``cfg.seed``, where the JAX package splits a ``PRNGKey``.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item: the guidance (A3; only ``pretrained_model_name_or_path``
+``""`` / ``none`` runs), ``zero123-system`` (A4), ``export()`` (A5), the
+Gaussian stage and more than one device (A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..data.image import SingleImageConfig, SingleImageDataModule
+from ..data.temporal_image import TemporalImageConfig, TemporalImageDataModule
+from ..data.uncond import RandomCameraConfig
+from ..export.mesh_io import load_mesh
+from ..models.geometry.deformation import DeformationConfig, init_deformation
+from ..models.geometry.dynamic_sugar import (DynamicSuGaRConfig, build_dynamic_static,
+                                             init_discrete_params)
+from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar
+from ..ops.gs.rasterize import RasterizerConfig
+from ..ops.meshops import build_one_ring, cotangent_weights
+from ..registry import register
+from ..utils.checkpoint import restore_checkpoint
+from ..utils.saving import Saver
+from ..utils.schedule import C_max
+from ..utils.tree import tree_map
+from .sugar_4dgen import (Sugar4DGenLosses, init_dyn_state, make_dynamic_render_eval,
+                          make_dynamic_train_step)
+from .sugar_static import (SugarStaticLosses, init_static_state, make_render_eval,
+                           make_static_train_step)
+
+log = logging.getLogger(__name__)
+
+EVAL_CHUNK = 8  # views per evaluation render: 120 test views never sit in memory at once
+
+
+def _filtered_dataclass(cls, cfg: dict):
+    """``cls`` from a config dict, ignoring keys it does not have (the YAML
+    carries keys of the reference the port accepts and does not read)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in dict(cfg).items() if k in names})
+
+
+def make_random_camera_config(cfg: dict) -> RandomCameraConfig:
+    return _filtered_dataclass(RandomCameraConfig, cfg)
+
+
+def make_single_image_datamodule(data_cfg: dict, seed: int, device="cuda") -> SingleImageDataModule:
+    c = _filtered_dataclass(SingleImageConfig, {k: v for k, v in dict(data_cfg).items()
+                                                if k != "random_camera"})
+    c.random_camera = make_random_camera_config(dict(data_cfg.get("random_camera", {})))
+    return SingleImageDataModule(c, seed, device=device)
+
+
+def make_temporal_datamodule(data_cfg: dict, seed: int, device="cuda") -> TemporalImageDataModule:
+    c = _filtered_dataclass(TemporalImageConfig, {k: v for k, v in dict(data_cfg).items()
+                                                  if k != "random_camera"})
+    c.random_camera = make_random_camera_config(dict(data_cfg.get("random_camera", {})))
+    return TemporalImageDataModule(c, seed, device=device)
+
+
+def build_raster_config(height, width, fovy_deg: float, system_cfg: dict) -> RasterizerConfig:
+    """The rasterizer settings of ``system.renderer`` at (height, width); a
+    list-valued (milestone) size renders at its last entry.  Every field of
+    the YAML is accepted; the port ignores the TPU-only ones
+    (``RasterizerConfig``'s docstring)."""
+    if isinstance(height, (list, tuple)):
+        height = height[-1]
+    if isinstance(width, (list, tuple)):
+        width = width[-1]
+    t = math.tan(math.radians(fovy_deg) / 2)
+    r = system_cfg.get("renderer", {})
+    return RasterizerConfig(
+        width=int(width), height=int(height), tan_fovx=t, tan_fovy=t,
+        tile_capacity=int(r.get("tile_capacity", 1024)),
+        max_tiles_per_gaussian=int(r.get("max_tiles_per_gaussian", 16)),
+        chunk=int(r.get("chunk", 32)),
+        backend=str(r.get("backend", "pallas_resident")),
+        interpret=bool(r.get("interpret", False)),
+        bf16_matmuls=bool(r.get("bf16_matmuls", False)),
+        binning=str(r.get("binning", "pairs")),
+        stream_rows=bool(r.get("stream_rows", True)),
+        tile_px=int(r.get("tile_px", 16)),
+    )
+
+
+def maybe_build_guidance(system_cfg: dict):
+    """The guidance of ``system.guidance``, or None when it is off.
+
+    ``pretrained_model_name_or_path``: ``""`` / ``none`` — off, None; a
+    missing path — ``FileNotFoundError``, unless ``allow_missing: true``,
+    which warns and returns None (a typo must not silently train
+    reconstruction-only); ``random[:seed]`` or an existing checkpoint — the
+    guidance is not ported yet (ROADMAP A3), ``NotImplementedError``."""
+    gcfg = dict(system_cfg.get("guidance", {}))
+    path = str(gcfg.get("pretrained_model_name_or_path", "") or "")
+    if not path or path.lower() == "none":
+        return None
+    is_random = path == "random" or path.startswith("random:")
+    if not is_random and not os.path.exists(path):
+        if gcfg.get("allow_missing", False):
+            log.warning("Zero123 checkpoint not found (%r) — SDS guidance disabled "
+                        "(guidance.allow_missing=true).", path)
+            return None
+        raise FileNotFoundError(
+            f"Zero123 guidance checkpoint not found: {path!r}. Set "
+            "system.guidance.pretrained_model_name_or_path to a real checkpoint, "
+            "'random[:seed]' for an SDS smoke run, or 'none' / "
+            "system.guidance.allow_missing=true to train reconstruction-only.")
+    raise NotImplementedError(
+        f"system.guidance.pretrained_model_name_or_path={path!r}: the Zero123 guidance is not "
+        "ported to PyTorch yet (ROADMAP A3); set it to 'none' to train reconstruction-only")
+
+
+def check_single_device(trainer_cfg: dict) -> None:
+    """``trainer.devices`` / ``trainer.mesh`` asking for more than one device
+    raise: the port trains on one (ROADMAP A7)."""
+    tcfg = dict(trainer_cfg or {})
+    devices = tcfg.get("devices", 1)
+    n = torch.cuda.device_count() if devices in ("auto", "-1", -1) else int(devices)
+    mesh = tcfg.get("mesh")
+    if n > 1 or (mesh is not None and int(np.prod(mesh)) > 1):
+        raise NotImplementedError(
+            f"trainer.devices={devices!r}, trainer.mesh={mesh!r}: more than one device is not "
+            "ported to PyTorch yet (ROADMAP A7)")
+
+
+def sugar_config(geo: dict) -> SuGaRConfig:
+    return _filtered_dataclass(SuGaRConfig, {
+        k: v for k, v in geo.items()
+        if k in ("n_gaussians_per_surface_triangle", "sh_degree", "init_gs_scales_s",
+                 "color_clip", "spatial_extent")})
+
+
+def dynamic_config(geo: dict) -> DynamicSuGaRConfig:
+    return DynamicSuGaRConfig(
+        num_frames=int(geo.get("num_frames", 32)),
+        dynamic_mode=str(geo.get("dynamic_mode", "deformation")),
+        use_deform_graph=bool(geo.get("use_deform_graph", True)),
+        n_dg_nodes=int(geo.get("n_dg_nodes", 1000)),
+        dg_node_connectivity=int(geo.get("dg_node_connectivity", 4)),
+        dist_mode=str(geo.get("dist_mode", "geodisc")),
+        skinning_method=str(geo.get("skinning_method", "hybrid")),
+        d_scale=bool(geo.get("d_scale", True)),
+        deformation=_filtered_dataclass(DeformationConfig, dict(geo.get("deformation", {}))),
+    )
+
+
+def load_static_weights(weights: str, like: SuGaRParams, device) -> SuGaRParams:
+    """The refined ``SuGaRParams`` of a static-stage checkpoint
+    (``system.weights``).  A checkpoint without ``params``, or one whose
+    shapes differ from ``like`` (the bind mesh's), raises ``ValueError``:
+    training on from the mesh's own initialisation would be another run."""
+    prev = restore_checkpoint(str(weights), device)
+    params = prev.get("params") if isinstance(prev, dict) else None
+    if not isinstance(params, dict) or set(params) != set(SuGaRParams._fields):
+        raise ValueError(f"system.weights={weights!r} has no 'params' entry with the SuGaR "
+                         "fields — not a static SuGaR checkpoint")
+    loaded = SuGaRParams(**{k: params[k].to(device=device, dtype=torch.float32)
+                            for k in SuGaRParams._fields})
+    for name in SuGaRParams._fields:
+        want, got = tuple(getattr(like, name).shape), tuple(getattr(loaded, name).shape)
+        if want != got:
+            raise ValueError(
+                f"system.weights={weights!r}: shape mismatch for {name!r}: checkpoint {got} vs "
+                f"bind mesh {want} — was the static stage trained on a different mesh?")
+    return loaded
+
+
+def _optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    # the moments only: the groups hold lr schedules (functions), rebuilt from the config
+    return {"state": optimizer.state_dict()["state"]}
+
+
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    optimizer.load_state_dict({"state": saved["state"],
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+
+
+def _chunks(cameras, n: int):
+    for i in range(0, n, EVAL_CHUNK):
+        yield i, type(cameras)(*(x[i:i + EVAL_CHUNK] for x in cameras))
+
+
+def _loss_config(cls, system) -> Any:
+    return _filtered_dataclass(cls, dict(system.get("loss", {})))
+
+
+def _step_for_current(exp):
+    """``exp``'s train step for the data module's current (random-view,
+    reference-view) resolution, built on first use: a resolution milestone
+    switches to (or builds) that size's step."""
+    rs = exp.data.random_sampler
+    key = (int(rs.height if rs is not None else exp.data.height),
+           int(rs.width if rs is not None else exp.data.width),
+           int(exp.data.height), int(exp.data.width))
+    if key not in exp._steps:
+        exp._steps[key] = exp._build_step(*key)
+    return exp._steps[key]
+
+
+# ---------------------------------------------------------------------------
+# sugar-static experiment
+# ---------------------------------------------------------------------------
+
+
+@register("sugar-static-system")
+class SugarStaticExperiment:
+    """Stage 4: Gaussians bound to the coarse mesh, refined with it.
+
+    The optimizer is ``sugar_optimizer`` (betas 0.9 / 0.999, eps 1e-15) with
+    the geometry's learning rates; ``system.optimizer.args`` is never read,
+    as in the JAX package.  One train step is built per (random-view,
+    reference-view) resolution."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = dev = torch.device(device)
+        system = cfg.system
+        check_single_device(cfg.trainer)
+        self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
+        self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
+
+        geo = dict(system.get("geometry", {}))
+        sugar_cfg = sugar_config(geo)
+        if "init_gs_opacity" in geo:
+            sugar_cfg.init_gs_opacity = float(geo["init_gs_opacity"])
+        params, self.static = create_sugar(sugar_cfg, load_mesh(str(geo.get("surface_mesh_to_bind_path"))),
+                                           device=dev)
+        self.optimizer_kwargs = dict(
+            position_lr=geo.get("position_lr", 0.00048), scaling_lr=geo.get("scaling_lr", 0.005),
+            feature_lr=geo.get("feature_lr", 0.001), opacity_lr=geo.get("opacity_lr", 0.02),
+            rotation_lr=geo.get("rotation_lr", 0.001),
+            spatial_lr_scale=float(geo.get("spatial_lr_scale", 1.0)))
+        self.losses = _loss_config(SugarStaticLosses, system)
+        maybe_build_guidance(system)
+        d = self.data.cfg
+        self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
+                                              d.default_fovy_deg, system)
+        invert_bg_prob = float(system.get("renderer", {}).get("invert_bg_prob", 1.0))
+
+        def build_step(rc_h, rc_w, ref_h, ref_w):
+            return make_static_train_step(
+                self.static, build_raster_config(rc_h, rc_w, d.default_fovy_deg, system),
+                self.losses, None, invert_bg_prob=invert_bg_prob,
+                ref_raster_cfg=build_raster_config(ref_h, ref_w, d.default_fovy_deg, system),
+                device=dev)
+
+        self._build_step = build_step
+        self._steps: Dict[tuple, Any] = {}
+        _step_for_current(self)
+        self._render_eval = make_render_eval(self.static, self.raster_cfg, device=dev)
+        self.state = init_static_state(params, self.optimizer_kwargs, device=dev)
+        self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+
+    def train_batch(self, step: int) -> dict:
+        """The step's batch: what the train step reads of ``train_batch``."""
+        batch = self.data.train_batch(step)
+        keep = ["ref_cameras", "ref_rgb", "ref_mask", "rand_cameras"]
+        lw = self.losses
+        if C_max(lw.lambda_depth) > 0 or C_max(lw.lambda_depth_rel) > 0:
+            keep.append("ref_depth")
+        if C_max(lw.lambda_normal) > 0:
+            keep.append("ref_normal")
+        if C_max(lw.lambda_normal_depth_consistency) > 0:
+            batch["rand_rays_o"], batch["rand_rays_d"] = batch["rays_o"], batch["rays_d"]
+            keep += ["rand_rays_o", "rand_rays_d"]
+        return {k: batch[k] for k in keep}
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        batch = self.train_batch(step)
+        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator)
+        return metrics
+
+    def validate(self, step: int, test: bool = False) -> None:
+        """8 orbit views (image grids of the first 4), or with ``test`` the
+        ``n_test_views`` orbit as an image sequence."""
+        n = self.data.cfg.random_camera.n_test_views if test else 8
+        cams = self.data.random_sampler.orbit(n_views=n)["rand_cameras"]
+        outs = []
+        with torch.no_grad():
+            for _, chunk in _chunks(cams, n):
+                out = self._render_eval(self.state.params, chunk)
+                outs.append({k: out[k].cpu().numpy() for k in ("comp_rgb", "comp_normal", "comp_mask")})
+        out = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        if test:
+            self.saver.save_img_sequence(f"it{step}-test.mp4", list(out["comp_rgb"]))
+            return
+        for i in range(min(n, 4)):
+            self.saver.save_image_grid(f"it{step}-{i}.png", [
+                {"type": "rgb", "img": out["comp_rgb"][i]},
+                {"type": "rgb", "img": out["comp_normal"][i]},
+                {"type": "grayscale", "img": out["comp_mask"][i]},
+            ])
+
+    def export(self) -> None:
+        raise NotImplementedError("the static stage's export (refined_mesh.obj, gaussians.ply) "
+                                  "is not ported to PyTorch yet (ROADMAP A5)")
+
+    # checkpoint protocol
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"params": {f: getattr(s.params, f).detach() for f in SuGaRParams._fields},
+                "opt_state": _optimizer_state(s.opt_state), "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        params = SuGaRParams(**{f: saved["params"][f] for f in SuGaRParams._fields})
+        self.state = init_static_state(params, self.optimizer_kwargs, step=int(saved["step"]),
+                                       device=self.device)
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
+
+
+# ---------------------------------------------------------------------------
+# sugar-4dgen experiment
+# ---------------------------------------------------------------------------
+
+
+@register("sugar-4dgen-system")
+class Sugar4DGenExperiment:
+    """Stage 5: the deformation of the refined, mesh-bound Gaussians over the
+    video.
+
+    ``system.weights`` (a static-stage checkpoint) replaces the mesh's own
+    initialisation before the deformation graph is built, so that the graph
+    and its skinning weights come from the refined points.  Adam takes
+    ``optimizer.args.lr`` with betas (0.9, 0.99) and eps 1e-8; the YAML's
+    ``eps`` is not read, as in the JAX package.  ``guidance_render_size``
+    matters only with the guidance and is ignored while it is off."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = dev = torch.device(device)
+        system = cfg.system
+        check_single_device(cfg.trainer)
+        self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
+        self.data = make_temporal_datamodule(cfg.data, cfg.seed, device=dev)
+
+        geo = dict(system.get("geometry", {}))
+        sugar_params, sugar_static = create_sugar(
+            sugar_config(geo), load_mesh(str(geo.get("surface_mesh_to_bind_path"))), device=dev)
+        weights = system.get("weights")
+        if weights:
+            sugar_params = load_static_weights(weights, sugar_params, dev)
+            log.info("Loaded static SuGaR weights from %s", weights)
+        self.dyn_cfg = dyn_cfg = dynamic_config(geo)
+        deform_cfg = dyn_cfg.deformation
+        points = sugar_params.points.cpu().numpy()
+        self.static = build_dynamic_static(dyn_cfg, sugar_static, points, device=dev)
+        self.sugar_params = sugar_params
+        faces = sugar_static.faces.cpu().numpy()
+        arap_w = cotangent_weights(points, faces, build_one_ring(faces, len(points)))
+
+        self.lr = float(system.get("optimizer", {}).get("args", {}).get("lr", 1.6e-3))
+        self.losses = _loss_config(Sugar4DGenLosses, system)
+        maybe_build_guidance(system)
+        d = self.data.cfg
+        self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
+                                              d.default_fovy_deg, system)
+        self.num_inter_frames = int(system.get("num_inter_frames", 10))
+        self.length_inter_frames = float(system.get("length_inter_frames", 0.2))
+        if dyn_cfg.dynamic_mode == "discrete":
+            deform_params = init_discrete_params(dyn_cfg, len(points), device=dev)
+        else:
+            deform_params = init_deformation(
+                deform_cfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)), device=dev)
+        lw = self.losses
+        need_depth = C_max(lw.lambda_depth) > 0 or C_max(lw.lambda_depth_rel) > 0
+        need_normal = C_max(lw.lambda_normal) > 0
+        invert_bg = float(system.get("renderer", {}).get("invert_bg_prob", 1.0))
+        arap_start = int(dict(system.get("freq", {})).get("milestone_arap_reg", 0))
+
+        def build_step(rc_h, rc_w, ref_h, ref_w):
+            return make_dynamic_train_step(
+                sugar_params, self.static, deform_cfg,
+                build_raster_config(rc_h, rc_w, d.default_fovy_deg, system), lw, arap_w, None,
+                invert_bg_prob=invert_bg, arap_start_step=arap_start,
+                ref_raster_cfg=build_raster_config(ref_h, ref_w, d.default_fovy_deg, system),
+                video_frames=self.data.frames_at(ref_h, ref_w),
+                video_depths=self.data.load_depths(ref_h, ref_w) if need_depth else None,
+                video_normals=self.data.load_normals(ref_h, ref_w) if need_normal else None,
+                device=dev)
+
+        self._build_step = build_step
+        self._steps: Dict[tuple, Any] = {}
+        _step_for_current(self)
+        self._render_eval = make_dynamic_render_eval(sugar_params, self.static, deform_cfg,
+                                                     self.raster_cfg)
+        self.state = init_dyn_state(deform_params, lr=self.lr, device=dev)
+        self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+
+    def train_batch(self, step: int) -> dict:
+        """The step's batch; the frames stay on the device inside the step,
+        only cameras and timestamps are read here."""
+        batch = self.data.train_batch(step)
+        batch["inter_timestamps"] = self.data.inter_frame_timestamps(self.num_inter_frames,
+                                                                     self.length_inter_frames)
+        return {k: batch[k] for k in ("timestamps", "frame_indices", "ref_cameras",
+                                      "rand_cameras", "inter_timestamps")}
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        batch = self.train_batch(step)
+        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator)
+        return metrics
+
+    def render(self, cameras, timestamps, frame_indices=None) -> Dict[str, np.ndarray]:
+        """Evaluation renders of the current state (rgb, normal, mask, depth)
+        as numpy, ``EVAL_CHUNK`` views at a time."""
+        outs = []
+        with torch.no_grad():
+            for i, chunk in _chunks(cameras, len(timestamps)):
+                fi = None if frame_indices is None else frame_indices[i:i + EVAL_CHUNK]
+                out = self._render_eval(self.state.deform_params, chunk,
+                                        timestamps[i:i + EVAL_CHUNK], fi)
+                outs.append({k: v.cpu().numpy() for k, v in out.items()
+                             if k in ("comp_rgb", "comp_normal", "comp_mask", "comp_depth")})
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    def validate(self, step: int, test: bool = False) -> None:
+        """Each eval azimuth's sweep over the video's timestamps as an image
+        sequence; the first azimuth only, unless ``test``."""
+        for batch in self.data.eval_batches():
+            out = self.render(batch["cameras"], batch["timestamps"], batch["frame_indices"])
+            self.saver.save_img_sequence(f"it{step}-az{int(batch['azimuth'])}.mp4",
+                                         list(out["comp_rgb"]))
+            if not test:
+                break
+
+    def export(self) -> None:
+        raise NotImplementedError("the 4D export (per-frame textured meshes) is not ported to "
+                                  "PyTorch yet (ROADMAP A5)")
+
+    # checkpoint protocol
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"deform_params": tree_map(lambda x: x.detach(), s.deform_params),
+                "opt_state": _optimizer_state(s.opt_state), "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        self.state = init_dyn_state(saved["deform_params"], lr=self.lr, step=int(saved["step"]),
+                                    device=self.device)
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
+
+
+EXPERIMENTS = {"sugar-static-system": SugarStaticExperiment,
+               "sugar-4dgen-system": Sugar4DGenExperiment}
+
+
+def build_experiment(cfg, device="cuda"):
+    """The experiment of ``cfg.system_type`` on ``device``."""
+    if cfg.system_type == "zero123-system":
+        raise NotImplementedError("system_type 'zero123-system' (stage 1) does not run from its "
+                                  "YAML in the PyTorch port yet (ROADMAP A4)")
+    if cfg.system_type == "sugar-static-system" and str(cfg.system.get("stage", "sugar")) == "gaussian":
+        raise NotImplementedError("the Gaussian stage (system.stage: gaussian) is not ported to "
+                                  "PyTorch yet (ROADMAP A7)")
+    if cfg.system_type not in EXPERIMENTS:
+        raise KeyError(f"Unknown system_type {cfg.system_type!r}; known: {sorted(EXPERIMENTS)}")
+    return EXPERIMENTS[cfg.system_type](cfg, device=device)

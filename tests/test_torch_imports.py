@@ -27,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dreammesh4d_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dreammesh4d_tpu",
+                                    "yaml", "cv2", "imageio", "PIL"))
 print(len(names), " ".join(names), bad, sep="|")
 """
 
@@ -36,7 +37,10 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "ops.hashgrid", "ops.hashgrid_cell", "models.geometry.implicit_volume",
                "models.materials", "models.renderers.nerf_volume_renderer", "data.uncond",
                "ops.cameras", "ops.gs.table_blend", "ops.gs.binning", "systems.optim",
-               "systems.sugar_static", "models.renderers.sugar_rasterizer")
+               "systems.sugar_static", "models.renderers.sugar_rasterizer", "utils.yaml_lite",
+               "config", "registry", "data.png", "data.image", "data.temporal_image",
+               "utils.checkpoint", "utils.saving", "utils.loggers", "trainer", "systems.assembly",
+               "launch", "serving")
 
 
 def test_port_imports_no_jax():
@@ -184,3 +188,14 @@ def test_chip_smoke_refuses_without_a_card():
     for line in out.stdout.splitlines():
         if line.startswith("{"):
             assert "ok" not in json.loads(line)
+
+
+def test_launcher_defaults_to_cuda():
+    from dreammesh4d_tpu_torch import launch
+
+    args, extras = launch.parse_args(["--config", "configs/sugar_dynamic_dg.yaml", "--train", "a.b=1"])
+    assert args.device == "cuda" and args.train and extras == ["a.b=1"]
+    assert launch.make_args("x.yaml", "test").device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            launch.main(args, extras)

@@ -1,0 +1,233 @@
+"""The port's static refine stage run from its YAML against the JAX package's
+(CPU).
+
+``configs/sugar_static_refine.yaml`` with the guidance off, through both
+packages' config loaders, at a tiny size: a 48² RGBA reference read at 32²
+(a non-integer ``INTER_AREA`` factor), an icosphere(1) bind mesh turned by a
+seeded rotation (6 Gaussians per face: 480), 2 random views at 32²,
+``backend: pallas`` with 16 tiles per Gaussian — the JAX kernel in interpret
+mode with its transmittance matmuls in float32, as in
+``test_torch_static_train.py``, whose bands hold here, and the YAML's
+``bf16_matmuls`` off (a TPU choice the port ignores: it composites in
+float32).
+
+- The data module: the reference batch (image and mask bit-equal, rays and
+  camera within 1e-6) and the first train batch's random cameras.
+- The experiment's initial state equals the JAX experiment's (through
+  ``convert``): every ``SuGaRParams`` leaf, the static topology, Adam
+  ``sugar_optimizer`` (betas 0.9 / 0.999, eps 1e-15, the YAML's ``optimizer.args``
+  not read) with zero moments, step 0.
+- ``train_step(0)`` of both experiments from the same parameters (moved off
+  their init, loaded through ``load_state``): every metric within 1e-4 relative
+  (1e-5 absolute floor), every leaf's gradient within 1e-4 of its max |g|
+  (the JAX gradients kept by an optax transformation in front of
+  ``sugar_optimizer``), the updated parameters within 1e-6 where |g| ≥ 1e-3
+  of the leaf's max.
+
+And what the port refuses: the guidance paths it cannot serve yet (ROADMAP
+A3), ``zero123-system`` (A4), the Gaussian stage and more than one device
+(A7).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import dreammesh4d_tpu.ops.gs.pallas_blend as jblend
+import dreammesh4d_tpu.systems.optim as joptim
+import dreammesh4d_tpu.systems.sugar_static as jsys
+from dreammesh4d_tpu.config import load_config as j_load_config
+from dreammesh4d_tpu.export.mesh_io import MeshData, save_ply_mesh
+from dreammesh4d_tpu.systems import assembly as jasm
+from dreammesh4d_tpu.utils.procedural import make_icosphere
+from dreammesh4d_tpu_torch import convert
+from dreammesh4d_tpu_torch.config import load_config
+from dreammesh4d_tpu_torch.data.png import write_png
+from dreammesh4d_tpu_torch.models.geometry.sugar import SuGaRParams
+from dreammesh4d_tpu_torch.systems import assembly
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAML = os.path.join(REPO, "configs", "sugar_static_refine.yaml")
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def dotlist(tmp_path_factory):
+    d = tmp_path_factory.mktemp("static_assets")
+    rng = np.random.default_rng(0)
+    mesh = make_icosphere(1, radius=0.7)
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    save_ply_mesh(str(d / "mesh.ply"), MeshData(v_pos=(mesh.v_pos @ rot.T).astype(np.float32),
+                                                t_pos_idx=mesh.t_pos_idx, v_rgb=mesh.v_rgb))
+    yy, xx = np.mgrid[0:48, 0:48]
+    inside = (xx - 23.5) ** 2 + (yy - 23.5) ** 2 < 15.0 ** 2
+    rgba = np.stack([xx * 5, yy * 5, (xx + yy) * 2, inside * 255], -1).astype(np.uint8)
+    write_png(str(d / "ref_rgba.png"), rgba)
+    return [
+        "system.guidance.pretrained_model_name_or_path=none",
+        f"data.image_path={d}/ref_rgba.png",
+        f"system.geometry.surface_mesh_to_bind_path={d}/mesh.ply",
+        "data.height=32", "data.width=32",
+        "data.random_camera.height=32", "data.random_camera.width=32",
+        "data.random_camera.batch_size=2",
+        "system.renderer.backend=pallas", "system.renderer.interpret=true",
+        "system.renderer.max_tiles_per_gaussian=16", "system.renderer.tile_capacity=256",
+        "system.renderer.bf16_matmuls=false",
+        f"exp_root_dir={d}/out", "use_timestamp=false", "tag=st",
+    ]
+
+
+def _grad_keeper():
+    """An optax transformation that passes the gradient on and keeps it as
+    its state."""
+    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
+                                        lambda g, state, params=None: (g, g))
+
+
+def _matmul_f32(a, b):
+    """``pallas_blend._matmul_bf16`` with float32 inputs."""
+    return jax.lax.dot_general(a, b, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
+                               precision=jax.lax.Precision.HIGHEST)
+
+
+@pytest.fixture(scope="module")
+def experiments(dotlist):
+    """Both packages' experiments from the same YAML and dotlist; the JAX
+    one's optimizer keeps each step's gradients in its first state."""
+    real, made = joptim.sugar_optimizer, []
+
+    def keeping(**kw):
+        made.append(optax.chain(_grad_keeper(), real(**kw)))
+        return made[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(joptim, "sugar_optimizer", keeping)
+        jexp = jasm.build_experiment(j_load_config(YAML, cli_args=dotlist))
+    exp = assembly.build_experiment(load_config(YAML, cli_args=dotlist), device="cpu")
+    return jexp, exp, made[0]
+
+
+def test_data_module_matches_jax(dotlist):
+    cfg, jcfg = load_config(YAML, cli_args=dotlist), j_load_config(YAML, cli_args=dotlist)
+    dm = assembly.make_single_image_datamodule(cfg.data, cfg.seed, device="cpu")
+    jdm = jasm.make_single_image_datamodule(jcfg.data, jcfg.seed)
+    ref, jref = dm.ref_batch(), jdm.ref_batch()
+    assert set(jref) == set(ref)
+    for k in ("ref_rgb", "ref_mask"):
+        np.testing.assert_array_equal(ref[k].numpy(), np.asarray(jref[k]), err_msg=k)
+    assert 0.2 < float(ref["ref_mask"].mean()) < 0.8
+    for k in ("ref_rays_o", "ref_rays_d", "ref_elevation", "ref_azimuth", "ref_distance"):
+        np.testing.assert_allclose(ref[k].numpy(), np.asarray(jref[k]), atol=1e-6, err_msg=k)
+    for a, b in zip(ref["ref_cameras"], jref["ref_cameras"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    batch, jbatch = dm.train_batch(0), jdm.train_batch(0)
+    for a, b in zip(batch["rand_cameras"], jbatch["rand_cameras"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+    for k in ("elevation", "azimuth", "camera_distances"):
+        np.testing.assert_allclose(batch[k].numpy(), np.asarray(jbatch[k]), rtol=1e-6, err_msg=k)
+
+
+def test_initial_state_matches_jax(experiments):
+    jexp, exp, _ = experiments
+    assert exp.state.step == int(jexp.state.step) == 0
+    for f in SuGaRParams._fields:
+        np.testing.assert_allclose(getattr(exp.state.params, f).detach().numpy(),
+                                   np.asarray(getattr(jexp.state.params, f)), atol=1e-6, err_msg=f)
+    jstatic = convert.sugar_static(_np(jexp.static), "cpu")
+    for f in ("faces", "edge_face_pairs", "ring_idx", "ring_mask"):
+        np.testing.assert_array_equal(getattr(exp.static, f).numpy(), getattr(jstatic, f).numpy())
+    assert (exp.static.n_per_face, exp.static.sh_degree) == (6, 3) == (jstatic.n_per_face,
+                                                                         jstatic.sh_degree)
+    groups = exp.state.opt_state.param_groups
+    assert [g["name"] for g in groups] == list(SuGaRParams._fields)
+    assert all(g["betas"] == (0.9, 0.999) and g["eps"] == 1e-15 for g in groups)
+    assert [g["lr"] for g in groups] == pytest.approx(
+        [0.00048, 0.005, 0.001, 0.001, 0.001 / 20, 0.02])
+    assert exp.state.opt_state.state == {}
+    assert exp.raster_cfg == convert.config(jexp.raster_cfg)
+
+
+def test_one_step_matches_jax(experiments):
+    """From parameters moved off their init (at init the in-plane scales are
+    equal and the in-plane rotation has no gradient), loaded into both
+    experiments through their checkpoint protocol."""
+    jexp, exp, jopt = experiments
+    rng = np.random.default_rng(1)
+    jp = jexp.state.params
+    jp = jp._replace(
+        log_scales=jp.log_scales + jnp.asarray(0.4 * rng.normal(size=jp.log_scales.shape), jnp.float32),
+        sh_rest=jnp.asarray(0.1 * rng.normal(size=jp.sh_rest.shape), jnp.float32),
+        complex_rot=jp.complex_rot + jnp.asarray(0.2 * rng.normal(size=jp.complex_rot.shape),
+                                                 jnp.float32),
+        density_logits=jnp.asarray(rng.uniform(-1.0, 2.0, jp.density_logits.shape), jnp.float32))
+    jexp.load_state(jsys.init_state(jp, jopt))
+    exp.load_state({"params": convert.sugar_params(_np(jp), "cpu")._asdict(),
+                    "opt_state": {"state": {}}, "step": 0})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jblend, "_matmul_bf16", _matmul_f32)
+        jmetrics = _np(jexp.train_step(0))
+    metrics = exp.train_step(0)
+    assert exp.state.step == int(jexp.state.step) == 1
+    assert set(metrics) == set(jmetrics) and "loss_sds" not in metrics
+    for k in sorted(metrics):
+        ref, got = float(jmetrics[k]), float(metrics[k])
+        assert abs(got - ref) <= max(1e-4 * abs(ref), 1e-5), (k, got, ref)
+    jgrads, jnew = _np(jexp.state.opt_state[0]), _np(jexp.state.params)
+    n_checked = 0
+    for f, leaf in zip(SuGaRParams._fields, exp.state.params):
+        jg, g = getattr(jgrads, f), leaf.grad.numpy()
+        assert np.abs(jg).max() > 0, f
+        assert np.abs(g - jg).max() <= 1e-4 * np.abs(jg).max(), f
+        sure = np.abs(jg) >= 1e-3 * np.abs(jg).max()
+        n_checked += int(sure.sum())
+        np.testing.assert_allclose(leaf.detach().numpy()[sure], getattr(jnew, f)[sure], atol=1e-6,
+                                   err_msg=f)
+    assert n_checked > 2000
+
+
+def test_guidance_paths(tmp_path, caplog):
+    """``pretrained_model_name_or_path``: ``""`` / ``none`` off; a missing
+    path raises, or warns and is off with ``allow_missing``; ``random[:seed]``
+    and an existing checkpoint wait for the guidance (ROADMAP A3)."""
+    for path in ("", "none", "None"):
+        assert assembly.maybe_build_guidance({"guidance": {"pretrained_model_name_or_path": path}}) is None
+    missing = {"pretrained_model_name_or_path": str(tmp_path / "zero123.ckpt")}
+    with pytest.raises(FileNotFoundError, match="zero123.ckpt"):
+        assembly.maybe_build_guidance({"guidance": missing})
+    assert assembly.maybe_build_guidance({"guidance": {**missing, "allow_missing": True}}) is None
+    assert "allow_missing" in caplog.text
+    (tmp_path / "real.ckpt").write_bytes(b"")
+    for path in ("random", "random:3", str(tmp_path / "real.ckpt")):
+        with pytest.raises(NotImplementedError, match="A3"):
+            assembly.maybe_build_guidance({"guidance": {"pretrained_model_name_or_path": path}})
+
+
+def test_unported_systems_and_devices_raise(dotlist):
+    zero123 = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
+                          cli_args=["data.image_path=/x/a_rgba.png", "use_timestamp=false"])
+    with pytest.raises(NotImplementedError, match="A4"):
+        assembly.build_experiment(zero123, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        assembly.build_experiment(load_config(YAML, cli_args=dotlist + ["system.stage=gaussian"],
+                                              makedirs=False), device="cpu")
+    for extra in (["trainer.devices=2"], ["trainer.mesh=[2,1]"]):
+        with pytest.raises(NotImplementedError, match="A7"):
+            assembly.build_experiment(load_config(YAML, cli_args=dotlist + extra, makedirs=False),
+                                      device="cpu")
+    assembly.check_single_device({"devices": 1, "mesh": [1, 1]})
