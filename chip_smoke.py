@@ -30,7 +30,9 @@ Phases, each of which fails the run on a failed check:
    vote must keep them going) and thin rotated Gaussians whose -4.5 contour
    ends at a quadrant edge (``cull_edges``: the per-quadrant row cull); and
    the rows each quadrant CTA's cull kept, which must equal
-   ``quadrant_kept_plain``'s count;
+   ``quadrant_kept_plain``'s count; B1-B3 also at the recovery recipe's
+   tiles (64², 16-px tiles, one CTA each, capacity 512: the recipe's scene
+   from its reference camera, and one saturated tile);
 4. the serving main path — ``Viewer4D.render / orbit / play`` — at the full
    width of ``configs/sugar_dynamic_dg.yaml`` (icosphere(4) SuGaR mesh:
    30,720 Gaussians, SH 3; 1000-node geodesic graph, hybrid skinning;
@@ -103,7 +105,19 @@ Phases, each of which fails the run on a failed check:
     pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
     from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
     and profiles of one render and one train step of each stage;
-11. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+11. the recovery benchmark and the Gaussian stages' exports
+    (``drive_recovery_and_export``): the ground truth of the recovery scene
+    (``render_vertex_color_view``, the mesh rasterizer) on the card against
+    the CPU at 64² and its ms per view at 64² and 1024²; the recovery recipe
+    (``dreammesh4d_tpu_torch.recovery.run_recovery``, icosphere(3), 64², 16
+    frames) on ``pallas_resident`` with its 1000 + 600 steps cut to 50 + 30,
+    every column finite (not gated here: the full gate is ``python3 -m
+    dreammesh4d_tpu_torch.recovery``); ``--export resume=LAST`` of phase 9's
+    trials: ``refined_mesh.obj`` and ``gaussians.ply``, then the 4D export
+    at the YAML's full width (120 predict views at 1024², one B1 launch
+    each, texture 1024), each frame OBJ held to ``timed_all``; seconds of
+    the bake, the OBJ writes and the PNG, peak memory;
+12. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,6 +130,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -150,6 +165,13 @@ DFEAT_TOL = 1e-5  # B4 dfeats vs plain, of each level's max |dfeats| (they carry
 LAUNCH_STEPS = 4  # trainer.max_steps of each stage's first run
 LAUNCH_RESUMED_STEPS = 6  # the dynamic stage resumed from LAST
 LAUNCH_CKPT_EVERY = 2  # checkpoint.every_n_train_steps
+# the recovery recipe (dreammesh4d_tpu_torch.recovery) and the exports
+RECOVERY_STEPS = (50, 30)  # static, dynamic: the recipe's 1000 + 600 cut
+GT_TIMES = 4  # ground-truth views compared card against CPU
+GT_FACE_SHARE = 0.999  # face_idx equal on at least this share of pixels
+GT_RGB_TOL = 1e-5  # rgb elsewhere
+GT_SIZES = (64, 1024)  # the recipe's size and the bake's
+EXPORT_VERT_TOL = 1e-5  # a frame OBJ's vertices against timed_all's (six decimals written)
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 
@@ -292,6 +314,59 @@ def view_blend_inputs(torch, viewer, params, static, dparams, dyn_cfg, raster_cf
     rows = _pack_rows(proj.means2d, proj.conics, colors, attrs0.opacities)
     return (rows, pa.sorted_gauss, pa.starts, pa.counts, cfg.width // cfg.tile_px, cfg.tile_px,
             cfg.tile_capacity, _auto_group(cfg, m.shape[0]), colors.shape[-1])
+
+
+def recovery_blend_inputs(torch, case, device, n_channels=7):
+    """The recovery recipe's tiles: 64², 16-px tiles (one CTA per tile),
+    capacity 512.
+
+    - ``recovery_view``: the recipe's scene at the start of its static stage
+      — icosphere(3) of radius 0.6, 6 Gaussians per face (7,680), the
+      YAML's init — from the reference camera (elevation 5°, distance 3.8,
+      fovy 20°): rgb from its SH (⊕ its face normals at C = 7) ⊕ depth; 12 of
+      its 16 tiles hold more pairs than the capacity;
+    - ``saturated16``: 3000 faint splats on one 16-px tile, count > cap."""
+    from dreammesh4d_tpu_torch.models.geometry.sugar import create_sugar, gaussian_attributes
+    from dreammesh4d_tpu_torch.ops import cameras as cam_ops
+    from dreammesh4d_tpu_torch.ops.gs.binning import bin_gaussians_pairs
+    from dreammesh4d_tpu_torch.ops.gs.projection import project_gaussians_sq
+    from dreammesh4d_tpu_torch.ops.gs.resident_blend import _pack_rows
+    from dreammesh4d_tpu_torch.ops.meshops import face_normals
+    from dreammesh4d_tpu_torch.ops.sh import sh_to_rgb
+    from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
+
+    hw, tile, cap = 64, 16, 512
+    if case == "recovery_view":
+        params, static = create_sugar(static_configs()[0], make_icosphere(3, radius=0.6), device=device)
+        attrs = gaussian_attributes(params, static)
+        fov = math.radians(20.0)
+        cam = cam_ops.get_cam_info_gaussian(
+            torch.as_tensor(cam_ops.make_c2w_numpy(5.0, 0.0, 3.8), device=device), fov, fov, 0.01, 100.0)
+        t = math.tan(fov / 2)
+        proj = project_gaussians_sq(attrs.means3d, attrs.scales, attrs.quats, cam.world_view_transform,
+                                    cam.full_proj_transform, t, t, hw, hw, 0.2)
+        dirs = attrs.means3d - cam.camera_center[None]
+        colors = sh_to_rgb(static.sh_degree, attrs.sh, dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True))
+        if n_channels == 7:
+            normals = torch.repeat_interleave(face_normals(params.points, static.faces), 6, dim=-2)
+            colors = torch.cat([colors, normals], -1)
+        means, conics, opac, depths = proj.means2d, proj.conics, attrs.opacities, proj.depths
+        radii, mask, n_tiles = proj.radii, proj.mask, 6
+    else:
+        gen = torch.Generator(device=device).manual_seed(2)
+        n = 3000
+        means = 20.0 + 8.0 * torch.rand((n, 2), generator=gen, device=device)
+        conics = torch.tensor([0.02, 0.0, 0.02], device=device).expand(n, 3)
+        opac = torch.full((n,), 0.005, device=device)
+        depths = 1.0 + 2.0 * torch.rand(n, generator=gen, device=device)
+        radii = torch.full((n,), 22, dtype=torch.int32, device=device)
+        mask, n_tiles = torch.ones(n, dtype=torch.bool, device=device), 16
+        colors = torch.rand((n, n_channels - 1), generator=gen, device=device)
+    pa = bin_gaussians_pairs(means, radii, depths, mask, hw, hw, n_tiles, conics=conics, opacities=opac,
+                             tile=tile)
+    colors = torch.cat([colors, depths[:, None]], -1)
+    rows = _pack_rows(means, conics, colors, opac).detach()
+    return (rows, pa.sorted_gauss, pa.starts, pa.counts, hw // tile, tile, cap, 32, n_channels)
 
 
 def synthetic_blend_inputs(torch, case, device, n_channels=7):
@@ -1479,7 +1554,7 @@ class Spans:
             setattr(owner, name, fn)
 
 
-def drive_launcher(torch, np, rb, tb, card, video, device):
+def drive_launcher(torch, np, rb, tb, card, video, device, tmp):
     """The launcher main path: ``dreammesh4d_tpu_torch.launch.main`` as a
     user calls it, at the YAMLs' full width with the guidance off.  Assets in
     a temporary directory: the icosphere(4, 0.6) bind mesh as an OBJ, and the
@@ -1490,9 +1565,9 @@ def drive_launcher(torch, np, rb, tb, card, video, device):
     test), configs/sugar_dynamic_dg.yaml --train with system.weights of its
     last checkpoint, then resume=LAST to LAUNCH_RESUMED_STEPS; then one
     ``Viewer4D.from_trial`` frame against the experiment's own render of the
-    same state.  Returns the numbers of the phase."""
+    same state.  Writes under ``tmp``; returns the numbers of the phase, the
+    trials and their dotlists (phase 11 exports them)."""
     import importlib.util
-    import tempfile
 
     from dreammesh4d_tpu_torch import launch, trainer
     from dreammesh4d_tpu_torch.data.png import write_png
@@ -1510,144 +1585,316 @@ def drive_launcher(torch, np, rb, tb, card, video, device):
     res = {"modules": {m: importlib.util.find_spec(m) is not None
                        for m in ("yaml", "PIL", "imageio", "cv2")}}
     print(f"on this machine: {json.dumps(res['modules'])} (importable; the port needs none of them)")
-    with tempfile.TemporaryDirectory() as tmp:
-        mesh_path = os.path.join(tmp, "mesh.obj")
-        write_obj(mesh_path, make_icosphere(MESH_LEVEL, radius=0.6))
-        frames_dir = os.path.join(tmp, "frames")
-        os.makedirs(frames_dir)
-        rgba = (torch.cat(video, -1).clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
-        t0 = time.perf_counter()
-        for i, frame in enumerate(rgba):
-            write_png(os.path.join(frames_dir, f"{i:03d}_rgba.png"), frame)
-        res["encode_s"] = time.perf_counter() - t0
-        out = os.path.join(tmp, "out")
-        common = ["system.guidance.pretrained_model_name_or_path=none",
-                  f"system.geometry.surface_mesh_to_bind_path={mesh_path}", f"exp_root_dir={out}",
-                  "use_timestamp=false", f"checkpoint.every_n_train_steps={LAUNCH_CKPT_EVERY}"]
-        static_trial = os.path.join(out, "sugar-refine", "static")
-        dyn_trial = os.path.join(out, "sugar-dynamic", "dynamic")
-        static_ckpt = os.path.join(static_trial, "ckpts", f"step_{LAUNCH_STEPS:08d}")
-        dyn = common + [f"data.video_frames_dir={frames_dir}", f"system.weights={static_ckpt}",
-                        "tag=dynamic"]
-        spans = Spans(torch, counts)
-        spans.time(launch, "build_experiment", "setup", keep=True)
-        for owner, name, label in (
-                (assembly, "load_mesh", "mesh load"),
-                (assembly.SugarStaticExperiment, "train_batch", "static batch"),
-                (assembly.Sugar4DGenExperiment, "train_batch", "dynamic batch"),
-                (assembly, "create_sugar", "create_sugar"), (assembly, "build_dynamic_static", "graph"),
-                (TemporalImageDataModule, "frames_at", "frame decode"),
-                (trainer, "save_checkpoint", "checkpoint save"),
-                (trainer, "restore_checkpoint", "checkpoint load (resume)"),
-                (assembly, "restore_checkpoint", "checkpoint load (system.weights)"),
-                (trainer.Trainer, "fit", "fit"), (trainer.Trainer, "test", "test")):
-            spans.time(owner, name, label)
-        spans.train_steps(assembly.SugarStaticExperiment, "static")
-        spans.train_steps(assembly.Sugar4DGenExperiment, "dynamic")
-        rb.reset_launch_counts()
-        tb.reset_launch_counts()
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            launch.main(launch.make_args(static_yaml, "train"), common + [
-                f"data.image_path={frames_dir}/000_rgba.png", f"trainer.max_steps={LAUNCH_STEPS}",
-                f"trainer.val_check_interval={LAUNCH_STEPS}", "tag=static"])
-            res["static_peak"] = torch.cuda.max_memory_allocated() / 2**30
-            torch.cuda.reset_peak_memory_stats()
-            launch.main(launch.make_args(dyn_yaml, "train"), dyn + [f"trainer.max_steps={LAUNCH_STEPS}"])
-            launch.main(launch.make_args(dyn_yaml, "train"),
-                        dyn + [f"trainer.max_steps={LAUNCH_RESUMED_STEPS}", "resume=LAST"])
-            res["dyn_peak"] = torch.cuda.max_memory_allocated() / 2**30
-        finally:
-            spans.close()
-        torch.cuda.synchronize()
-        res["launches"] = launches = counts()
-        print(f"launcher main path launches: {json.dumps(launches)}")
-        check(launches["resident_fwd"] > 0 and launches["resident_bwd_accum"] > 0,
-              "the launcher path did not launch B1 and B2")
-        check(launches["table_fwd"] == launches["table_bwd"] == launches["resident_bwd_pairs"] == 0,
-              "the launcher path (backend pallas_resident, bwd_accum) launched another kernel")
+    mesh_path = os.path.join(tmp, "mesh.obj")
+    write_obj(mesh_path, make_icosphere(MESH_LEVEL, radius=0.6))
+    frames_dir = os.path.join(tmp, "frames")
+    os.makedirs(frames_dir)
+    rgba = (torch.cat(video, -1).clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+    t0 = time.perf_counter()
+    for i, frame in enumerate(rgba):
+        write_png(os.path.join(frames_dir, f"{i:03d}_rgba.png"), frame)
+    res["encode_s"] = time.perf_counter() - t0
+    out = os.path.join(tmp, "out")
+    common = ["system.guidance.pretrained_model_name_or_path=none",
+              f"system.geometry.surface_mesh_to_bind_path={mesh_path}", f"exp_root_dir={out}",
+              "use_timestamp=false", f"checkpoint.every_n_train_steps={LAUNCH_CKPT_EVERY}"]
+    static_trial = os.path.join(out, "sugar-refine", "static")
+    dyn_trial = os.path.join(out, "sugar-dynamic", "dynamic")
+    static_ckpt = os.path.join(static_trial, "ckpts", f"step_{LAUNCH_STEPS:08d}")
+    dyn = common + [f"data.video_frames_dir={frames_dir}", f"system.weights={static_ckpt}",
+                    "tag=dynamic"]
+    static = common + [f"data.image_path={frames_dir}/000_rgba.png", f"trainer.max_steps={LAUNCH_STEPS}",
+                       f"trainer.val_check_interval={LAUNCH_STEPS}", "tag=static"]
+    res["trials"] = {"static": (static_yaml, static_trial, static),
+                     "dynamic": (dyn_yaml, dyn_trial, dyn + [f"trainer.max_steps={LAUNCH_RESUMED_STEPS}"])}
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    for owner, name, label in (
+            (assembly, "load_mesh", "mesh load"),
+            (assembly.SugarStaticExperiment, "train_batch", "static batch"),
+            (assembly.Sugar4DGenExperiment, "train_batch", "dynamic batch"),
+            (assembly, "create_sugar", "create_sugar"), (assembly, "build_dynamic_static", "graph"),
+            (TemporalImageDataModule, "frames_at", "frame decode"),
+            (trainer, "save_checkpoint", "checkpoint save"),
+            (trainer, "restore_checkpoint", "checkpoint load (resume)"),
+            (assembly, "restore_checkpoint", "checkpoint load (system.weights)"),
+            (trainer.Trainer, "fit", "fit"), (trainer.Trainer, "test", "test")):
+        spans.time(owner, name, label)
+    spans.train_steps(assembly.SugarStaticExperiment, "static")
+    spans.train_steps(assembly.Sugar4DGenExperiment, "dynamic")
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        launch.main(launch.make_args(static_yaml, "train"), static)
+        res["static_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        launch.main(launch.make_args(dyn_yaml, "train"), dyn + [f"trainer.max_steps={LAUNCH_STEPS}"])
+        launch.main(launch.make_args(dyn_yaml, "train"),
+                    dyn + [f"trainer.max_steps={LAUNCH_RESUMED_STEPS}", "resume=LAST"])
+        res["dyn_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        spans.close()
+    torch.cuda.synchronize()
+    res["launches"] = launches = counts()
+    print(f"launcher main path launches: {json.dumps(launches)}")
+    check(launches["resident_fwd"] > 0 and launches["resident_bwd_accum"] > 0,
+          "the launcher path did not launch B1 and B2")
+    check(launches["table_fwd"] == launches["table_bwd"] == launches["resident_bwd_pairs"] == 0,
+          "the launcher path (backend pallas_resident, bwd_accum) launched another kernel")
 
-        # the checkpoint layout of both trials
-        want = {static_trial: [LAUNCH_CKPT_EVERY, LAUNCH_STEPS],
-                dyn_trial: list(range(LAUNCH_CKPT_EVERY, LAUNCH_RESUMED_STEPS + 1, LAUNCH_CKPT_EVERY))}
-        for trial, steps in want.items():
-            got = sorted(os.listdir(os.path.join(trial, "ckpts")))
-            check(got == [f"step_{k:08d}" for k in steps], f"{trial}: checkpoints {got}")
-            check(all(os.listdir(os.path.join(trial, "ckpts", d)) == ["state.pt"] for d in got),
-                  f"{trial}: a checkpoint directory holds more than state.pt")
-            for name in ("configs/parsed.yaml", "cmd.txt", "metrics.csv", "train_summary.json"):
-                check(os.path.exists(os.path.join(trial, name)), f"{trial}: no {name}")
+    # the checkpoint layout of both trials
+    want = {static_trial: [LAUNCH_CKPT_EVERY, LAUNCH_STEPS],
+            dyn_trial: list(range(LAUNCH_CKPT_EVERY, LAUNCH_RESUMED_STEPS + 1, LAUNCH_CKPT_EVERY))}
+    for trial, steps in want.items():
+        got = sorted(os.listdir(os.path.join(trial, "ckpts")))
+        check(got == [f"step_{k:08d}" for k in steps], f"{trial}: checkpoints {got}")
+        check(all(os.listdir(os.path.join(trial, "ckpts", d)) == ["state.pt"] for d in got),
+              f"{trial}: a checkpoint directory holds more than state.pt")
+        for name in ("configs/parsed.yaml", "cmd.txt", "metrics.csv", "train_summary.json"):
+            check(os.path.exists(os.path.join(trial, name)), f"{trial}: no {name}")
 
-        print(f"checkpoints: {json.dumps({os.path.basename(t): sorted(os.listdir(os.path.join(t, 'ckpts'))) for t in want})}")
+    print(f"checkpoints: {json.dumps({os.path.basename(t): sorted(os.listdir(os.path.join(t, 'ckpts'))) for t in want})}")
 
-        # steps: the resumed run starts where the checkpoint ends; launches per step
-        static_exp, dyn_exp = spans.results["setup"][0], spans.results["setup"][-1]
-        n_test = static_exp.data.cfg.random_camera.n_test_views
-        check(len(os.listdir(os.path.join(static_trial, "save", f"it{LAUNCH_STEPS}-test"))) == n_test,
-              f"the static test pass did not write {n_test} views")
-        views = {"static": 1 + static_exp.data.cfg.random_camera.batch_size}
-        frames = dyn_exp.data.cfg.num_frames
-        lw = dyn_exp.losses
-        rand_in_loss = any(C_max(w) > 0 for w in (lw.lambda_rgb_tv, lw.lambda_normal_tv, lw.lambda_depth_tv))
-        predicted = {"static": {"resident_fwd": views["static"], "resident_bwd_accum": views["static"]},
-                     "dynamic": {"resident_fwd": 2 * frames,
-                                 "resident_bwd_accum": frames * (2 if rand_in_loss else 1)}}
-        steps = {label: [s for s in spans.steps if s[0] == label] for label in predicted}
-        check([s[1] for s in steps["static"]] == list(range(LAUNCH_STEPS)), "static: steps taken")
-        check([s[1] for s in steps["dynamic"]] == list(range(LAUNCH_STEPS)) + list(
-            range(LAUNCH_STEPS, LAUNCH_RESUMED_STEPS)), "dynamic: steps taken")
-        resumed = steps["dynamic"][LAUNCH_STEPS]
-        print(f"resumed run: first step {resumed[1]}, the restored state's step {resumed[2]}")
-        check(resumed[1] == resumed[2] == LAUNCH_STEPS, "the resumed run did not start at the saved step")
-        for label, rows in steps.items():
-            for _, step, _, _, launched, metrics in rows:
-                got = {k: v for k, v in launched.items() if v}
-                check(got == predicted[label], f"{label} step {step}: launches {got} != {predicted[label]}")
-                check(all(math.isfinite(v) for v in metrics.values()), f"{label} step {step}: non-finite metric")
-            ms = [r[3] for r in rows]
-            batch_ms = [1e3 * x for x in spans.seconds[f"{label} batch"]]
-            res[f"{label}_ms"] = statistics.median(ms[1:LAUNCH_STEPS] + ms[LAUNCH_STEPS + 1:])
-            res[f"{label}_batch_ms"] = statistics.median(batch_ms[1:LAUNCH_STEPS] + batch_ms[LAUNCH_STEPS + 1:])
-            print(f"[{card}] launcher {label} train_step ({json.dumps(predicted[label])} per step): "
-                  f"{res[f'{label}_ms']:.2f} ms/step (median without each run's first step; all: "
-                  f"{', '.join(f'{x:.1f}' for x in ms)}), of it the data module's batch "
-                  f"{res[f'{label}_batch_ms']:.2f} ms (all: {', '.join(f'{x:.1f}' for x in batch_ms)}); "
-                  f"loss_total step 0 {rows[0][5]['loss_total']:.6g} "
-                  f"-> step {rows[-1][1]} {rows[-1][5]['loss_total']:.6g}")
-        check(dyn_exp.state.step == LAUNCH_RESUMED_STEPS, "the last experiment is not at the last step")
+    # steps: the resumed run starts where the checkpoint ends; launches per step
+    static_exp, dyn_exp = spans.results["setup"][0], spans.results["setup"][-1]
+    n_test = static_exp.data.cfg.random_camera.n_test_views
+    check(len(os.listdir(os.path.join(static_trial, "save", f"it{LAUNCH_STEPS}-test"))) == n_test,
+          f"the static test pass did not write {n_test} views")
+    views = {"static": 1 + static_exp.data.cfg.random_camera.batch_size}
+    frames = dyn_exp.data.cfg.num_frames
+    lw = dyn_exp.losses
+    rand_in_loss = any(C_max(w) > 0 for w in (lw.lambda_rgb_tv, lw.lambda_normal_tv, lw.lambda_depth_tv))
+    predicted = {"static": {"resident_fwd": views["static"], "resident_bwd_accum": views["static"]},
+                 "dynamic": {"resident_fwd": 2 * frames,
+                             "resident_bwd_accum": frames * (2 if rand_in_loss else 1)}}
+    steps = {label: [s for s in spans.steps if s[0] == label] for label in predicted}
+    check([s[1] for s in steps["static"]] == list(range(LAUNCH_STEPS)), "static: steps taken")
+    check([s[1] for s in steps["dynamic"]] == list(range(LAUNCH_STEPS)) + list(
+        range(LAUNCH_STEPS, LAUNCH_RESUMED_STEPS)), "dynamic: steps taken")
+    resumed = steps["dynamic"][LAUNCH_STEPS]
+    print(f"resumed run: first step {resumed[1]}, the restored state's step {resumed[2]}")
+    check(resumed[1] == resumed[2] == LAUNCH_STEPS, "the resumed run did not start at the saved step")
+    for label, rows in steps.items():
+        for _, step, _, _, launched, metrics in rows:
+            got = {k: v for k, v in launched.items() if v}
+            check(got == predicted[label], f"{label} step {step}: launches {got} != {predicted[label]}")
+            check(all(math.isfinite(v) for v in metrics.values()), f"{label} step {step}: non-finite metric")
+        ms = [r[3] for r in rows]
+        batch_ms = [1e3 * x for x in spans.seconds[f"{label} batch"]]
+        res[f"{label}_ms"] = statistics.median(ms[1:LAUNCH_STEPS] + ms[LAUNCH_STEPS + 1:])
+        res[f"{label}_batch_ms"] = statistics.median(batch_ms[1:LAUNCH_STEPS] + batch_ms[LAUNCH_STEPS + 1:])
+        print(f"[{card}] launcher {label} train_step ({json.dumps(predicted[label])} per step): "
+              f"{res[f'{label}_ms']:.2f} ms/step (median without each run's first step; all: "
+              f"{', '.join(f'{x:.1f}' for x in ms)}), of it the data module's batch "
+              f"{res[f'{label}_batch_ms']:.2f} ms (all: {', '.join(f'{x:.1f}' for x in batch_ms)}); "
+              f"loss_total step 0 {rows[0][5]['loss_total']:.6g} "
+              f"-> step {rows[-1][1]} {rows[-1][5]['loss_total']:.6g}")
+    check(dyn_exp.state.step == LAUNCH_RESUMED_STEPS, "the last experiment is not at the last step")
 
-        # Viewer4D.from_trial against the experiment's own render of that state
-        viewer = Viewer4D.from_trial(dyn_trial, device=device)
-        rb.reset_launch_counts()
-        tb.reset_launch_counts()
-        frame = viewer.render(5.0, 30.0, 3.8, t=0.37)
-        torch.cuda.synchronize()
-        view_launches = {k: v for k, v in counts().items() if v}
-        ts = torch.tensor([0.37], device=device)
-        ref = dyn_exp.render(viewer._cameras(5.0, 30.0, 3.8), ts, viewer._frame_indices(ts))["comp_rgb"][0]
-        res["from_trial_err"] = float(np.abs(frame - ref).max())
-        res["view_launches"] = view_launches
-        cover = float((np.abs(frame - 1.0).max(-1) > 1e-3).mean())
-        print(f"Viewer4D.from_trial frame: launches {json.dumps(view_launches)}, coverage {cover:.4f}, "
-              f"max|d| against the experiment's render {res['from_trial_err']:.3g} (limit 1e-6)")
-        check(view_launches == {"resident_fwd": 1}, "from_trial: expected one B1 launch per view")
-        check(frame.shape == (RES, RES, 3) and np.isfinite(frame).all() and cover > 0.05,
-              "from_trial: empty, non-finite or misshapen frame")
-        check(res["from_trial_err"] <= 1e-6, "from_trial renders another state than the experiment")
+    # Viewer4D.from_trial against the experiment's own render of that state
+    viewer = Viewer4D.from_trial(dyn_trial, device=device)
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    frame = viewer.render(5.0, 30.0, 3.8, t=0.37)
+    torch.cuda.synchronize()
+    view_launches = {k: v for k, v in counts().items() if v}
+    ts = torch.tensor([0.37], device=device)
+    ref = dyn_exp.render(viewer._cameras(5.0, 30.0, 3.8), ts, viewer._frame_indices(ts))["comp_rgb"][0]
+    res["from_trial_err"] = float(np.abs(frame - ref).max())
+    res["view_launches"] = view_launches
+    cover = float((np.abs(frame - 1.0).max(-1) > 1e-3).mean())
+    print(f"Viewer4D.from_trial frame: launches {json.dumps(view_launches)}, coverage {cover:.4f}, "
+          f"max|d| against the experiment's render {res['from_trial_err']:.3g} (limit 1e-6)")
+    check(view_launches == {"resident_fwd": 1}, "from_trial: expected one B1 launch per view")
+    check(frame.shape == (RES, RES, 3) and np.isfinite(frame).all() and cover > 0.05,
+          "from_trial: empty, non-finite or misshapen frame")
+    check(res["from_trial_err"] <= 1e-6, "from_trial renders another state than the experiment")
 
     sec = spans.seconds
     res["seconds"] = sec
-    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
     print(f"[{card}] launcher seconds: setup (build_experiment) static {sec['setup'][0]:.3f}, dynamic "
-          f"{fmt(sec['setup'][1:])}; of it mesh load {fmt(sec['mesh load'])}, create_sugar "
-          f"{fmt(sec['create_sugar'])}, graph {fmt(sec['graph'])}, frame decode ({VIDEO_LEN} frames at {RES}²) "
-          f"{fmt(x for x in sec['frame decode'] if x > 1e-3)}; checkpoint save {fmt(sec['checkpoint save'])}, load "
-          f"{fmt(sec['checkpoint load (resume)'] + sec['checkpoint load (system.weights)'])}; test "
-          f"{fmt(sec['test'])}; fit {fmt(sec['fit'])}; the smoke's own PNG encode of {VIDEO_LEN} frames "
+          f"{fmt_s(sec['setup'][1:])}; of it mesh load {fmt_s(sec['mesh load'])}, create_sugar "
+          f"{fmt_s(sec['create_sugar'])}, graph {fmt_s(sec['graph'])}, frame decode ({VIDEO_LEN} frames at {RES}²) "
+          f"{fmt_s(x for x in sec['frame decode'] if x > 1e-3)}; checkpoint save {fmt_s(sec['checkpoint save'])}, load "
+          f"{fmt_s(sec['checkpoint load (resume)'] + sec['checkpoint load (system.weights)'])}; test "
+          f"{fmt_s(sec['test'])}; fit {fmt_s(sec['fit'])}; the smoke's own PNG encode of {VIDEO_LEN} frames "
           f"{res['encode_s']:.3f}")
     print(f"[{card}] launcher peak memory: static {res['static_peak']:.2f} GiB, dynamic "
           f"{res['dyn_peak']:.2f} GiB")
     return res
+
+
+def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
+    """(a) The recovery benchmark's ground truth (``render_vertex_color_view``
+    of the animated icosphere(3) at 64²) on the card against the same call on
+    the CPU at GT_TIMES timestamps, and its ms per view at 64² and 1024²;
+    (b) ``recovery.run_recovery`` on ``pallas_resident`` with the steps cut to
+    RECOVERY_STEPS (ms/step of both stages at 64², the largest tile count
+    against the capacity, every column finite; the full gate is
+    ``python3 -m dreammesh4d_tpu_torch.recovery``); (c) ``--export
+    resume=LAST`` of phase 9's static and dynamic trials at the YAMLs' full
+    width (120 predict views at 1024², texture 1024): the file sets, each
+    frame OBJ's vertex and face counts and its vertices against
+    ``timed_all``'s, the texture's filled-texel share, the bake's seconds, B1
+    launches and peak memory, and the seconds of the OBJ writes and the PNG.
+    Launch counts are zeroed before (b) and before (c) and read after each."""
+    import tempfile
+
+    from dreammesh4d_tpu_torch import launch, recovery
+    from dreammesh4d_tpu_torch.data import png
+    from dreammesh4d_tpu_torch.data.temporal_image import frame_timestamps
+    from dreammesh4d_tpu_torch.export import texture_bake
+    from dreammesh4d_tpu_torch.export.gaussian_io import load_gaussians_ply
+    from dreammesh4d_tpu_torch.export.mesh_io import load_obj
+    from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import timed_all
+    from dreammesh4d_tpu_torch.ops import cameras as cam_ops
+    from dreammesh4d_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from dreammesh4d_tpu_torch.systems import assembly
+    from dreammesh4d_tpu_torch.utils.procedural import (deform_recovery, make_icosphere,
+                                                        render_vertex_color_view)
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts}
+
+    res = {}
+    # (a) the ground truth, card against CPU
+    mesh = make_icosphere(3, radius=0.6)
+    L = 16
+    worst_share, worst_rgb = 1.0, 0.0
+    fov = math.radians(recovery.FOVY)
+    for t in frame_timestamps(L)[::L // GT_TIMES][:GT_TIMES]:
+        verts = deform_recovery(mesh.v_pos, (float(t) * (L + 1) - 1.0) / L)
+        out = {}
+        for dev in (device, "cpu"):
+            c2w = torch.as_tensor(cam_ops.make_c2w_numpy(recovery.ELEV, recovery.AZIM, recovery.DIST),
+                                  device=dev)
+            raster = rasterize_mesh(torch.as_tensor(verts, device=dev),
+                                    torch.as_tensor(mesh.t_pos_idx, device=dev),
+                                    cam_ops.get_cam_info_gaussian(c2w, fov, fov, 0.01, 100.0), 64, 64)
+            rgb, mask = render_vertex_color_view(verts, mesh.t_pos_idx, mesh.v_rgb, recovery.ELEV,
+                                                 recovery.AZIM, recovery.DIST, recovery.FOVY, 64, 64,
+                                                 device=dev)
+            out[dev] = (raster.face_idx.cpu().numpy(), rgb, mask)
+        same = out[device][0] == out["cpu"][0]
+        worst_share = min(worst_share, float(same.mean()))
+        worst_rgb = max(worst_rgb, float(np.abs(out[device][1] - out["cpu"][1])[same].max()))
+        check(float(out[device][2].mean()) > 0.2, "the ground-truth view is nearly empty")
+    res["gt_face_share"], res["gt_rgb_err"] = worst_share, worst_rgb
+    print(f"ground truth on the card vs the CPU ({GT_TIMES} timestamps at 64²): face_idx equal on "
+          f"{worst_share:.6f} of pixels at worst (limit {GT_FACE_SHARE}), rgb max|d| elsewhere "
+          f"{worst_rgb:.3g} (limit {GT_RGB_TOL})")
+    check(worst_share >= GT_FACE_SHARE, "ground truth: face_idx differs between the card and the CPU")
+    check(worst_rgb <= GT_RGB_TOL, "ground truth: rgb differs between the card and the CPU")
+    for hw in GT_SIZES:
+        torch.cuda.reset_peak_memory_stats()
+        res[f"gt_ms_{hw}"] = time_ms(torch, lambda: render_vertex_color_view(
+            mesh.v_pos, mesh.t_pos_idx, mesh.v_rgb, recovery.ELEV, 30.0, recovery.DIST, recovery.FOVY,
+            hw, hw, device=device), n=5, warmup=1)
+        res[f"gt_peak_{hw}"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{card}] ground-truth view (render_vertex_color_view) at {hw}²: {res[f'gt_ms_{hw}']:.2f} ms, "
+              f"peak {res[f'gt_peak_{hw}']:.2f} GiB")
+
+    # (b) the recovery recipe, steps cut
+    stats = {}
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cols = recovery.run_recovery(tmp, static_steps=RECOVERY_STEPS[0], dynamic_steps=RECOVERY_STEPS[1],
+                                     device=device, backend="pallas_resident", stats=stats)
+    torch.cuda.synchronize()
+    res["recovery_launches"] = {k: v for k, v in counts().items() if v}
+    res["recovery_stats"], res["recovery"] = stats, cols
+    print(f"recovery recipe (pallas_resident, {RECOVERY_STEPS[0]} + {RECOVERY_STEPS[1]} steps) launches: "
+          f"{json.dumps(res['recovery_launches'])}")
+    print(f"[{card}] recovery recipe at 64²: static {stats['static_ms_per_step']:.2f} ms/step, dynamic "
+          f"{stats['dynamic_ms_per_step']:.2f} ms/step; largest tile count of each stage's first render "
+          f"{stats['static_max_tile_count']} / {stats['dynamic_max_tile_count']} against capacity "
+          f"{stats['tile_capacity']}; seconds: ground truth {stats['gt_assets_s']:.2f}, static "
+          f"{stats['static_s']:.2f}, dynamic {stats['dynamic_s']:.2f}, evaluation {stats['eval_s']:.2f}")
+    print(f"recovery columns (cut run, not gated; CLIP {recovery.CLIP_NOTE}): {json.dumps(cols)}")
+    check(all(math.isfinite(float(v)) for v in cols.values()), "recovery: a non-finite column")
+    check(res["recovery_launches"].get("resident_fwd", 0) > 0
+          and res["recovery_launches"].get("resident_bwd_accum", 0) > 0,
+          "recovery: the recipe did not launch B1 and B2")
+
+    # (c) --export of phase 9's trials
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    for owner, name, label in ((assembly.SugarStaticExperiment, "export", "static export"),
+                               (assembly, "bake_texture", "bake"),
+                               (assembly, "export_textured_mesh", "frame OBJ"),
+                               (png, "write_png", "texture PNG")):
+        spans.time(owner, name, label)
+    filled = []
+    real_bake_view = texture_bake.bake_view
+
+    def bake_view(tex_acc, tex_w, *a, **kw):
+        filled[:] = [tex_w]
+        return real_bake_view(tex_acc, tex_w, *a, **kw)
+
+    texture_bake.bake_view = bake_view
+    try:
+        yaml_path, static_trial, static = launcher["trials"]["static"]
+        launch.main(launch.make_args(yaml_path, "export"), static + ["resume=LAST"])
+        save = os.path.join(static_trial, "save")
+        check(os.path.getsize(os.path.join(save, "refined_mesh.obj")) > 0, "static export: no refined_mesh.obj")
+        g = load_gaussians_ply(os.path.join(save, "gaussians.ply"))
+        check(g["xyz"].shape == (6 * 20 * 4 ** MESH_LEVEL, 3) and np.isfinite(g["xyz"]).all(),
+              f"static export: gaussians.ply holds {g['xyz'].shape}")
+        yaml_path, dyn_trial, dyn = launcher["trials"]["dynamic"]
+        rb.reset_launch_counts()
+        tb.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        launch.main(launch.make_args(yaml_path, "export"), dyn + ["resume=LAST"])
+        torch.cuda.synchronize()
+        res["export_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        texture_bake.bake_view = real_bake_view
+        spans.close()
+    res["export_launches"] = launches = {k: v for k, v in counts().items() if v}
+    exp = spans.results["setup"][-1]
+    n_views = exp.data.cfg.n_predict_views
+    print(f"dynamic export launches: {json.dumps(launches)} ({n_views} predict views at "
+          f"{exp.data.cfg.predict_height}²)")
+    check(launches == {"resident_fwd": n_views}, f"dynamic export: expected {n_views} B1 launches")
+    out_dir = os.path.join(dyn_trial, "save", "4d_export")
+    L = exp.data.video_length
+    names = [f"frame_{i:03d}.obj" for i in range(L)]
+    check(sorted(os.listdir(out_dir)) == names + ["material0.mtl", "material0.png"],
+          f"dynamic export: files {sorted(os.listdir(out_dir))}")
+    with torch.no_grad():
+        _, vert = timed_all(exp.sugar_params, exp.state.deform_params, exp.dyn_cfg.deformation, exp.static,
+                            torch.as_tensor(frame_timestamps(L), device=device),
+                            frame_indices=torch.arange(L, device=device))
+    xyz = vert.xyz.cpu().numpy()
+    faces = exp.static.sugar.faces.cpu().numpy()
+    worst = 0.0
+    for i, name in enumerate(names):
+        m = load_obj(os.path.join(out_dir, name))
+        check(m.v_pos.shape == xyz[i].shape and (m.t_pos_idx == faces).all(),
+              f"{name}: {m.v_pos.shape[0]} vertices / {m.t_pos_idx.shape[0]} faces, not the mesh's")
+        worst = max(worst, float(np.abs(m.v_pos - xyz[i]).max()))
+    res["export_vert_err"] = worst
+    tex = png.read_png(os.path.join(out_dir, "material0.png"))
+    res["filled_share"] = float((filled[0] > 0).float().mean())
+    moved = float(np.abs(xyz[-1] - xyz[0]).max())
+    print(f"4D export: {L} frame OBJs of {xyz.shape[1]} vertices / {faces.shape[0]} faces, vertices against "
+          f"timed_all max|d| {worst:.3g} (limit {EXPORT_VERT_TOL}); first to last frame moved {moved:.4g}; "
+          f"texture {tex.shape}, filled-texel share {res['filled_share']:.4f}")
+    check(worst <= EXPORT_VERT_TOL, "4D export: frame vertices differ from timed_all")
+    check(tex.shape == (1024, 1024, 3) and res["filled_share"] > 0.05, "4D export: texture empty or misshapen")
+    sec = res["export_seconds"] = spans.seconds
+    print(f"[{card}] export seconds: static {sec['static export'][0]:.3f}; dynamic bake ({n_views} views at "
+          f"{exp.data.cfg.predict_height}², B1 + mesh rasterizer + index_add_) {sec['bake'][0]:.3f}, "
+          f"{len(sec['frame OBJ'])} OBJ writes {sum(sec['frame OBJ']):.3f} (of it the texture PNG "
+          f"{sum(sec['texture PNG']):.3f}); setup (build_experiment) {fmt_s(sec['setup'])}; peak memory "
+          f"{res['export_peak']:.2f} GiB")
+    return res
+
+
+def fmt_s(xs):
+    return ", ".join(f"{x:.3f}" for x in xs)
 
 
 def kernel_bounds(args, stats, table_rows, per_pair):
@@ -1722,10 +1969,14 @@ def main():
             "main_view": view_blend_inputs(torch, viewer, params, static, dparams, dyn_cfg,
                                            raster_cfg, 0.0, with_normals=C == 7),
             **{case: synthetic_blend_inputs(torch, case, dev, C)
-               for case in ("saturated", "empty_tiles", "quadrant_wall", "cull_edges")}}
+               for case in ("saturated", "empty_tiles", "quadrant_wall", "cull_edges")},
+            **{case: recovery_blend_inputs(torch, case, dev, C)
+               for case in ("recovery_view", "saturated16")}}
     b1_err, main_stats, b1_kept = check_forward(torch, rb, cases[7])
     check(int((cases[7]["saturated"][3] > 2048).sum()) >= 1, "saturated case has no saturated tile")
     check(int((cases[7]["empty_tiles"][3] == 0).sum()) >= 1, "empty-tile case has no empty tile")
+    for case in ("recovery_view", "saturated16"):
+        check(int((cases[7][case][3] > 512).sum()) >= 1, f"{case}: no tile over the capacity of 512")
     check_quadrant_wall(torch, rb, cases[7]["quadrant_wall"])
     bwd_err, bwd_work, bwd_kept = {}, {}, {}
     for C in (7, 4):
@@ -1835,7 +2086,8 @@ def main():
                                             (static_params, static_sugar, static_target, ref_cams), dev)
 
     # 9. the launcher main path: both Gaussian YAMLs through dreammesh4d_tpu_torch.launch.main
-    launcher = drive_launcher(torch, np, rb, tb, card, video, dev)
+    launch_tmp = tempfile.TemporaryDirectory()  # phase 11 exports the trials
+    launcher = drive_launcher(torch, np, rb, tb, card, video, dev, launch_tmp.name)
     print(f"[{card}] launcher ms/step: static {launcher['static_ms']:.2f} (direct make_static_train_step "
           f"on pallas_resident, phase 8: {static_res['pallas_resident']['ms']:.2f}); dynamic "
           f"{launcher['dynamic_ms']:.2f} (direct make_dynamic_train_step with guidance_fn=None, phase 5: "
@@ -1951,7 +2203,11 @@ def main():
               f"{r['ms']:.2f} ms/step, peak memory {r['peak']:.2f} GiB")
         profile_call(torch, f"static refine step ({label})", static_steps[label], card)
 
-    # 11. result lines
+    # 11. the recovery recipe and the exports of phase 9's trials
+    recov = drive_recovery_and_export(torch, np, rb, tb, card, launcher, dev)
+    launch_tmp.cleanup()
+
+    # 12. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu, "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1966,19 +2222,24 @@ def main():
     print(json.dumps({"kernels": [
         entry("resident_fwd", "B1", "dreammesh4d_tpu_torch/csrc/resident_fwd.cu",
               "dreammesh4d_tpu/ops/gs/pallas_resident.py:121", "ops/gs/pallas_resident.py::_fwd_kernel",
-              launches["resident_fwd"] + train_launches["resident_fwd"] + launcher["launches"]["resident_fwd"],
+              launches["resident_fwd"] + train_launches["resident_fwd"] + launcher["launches"]["resident_fwd"]
+              + recov["recovery_launches"]["resident_fwd"] + recov["export_launches"]["resident_fwd"],
               b1_err, b1_ms, plain_ms, bound_ms, bound_by, max_abs_diff=b1_err,
               launches_serving=launches["resident_fwd"], launches_training=train_launches["resident_fwd"],
               launches_static=static_resident["resident_fwd"],
-              launches_launcher=launcher["launches"]["resident_fwd"], cull_kept=kept["resident_fwd"],
+              launches_launcher=launcher["launches"]["resident_fwd"],
+              launches_recovery=recov["recovery_launches"]["resident_fwd"],
+              launches_export=recov["export_launches"]["resident_fwd"], cull_kept=kept["resident_fwd"],
               **b1_more),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
               "ops/gs/pallas_resident.py::_bwd_kernel_accum",
-              train_launches["resident_bwd_accum"] + launcher["launches"]["resident_bwd_accum"],
+              train_launches["resident_bwd_accum"] + launcher["launches"]["resident_bwd_accum"]
+              + recov["recovery_launches"]["resident_bwd_accum"],
               bwd_err["resident_bwd_accum"][1], *b2, max_rel_err=bwd_err["resident_bwd_accum"][0],
               n_channels=4, ms_c7=bwd["resident_bwd_accum", 7][0],
               launches_static=static_resident["resident_bwd_accum"],
-              launches_launcher=launcher["launches"]["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
+              launches_launcher=launcher["launches"]["resident_bwd_accum"],
+              launches_recovery=recov["recovery_launches"]["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
               **bwd_more["resident_bwd_accum", 4],
               device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",

@@ -28,7 +28,9 @@ are read back as Python values.  This module imports no jax.
 - stage 4: :func:`sugar_static_losses` and :func:`static_train_state` (the
   params and the ``optax.multi_transform`` Adam moments of every
   ``SuGaRParams`` field).  ``RasterizerConfig`` crosses over through
-  :func:`config` as it is.
+  :func:`config` as it is;
+- evaluation: :func:`perceptual_params` — the LPIPS tree
+  ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
 
 from __future__ import annotations
@@ -230,3 +232,15 @@ def static_train_state(src, optimizer=None, device="cuda") -> StaticTrainState:
                       _f32(_get(_get(adam, "mu"), field), device),
                       _f32(_get(_get(adam, "nu"), field), device))
     return state
+
+
+def perceptual_params(tree, device="cuda") -> dict:
+    """The JAX ``init_perceptual`` / ``load_torch_weights`` tree with each
+    convolution turned from HWIO to OIHW, as float32 tensors (the
+    ``params=`` of ``utils.metrics.LPIPSMetric`` and
+    ``utils.perceptual.from_params``)."""
+    return {
+        "stages": [[{"w": _f32(np.asarray(c["w"]).transpose(3, 2, 0, 1), device),
+                     "b": _f32(c["b"], device)} for c in stage] for stage in tree["stages"]],
+        "lins": [_f32(w, device) for w in tree["lins"]],
+    }

@@ -1,10 +1,13 @@
-"""Host-side mesh loading, numpy only (own copy of the loaders in
+"""Host-side mesh IO, numpy only (own copy of
 ``dreammesh4d_tpu/export/mesh_io.py``: ``MeshData`` :22, ``load_obj``,
-``load_ply``/``load_ply_mesh`` and ``load_mesh`` :279).  Writers come with
-the 4D-export slice."""
+``save_obj`` :83, ``load_ply``/``load_ply_mesh``, ``save_ply_mesh`` :237 and
+``load_mesh`` :279).  The writers give the JAX package's bytes; a texture
+PNG goes through the port's own encoder (``data/png.write_png``) in place of
+imageio."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -66,6 +69,52 @@ def load_obj(path: str) -> MeshData:
         v_tex=np.asarray(uvs, np.float32) if uvs else None,
         t_tex_idx=np.asarray(face_uvs, np.int32) if face_uvs else None,
     )
+
+
+def save_obj(path: str, mesh: MeshData, mtl_name: Optional[str] = None,
+             texture_map: Optional[np.ndarray] = None) -> None:
+    """Write an OBJ; vertex colours inline (``v x y z r g b``); with
+    ``mtl_name`` also ``<mtl_name>.mtl`` and, given ``texture_map`` (H, W, 3)
+    in [0, 1], ``<mtl_name>.png`` beside it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    lines = []
+    if mtl_name is not None:
+        lines.append(f"mtllib {mtl_name}.mtl")
+    for i, v in enumerate(mesh.v_pos):
+        if mesh.v_rgb is not None:
+            c = mesh.v_rgb[i]
+            lines.append(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f} {c[0]:.6f} {c[1]:.6f} {c[2]:.6f}")
+        else:
+            lines.append(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}")
+    if mesh.v_tex is not None:
+        for uv in mesh.v_tex:
+            lines.append(f"vt {uv[0]:.6f} {uv[1]:.6f}")
+    if mesh.v_nrm is not None:
+        for n in mesh.v_nrm:
+            lines.append(f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}")
+    if mtl_name is not None:
+        lines.append(f"usemtl {mtl_name}")
+    has_uv = mesh.v_tex is not None and mesh.t_tex_idx is not None
+    for fi, f in enumerate(mesh.t_pos_idx):
+        if has_uv:
+            tf = mesh.t_tex_idx[fi]
+            lines.append(f"f {f[0]+1}/{tf[0]+1} {f[1]+1}/{tf[1]+1} {f[2]+1}/{tf[2]+1}")
+        else:
+            lines.append(f"f {f[0]+1} {f[1]+1} {f[2]+1}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    if mtl_name is None:
+        return
+    out_dir = os.path.dirname(os.path.abspath(path))
+    tex_file = f"{mtl_name}.png"
+    with open(os.path.join(out_dir, f"{mtl_name}.mtl"), "w") as fh:
+        fh.write(f"newmtl {mtl_name}\nKa 1.000 1.000 1.000\nKd 1.000 1.000 1.000\n"
+                 f"Ks 0.000 0.000 0.000\nd 1.0\nillum 1\nmap_Kd {tex_file}\n")
+    if texture_map is not None:
+        from ..data.png import write_png
+
+        img = np.clip(texture_map, 0.0, 1.0)
+        write_png(os.path.join(out_dir, tex_file), (img * 255).astype(np.uint8))
 
 
 _PLY_TYPES = {
@@ -161,6 +210,50 @@ def load_ply_mesh(path: str) -> MeshData:
         key = "vertex_indices" if "vertex_indices" in ply["face"] else "vertex_index"
         faces = np.asarray(ply["face"][key], np.int32).reshape(-1, 3)
     return MeshData(v_pos=v_pos, t_pos_idx=faces, v_rgb=v_rgb)
+
+
+def save_ply_mesh(path: str, mesh: MeshData, binary: bool = True) -> None:
+    """Write a PLY mesh (binary little-endian or ascii), with uchar vertex
+    colours when ``mesh.v_rgb`` is set."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    V, F = mesh.n_verts, mesh.n_faces
+    has_rgb = mesh.v_rgb is not None
+    header = ["ply", f"format {'binary_little_endian' if binary else 'ascii'} 1.0",
+              f"element vertex {V}",
+              "property float x", "property float y", "property float z"]
+    if has_rgb:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+    header += [f"element face {F}", "property list uchar int vertex_indices", "end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            if has_rgb:
+                dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                               ("r", "u1"), ("g", "u1"), ("b", "u1")])
+                arr = np.empty(V, dt)
+                arr["x"], arr["y"], arr["z"] = mesh.v_pos.T
+                rgb = np.clip(mesh.v_rgb * 255, 0, 255).astype(np.uint8)
+                arr["r"], arr["g"], arr["b"] = rgb.T
+            else:
+                arr = mesh.v_pos.astype("<f4")
+            f.write(arr.tobytes())
+            fdt = np.dtype([("n", "u1"), ("i", "<i4", (3,))])
+            farr = np.empty(F, fdt)
+            farr["n"] = 3
+            farr["i"] = mesh.t_pos_idx
+            f.write(farr.tobytes())
+        else:
+            lines = []
+            for i in range(V):
+                row = f"{mesh.v_pos[i,0]} {mesh.v_pos[i,1]} {mesh.v_pos[i,2]}"
+                if has_rgb:
+                    rgb = np.clip(mesh.v_rgb[i] * 255, 0, 255).astype(int)
+                    row += f" {rgb[0]} {rgb[1]} {rgb[2]}"
+                lines.append(row)
+            for i in range(F):
+                t = mesh.t_pos_idx[i]
+                lines.append(f"3 {t[0]} {t[1]} {t[2]}")
+            f.write(("\n".join(lines) + "\n").encode("ascii"))
 
 
 def load_mesh(path: str) -> MeshData:

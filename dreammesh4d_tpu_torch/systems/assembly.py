@@ -10,10 +10,15 @@ from ``np.random.RandomState(cfg.seed)`` as the JAX ones do; the step's own
 draws (the background inversion) come from a ``torch.Generator`` seeded with
 ``cfg.seed``, where the JAX package splits a ``PRNGKey``.
 
+``export()`` writes the JAX package's file set: the static stage
+``save/refined_mesh.obj`` and ``save/gaussians.ply``, the dynamic stage one
+textured ``save/4d_export/frame_XXX.obj`` per timestamp sharing
+``material0.mtl`` / ``material0.png``.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: the guidance (A3; only ``pretrained_model_name_or_path``
-``""`` / ``none`` runs), ``zero123-system`` (A4), ``export()`` (A5), the
-Gaussian stage and more than one device (A7).
+``""`` / ``none`` runs), ``zero123-system`` (A4), the Gaussian stage and
+more than one device (A7).
 """
 
 from __future__ import annotations
@@ -28,14 +33,17 @@ import numpy as np
 import torch
 
 from ..data.image import SingleImageConfig, SingleImageDataModule
-from ..data.temporal_image import TemporalImageConfig, TemporalImageDataModule
+from ..data.temporal_image import (TemporalImageConfig, TemporalImageDataModule,
+                                   frame_timestamps)
 from ..data.uncond import RandomCameraConfig
-from ..export.mesh_io import load_mesh
+from ..export.gaussian_io import save_gaussians_ply
+from ..export.mesh_io import MeshData, load_mesh, save_obj
+from ..export.texture_bake import bake_texture, export_textured_mesh
 from ..models.geometry.deformation import DeformationConfig, init_deformation
 from ..models.geometry.dynamic_sugar import (DynamicSuGaRConfig, build_dynamic_static,
-                                             init_discrete_params)
-from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar
-from ..ops.gs.rasterize import RasterizerConfig
+                                             init_discrete_params, timed_all)
+from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar, gaussian_attributes
+from ..ops.gs.rasterize import RasterizerConfig, rasterize
 from ..ops.meshops import build_one_ring, cotangent_weights
 from ..registry import register
 from ..utils.checkpoint import restore_checkpoint
@@ -312,8 +320,18 @@ class SugarStaticExperiment:
             ])
 
     def export(self) -> None:
-        raise NotImplementedError("the static stage's export (refined_mesh.obj, gaussians.ply) "
-                                  "is not ported to PyTorch yet (ROADMAP A5)")
+        """``save/refined_mesh.obj`` (the refined vertices on the bind mesh's
+        faces) and ``save/gaussians.ply`` (3DGS layout)."""
+        params = self.state.params
+        with torch.no_grad():
+            attrs = gaussian_attributes(params, self.static)
+        save_obj(self.saver.path("refined_mesh.obj"),
+                 MeshData(v_pos=params.points.detach().cpu().numpy(),
+                          t_pos_idx=self.static.faces.cpu().numpy()))
+        save_gaussians_ply(
+            self.saver.path("gaussians.ply"), attrs.means3d.cpu().numpy(),
+            attrs.sh.transpose(-1, -2).cpu().numpy(), params.density_logits.detach().cpu().numpy(),
+            torch.log(attrs.scales).cpu().numpy(), attrs.quats.cpu().numpy())
 
     # checkpoint protocol
     def state_for_checkpoint(self) -> dict:
@@ -444,8 +462,45 @@ class Sugar4DGenExperiment:
                 break
 
     def export(self) -> None:
-        raise NotImplementedError("the 4D export (per-frame textured meshes) is not ported to "
-                                  "PyTorch yet (ROADMAP A5)")
+        """One textured OBJ per timestamp, ``save/4d_export/frame_XXX.obj``,
+        sharing ONE baked texture (``material0.mtl`` / ``material0.png``,
+        written once): the timed Gaussians of the first timestamp are rendered
+        from the predict orbit at the predict size (``system.exporter.
+        bake_resolution`` overrides it) and baked onto that frame's mesh;
+        ``system.exporter.texture_size`` (1024) and ``atlas`` (``square``)."""
+        L = self.data.video_length
+        dev = self.device
+        ts = torch.as_tensor(frame_timestamps(L), device=dev)
+        sugar_static = self.static.sugar
+        with torch.no_grad():
+            gs, vert = timed_all(self.sugar_params, self.state.deform_params,
+                                 self.dyn_cfg.deformation, self.static, ts,
+                                 frame_indices=torch.arange(L, device=dev))
+            attrs0 = gaussian_attributes(self.sugar_params, sugar_static)
+        faces = sugar_static.faces.cpu().numpy()
+
+        pred = self.data.predict_batch()
+        exporter = dict(self.cfg.system.get("exporter", {}) or {})
+        bake_hw = int(exporter.get("bake_resolution", 0)) or int(pred["height"])
+        t_tan = math.tan(math.radians(self.data.cfg.default_fovy_deg) / 2)
+        bake_cfg = self.raster_cfg._replace(width=bake_hw, height=bake_hw, tan_fovx=t_tan,
+                                            tan_fovy=t_tan)
+        white = torch.ones(3, device=dev)
+
+        def render_rgb(cam):
+            return rasterize(gs.means3d[0], attrs0.opacities, cam, bake_cfg, white, sh=attrs0.sh,
+                             sh_degree=sugar_static.sh_degree, scales=gs.scales[0],
+                             quats=gs.quats[0], device=dev).rgb
+
+        cams = pred["cameras"]
+        texture, v_tex, t_tex = bake_texture(
+            vert.xyz[0], sugar_static.faces, cams.world_view, cams.full_proj, cams.camera_center,
+            render_rgb, bake_hw, bake_hw, tex_size=int(exporter.get("texture_size", 1024)),
+            atlas=str(exporter.get("atlas", "square")))
+        xyz = vert.xyz.cpu().numpy()
+        for i in range(L):
+            export_textured_mesh(self.saver.path(f"4d_export/frame_{i:03d}.obj"), xyz[i], faces,
+                                 texture if i == 0 else None, v_tex, t_tex, mtl_name="material0")
 
     # checkpoint protocol
     def state_for_checkpoint(self) -> dict:

@@ -1,9 +1,17 @@
-"""Procedural test meshes, host-side numpy (counterpart of
-``dreammesh4d_tpu/utils/procedural.py:10`` ``make_icosphere``)."""
+"""Procedural test meshes and the recovery benchmark's scene (counterpart of
+``dreammesh4d_tpu/utils/procedural.py``: ``make_icosphere`` :10,
+``deform_recovery`` :65, ``render_vertex_color_view`` :79).
+
+The recovery scene is a procedurally animated vertex-coloured mesh whose
+ground truth renders through the port's mesh rasterizer at any (view, time).
+"""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from ..export.mesh_io import MeshData
 
@@ -53,3 +61,38 @@ def make_icosphere(subdivisions: int = 2, radius: float = 1.0) -> MeshData:
     v = (verts * radius).astype(np.float32)
     rgb = ((verts + 1.0) / 2.0).astype(np.float32)
     return MeshData(v_pos=v, t_pos_idx=faces.astype(np.int32), v_rgb=rgb)
+
+
+def deform_recovery(rest: np.ndarray, t: float, max_angle_deg: float = 25.0,
+                    squash: float = 0.12) -> np.ndarray:
+    """Rotation about the up (z) axis by ``max_angle_deg·sin(2πt)`` composed
+    with a volume-compensated x-stretch (host-side numpy, float32)."""
+    a = np.radians(max_angle_deg) * np.sin(2.0 * np.pi * t)
+    ca, sa = np.cos(a), np.sin(a)
+    rot = np.asarray([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    s = 1.0 + squash * np.sin(2.0 * np.pi * t)
+    scale = np.asarray([s, 1.0 / np.sqrt(s), 1.0 / np.sqrt(s)], np.float32)
+    return ((rest * scale[None, :]) @ rot.T).astype(np.float32)
+
+
+def render_vertex_color_view(verts, faces, colors, elevation_deg: float, azimuth_deg: float,
+                             distance: float, fovy_deg: float, H: int, W: int,
+                             bg=(1.0, 1.0, 1.0), device="cuda"):
+    """(rgb (H, W, 3), mask (H, W, 1)) float32 numpy: the ground-truth render
+    of a vertex-coloured mesh from a spherical camera, rasterized on
+    ``device`` with the data pipeline's camera convention."""
+    from ..ops import cameras as cam_ops
+    from ..ops.mesh_raster import interpolate_attribute, rasterize_mesh
+
+    dev = torch.device(device)
+    c2w = cam_ops.make_c2w_numpy(elevation_deg, azimuth_deg, distance)
+    fov = math.radians(fovy_deg)
+    cam = cam_ops.get_cam_info_gaussian(torch.as_tensor(c2w, device=dev), fov, fov, 0.01, 100.0)
+    faces_t = torch.as_tensor(np.asarray(faces), dtype=torch.int64, device=dev)
+    out = rasterize_mesh(torch.as_tensor(np.asarray(verts, np.float32), device=dev), faces_t,
+                         cam, W, H)
+    rgb = interpolate_attribute(out, faces_t,
+                                torch.as_tensor(np.asarray(colors, np.float32), device=dev))
+    mask = (out.face_idx >= 0).float()[..., None]
+    rgb = rgb * mask + torch.as_tensor(bg, dtype=torch.float32, device=dev) * (1.0 - mask)
+    return rgb.cpu().numpy().astype(np.float32), mask.cpu().numpy()

@@ -31,8 +31,8 @@ static ``--train`` for 2 steps gives ``ckpts/step_00000002``; dynamic
 ``--train`` with ``system.weights`` of it gives ``ckpts/step_00000002``;
 ``resume=LAST`` with ``max_steps=3`` continues at step 2 from the saved state;
 ``--validate`` / ``--test`` write their images; ``Viewer4D.from_trial``
-renders what the experiment renders of that state; ``--export`` raises
-``NotImplementedError`` (ROADMAP A5); the shipped guidance path (not on disk)
+renders what the experiment renders of that state; ``--export`` writes one
+textured OBJ per frame with its ``timed_all`` vertices; the shipped guidance path (not on disk)
 raises ``FileNotFoundError``; ``system.weights`` of another mesh raises
 ``ValueError``; ``dynamic_mode: discrete`` trains; a JAX trial (orbax
 checkpoints) is refused with an error that says so.
@@ -59,8 +59,10 @@ from dreammesh4d_tpu.utils.checkpoint import save_checkpoint as j_save_checkpoin
 from dreammesh4d_tpu.utils.procedural import make_icosphere
 from dreammesh4d_tpu_torch import convert, launch
 from dreammesh4d_tpu_torch.config import load_config
-from dreammesh4d_tpu_torch.data.png import write_png
-from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import build_dynamic_static
+from dreammesh4d_tpu_torch.data.png import read_png, write_png
+from dreammesh4d_tpu_torch.data.temporal_image import frame_timestamps
+from dreammesh4d_tpu_torch.export.mesh_io import load_obj
+from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import build_dynamic_static, timed_all
 from dreammesh4d_tpu_torch.serving import Viewer4D
 from dreammesh4d_tpu_torch.systems import assembly
 from dreammesh4d_tpu_torch.utils.checkpoint import load_filtered, restore_checkpoint, save_checkpoint
@@ -361,8 +363,29 @@ def test_from_trial_renders_the_experiments_state(trials):
 
 
 def test_export_is_not_ported(trials):
-    with pytest.raises(NotImplementedError, match="A5"):
-        _launch(YAML, "export", trials["dyn"] + ["resume=LAST"])
+    """``--export resume=LAST``: one textured OBJ per timestamp sharing one
+    material, each frame's vertices those of ``timed_all`` at its timestamp
+    (small predict orbit and texture: 4 views at 32², 32² texels).  The name
+    is the one the test had while ``--export`` still raised."""
+    _launch(YAML, "export", trials["dyn"] + ["resume=LAST", "data.n_predict_views=4",
+                                             "data.predict_height=32", "data.predict_width=32",
+                                             "system.exporter.texture_size=32"])
+    out = trials["trial"] / "save" / "4d_export"
+    names = [f"frame_{i:03d}.obj" for i in range(8)]
+    assert sorted(os.listdir(out)) == names + ["material0.mtl", "material0.png"]
+    assert read_png(str(out / "material0.png")).shape == (32, 32, 3)
+    exp = assembly.build_experiment(load_config(YAML, cli_args=trials["dyn"]), device="cpu")
+    exp.load_state(restore_checkpoint(str(trials["trial"] / "ckpts" / "LAST")))
+    L = exp.data.video_length
+    with torch.no_grad():
+        _, vert = timed_all(exp.sugar_params, exp.state.deform_params, exp.dyn_cfg.deformation,
+                            exp.static, torch.as_tensor(frame_timestamps(L)),
+                            frame_indices=torch.arange(L))
+    for i, name in enumerate(names):
+        mesh = load_obj(str(out / name))
+        np.testing.assert_array_equal(mesh.t_pos_idx, exp.static.sugar.faces.numpy())
+        np.testing.assert_allclose(mesh.v_pos, vert.xyz[i].numpy(), rtol=0, atol=1e-6)
+        assert mesh.v_tex.shape == (3 * len(mesh.t_pos_idx), 2)
 
 
 def test_missing_guidance_checkpoint_raises(trials):
