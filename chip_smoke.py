@@ -19,11 +19,17 @@ Phases, each of which fails the run on a failed check:
    rays, 16 levels of 2^16 rows, and at odd sizes, one shared cell, points on
    cell faces, a level mask, single cotangents and a 2^8-row table; the
    (T, K)-table compositing (B6, ``table_fwd``) and its replay backward (B7,
-   ``table_bwd``) on the inputs the static refine scene's renders hand B6
-   (recorded during one evaluation render, C = 7, and one rgb-only
-   ``render_batch``, C = 4: 512², T = 1024, K = 2048), and at a tile at and one over capacity, empty
-   tiles, tiles that exit in their first group, one Gaussian over the whole
-   image and a row count that is no multiple of the group.  B1-B3 also write
+   ``table_bwd``; B1's and B2's bodies over the table read as segments, one
+   CTA per 16-px tile) on the inputs the static refine scene's
+   renders hand B6 (recorded during one evaluation render, C = 7, and one
+   rgb-only ``render_batch``, C = 4: 512², T = 1024, K = 2048), and at a tile
+   at and one over capacity, empty tiles, tiles that exit in their first
+   group, one Gaussian over the whole image, a row count that is no multiple
+   of the group, a block of tiles all over K (``saturated``) and an opaque
+   wall over the whole image that stops every tile after its first group
+   (``opaque_wall``); B6/B7 write each tile's walked entries, held to the
+   plain versions' ``walked_per_tile`` (and as many composited rows: they do
+   not cull), and the main view's walked distribution is printed.  B1-B3 also write
    the pair slots each quadrant CTA walked, which must equal the plain
    version's count for every tile, on every case, including an opaque wall
    over one quadrant of several tiles (``quadrant_wall``: the tile-wide exit
@@ -94,7 +100,9 @@ Phases, each of which fails the run on a failed check:
    zeroed before and read after.  Checks the checkpoint layout, the resumed
    start step, the B1/B2 launches of every step against the YAMLs' batches
    (static 5 + 5; dynamic 8 + 4: with the guidance off and the YAML's zero
-   TV weights the random views reach no loss), and one ``Viewer4D.from_trial``
+   TV weights the random views reach no loss); then the static YAML again
+   with ``system.renderer.backend=pallas max_tiles_per_gaussian=16`` for 4
+   steps, held to 5 B6 + 5 B7 launches a step; and one ``Viewer4D.from_trial``
    frame (one B1 launch) against the experiment's own render of the same
    state; prints ms/step beside the direct steps of phases 5 and 8, the
    seconds of setup (mesh, graph, frame decode), checkpoint save and load
@@ -104,7 +112,12 @@ Phases, each of which fails the run on a failed check:
     earlier versions of this script took it: B1-B3 one launch per event
     pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
     from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
-    and profiles of one render and one train step of each stage;
+    and profiles of one render and one train step of each stage; B6's main
+    views also through B1/B2's entries, which cull their rows
+    (``quadrant_kept_plain``); with ``--parent DIR`` (an unpacked parent
+    tree) B6/B7 on every table case and B1/B2 on the main views, launched
+    through that tree's wrappers and this one's in a process each, in the
+    order parent, this, this, parent (``compare_trees``);
 11. the recovery benchmark and the Gaussian stages' exports
     (``drive_recovery_and_export``): the ground truth of the recovery scene
     (``render_vertex_color_view``, the mesh rasterizer) on the card against
@@ -135,8 +148,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-# sources; resident_bwd holds B2 and B3, hashgrid_cell B4 and B5, table_blend B6 and B7
-KERNELS = ["resident_fwd", "resident_bwd", "hashgrid_cell", "table_blend"]
+# sources: resident_fwd holds B1 and B6, resident_bwd B2, B3 and B7, hashgrid_cell B4 and B5
+KERNELS = ["resident_fwd", "resident_bwd", "hashgrid_cell"]
 N_TIMED = 30
 RES = 512  # image side of every render
 MESH_LEVEL = 4  # icosphere subdivisions: 5120 faces x 6 = 30,720 Gaussians
@@ -213,22 +226,30 @@ def time_ms(torch, fn, n=N_TIMED, warmup=3, reps=1):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, key, n=N_TIMED):
+def device_ms(torch, fn, key, n=N_TIMED, required=True):
     """Device milliseconds per launch of the kernels whose name holds
     ``key`` over ``n`` calls of ``fn``, from ``torch.profiler``: no host
     time in it.  The profiler may drop a few records; the mean is over those
-    it kept."""
+    it kept, and a trace that kept none of them is taken again (twice at
+    most); no record, or more than ``n``, fails the run, or, where not
+    ``required``, gives None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if key in e.key]
-    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events)
-    count = sum(e.count for e in events)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if key in e.key]
+        total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events)
+        count = sum(e.count for e in events)
+        if count:
+            break
+        print(f"device time of {key}: the trace kept no record of {n} calls, taken again")
+    if not required and not 0 < count <= n:
+        return None
     check(0 < count <= n, f"device time of {key}: {count} kernel records for {n} calls")
     return total / 1e3 / count
 
@@ -1305,11 +1326,18 @@ def synthetic_table_inputs(torch, case, device, n_channels):
     rnd = lambda *s: torch.rand(s, generator=gen, device=device)  # noqa: E731
     full = lambda n, v: torch.full((n,), v, device=device)  # noqa: E731
     tiles, M = RES // 16, 16
+    depths = None
     if case == "capacity":  # 2048 faint splats inside one tile (at K), 3000 inside another (over)
         n = 5048
         corner = torch.tensor([[16.0, 16.0]] * 2048 + [[16.0 * (tiles - 3), 16.0 * (tiles // 2)]] * 3000,
                               device=device)
         means = corner + 5.0 + 6.0 * rnd(n, 2)  # radius 5: no pair leaves the tile
+        spread, op = full(n, 0.5), full(n, 0.005)
+    elif case == "saturated":  # 3000 faint splats inside each tile of a 2x2 block: all four over K, walked to K
+        n = 12000
+        quad = torch.arange(n, device=device) % 4
+        corner = 16.0 * torch.stack([8 + (quad & 1), 8 + (quad >> 1)], -1).float()
+        means = corner + 5.0 + 6.0 * rnd(n, 2)
         spread, op = full(n, 0.5), full(n, 0.005)
     elif case == "empty_tiles":  # a small cluster: most tiles hold nothing
         n = 200
@@ -1320,6 +1348,20 @@ def synthetic_table_inputs(torch, case, device, n_channels):
         means = 0.4 * RES + 0.2 * RES * rnd(n, 2)
         spread, op = full(n, 0.002), full(n, 0.99)
         M = tiles * tiles  # every tile the wall reaches holds all of it
+    elif case == "opaque_wall":  # every tile stops after its first group
+        # in front a grid of sharp wide disks every 16 px (sigma 16 px, op 50:
+        # alpha = 0.99 out to 45 px, ~24 of them over each pixel); behind,
+        # 60,000 splats, so that every tile (the corners too) holds more than
+        # one group
+        g = 8.0 + 16.0 * torch.arange(tiles, device=device, dtype=torch.float32)
+        wall = torch.stack(torch.meshgrid(g, g, indexing="xy"), -1).reshape(-1, 2)
+        n_wall, n_back = wall.shape[0], 60000
+        n = n_wall + n_back
+        means = torch.cat([wall, RES * rnd(n_back, 2)])
+        spread = torch.cat([full(n_wall, 1.0 / 256.0), full(n_back, 0.05)])
+        op = torch.cat([full(n_wall, 50.0), 0.2 + 0.7 * rnd(n_back)])
+        depths = torch.cat([0.5 + 0.1 * rnd(n_wall), 1.0 + 2.0 * rnd(n_back)])
+        M = 64
     elif case == "whole_image":  # one Gaussian reaching every pixel, over small splats
         n = 501
         means = torch.cat([full(1, RES / 2.0)[:, None].expand(1, 2), RES * rnd(n - 1, 2)])
@@ -1331,7 +1373,8 @@ def synthetic_table_inputs(torch, case, device, n_channels):
         means = RES * rnd(n, 2)
         spread, op = 0.01 + 0.05 * rnd(n), 0.2 + 0.7 * rnd(n)
     conics = torch.stack([spread, 0.1 * spread * (rnd(n) - 0.5), spread], -1)
-    depths = 1.0 + 2.0 * rnd(n)
+    if depths is None:
+        depths = 1.0 + 2.0 * rnd(n)
     radii = torch.ceil(3.0 / torch.sqrt(spread)).int()
     assign = bin_gaussians(means, radii, depths, torch.ones(n, dtype=torch.bool, device=device),
                            RES, RES, 2048, M, conics=conics, opacities=op)
@@ -1341,6 +1384,25 @@ def synthetic_table_inputs(torch, case, device, n_channels):
     return (rows, assign.tile_gauss, assign.tile_counts, tiles, 128, n_channels)
 
 
+def table_segment_args(tb, args):
+    """B6's inputs as pair segments, the reading B6/B7 and their plain
+    versions share (``table_blend._segments``: tile t's segment at t * K):
+    (rows, pairs, starts, counts, tiles_x, 16, K, group, C), as B1's wrapper
+    and ``check_walked`` take them."""
+    rows, tile_gauss, counts, tiles_x, group, C = args
+    pairs, starts, _ = tb._segments(tile_gauss, counts)
+    return (rows, pairs, starts.int(), counts, tiles_x, 16, tile_gauss.shape[1], group, C)
+
+
+def grad_group_errors(tb, g_k, g_p, C):
+    """B7's error against its plain version per column group (means, conic,
+    colours, opacity): [(group, max |d|, the group's max |plain|)]."""
+    groups = (("means", slice(0, 2)), ("conic", slice(2, 5)), ("colours", slice(5, 5 + C)),
+              ("opacity", slice(tb.OP_COL, tb.OP_COL + 1)))
+    return [(name, float((g_k[:, sl] - g_p[:, sl]).abs().max()), float(g_p[:, sl].abs().max()))
+            for name, sl in groups]
+
+
 def check_table(torch, tb, cases):
     """B6 and B7 against their plain versions.  Forward: every channel within
     TABLE_FWD_TOL = 1e-5 — the live tests decide on bit-equal conic
@@ -1348,31 +1410,37 @@ def check_table(torch, tb, cases):
     Backward, on a seeded random cotangent: per column group (means, conic,
     colours, opacity) within GRAD_TOL = 1e-4 of the group's max |value| in
     the plain result, as for B2 (atomics in a run-dependent order against
-    ``index_add_``).  Returns the worst errors and the work of each case."""
-    groups = lambda C: (("means", slice(0, 2)), ("conic", slice(2, 5)),  # noqa: E731
-                        ("colours", slice(5, 5 + C)), ("opacity", slice(tb.OP_COL, tb.OP_COL + 1)))
+    ``index_add_``).  Both kernels' walked entries per tile must equal the
+    plain versions', and so must the rows they composited of those (they do
+    not cull).  Returns the worst errors and the work of each case."""
     worst = {"fwd_abs": 0.0, "bwd_rel": 0.0, "bwd_abs": 0.0}
     work = {}
     for name, args in cases.items():
         rows, tile_gauss, counts, tiles_x, group, C = args
         stats_f, stats_b = {}, {}
-        out_k = tb.blend_table_cuda(*args)
+        walked = {k: new_walked(torch, args) for k in ("B6", "B7")}
+        out_k = tb.blend_table_cuda(*args, walked=walked["B6"])
         out_p = tb.blend_table_plain(*args, stats=stats_f)
         torch.cuda.synchronize()
         check(torch.isfinite(out_k).all(), f"B6 {name}: non-finite kernel output")
         err = float((out_k - out_p).abs().max())
         gen = torch.Generator(device=rows.device).manual_seed(5)
         cot = torch.randn(out_p.shape, generator=gen, device=rows.device)
-        g_k = tb.blend_table_bwd_cuda(rows, tile_gauss, counts, out_p, cot, tiles_x, group, C)
+        g_k = tb.blend_table_bwd_cuda(rows, tile_gauss, counts, out_p, cot, tiles_x, group, C,
+                                      walked=walked["B7"])
         g_p = tb.blend_table_bwd_plain(rows, tile_gauss, counts, out_p, cot, tiles_x, group, C,
                                        stats=stats_b)
         torch.cuda.synchronize()
         check(torch.isfinite(g_k).all(), f"B7 {name}: non-finite kernel output")
         check(float(g_k[-1].abs().max()) == 0.0, f"B7 {name}: the sentinel row got a gradient")
+        check(same_work(stats_f, stats_b), f"B6/B7 {name}: the replay walked other entries than the forward")
+        ref = stats_f["walked_per_tile"].to(rows.device)
+        for kernel, w in walked.items():
+            bad = int((w[:, :, 0].long() != ref).any(0).sum())
+            check(bad == 0, f"{kernel} {name} C={C}: the walked or composited entries of {bad} tiles differ "
+                  f"from the plain version's walked_per_tile")
         line = []
-        for gname, sl in groups(C):
-            scale = float(g_p[:, sl].abs().max())
-            g_err = float((g_k[:, sl] - g_p[:, sl]).abs().max())
+        for gname, g_err, scale in grad_group_errors(tb, g_k, g_p, C):
             check(g_err <= GRAD_TOL * scale,
                   f"B7 {name} C={C} {gname}: |d| {g_err:.3g} > {GRAD_TOL} x {scale:.3g}")
             worst["bwd_rel"] = max(worst["bwd_rel"], g_err / max(scale, 1e-30))
@@ -1383,13 +1451,20 @@ def check_table(torch, tb, cases):
         print(f"B6/B7 {name} C={C}: tiles {raw.numel()}, entries {int(torch.clamp(raw, max=K).sum())}, "
               f"largest count {int(raw.max())} (K {K}; at K {int((raw == K).sum())}, over "
               f"{int((raw > K).sum())}), empty tiles {int((raw == 0).sum())}, entries walked "
-              f"{stats_f['pairs_read']}; B6 max|d| {err:.3g} (limit {TABLE_FWD_TOL}); B7 |d| / group "
-              f"max (limit {GRAD_TOL}): " + "; ".join(line))
+              f"{stats_f['pairs_read']} (B6's and B7's = the plain versions' per tile); B6 max|d| {err:.3g} (limit "
+              f"{TABLE_FWD_TOL}); B7 |d| / group max (limit {GRAD_TOL}): " + "; ".join(line))
         check(err <= TABLE_FWD_TOL, f"B6 {name} C={C}: kernel vs plain {err:.3g} > {TABLE_FWD_TOL}")
-        check(same_work(stats_f, stats_b), f"B6/B7 {name}: the replay walked other entries than the forward")
         worst["fwd_abs"] = max(worst["fwd_abs"], err)
         work[name] = stats_f
     return worst, work
+
+
+def walked_distribution(stats):
+    """The entries each tile walked, summarised: max, mean, 99th percentile
+    and the densest tile's share of all walked entries."""
+    w = stats["walked_per_tile"].double()
+    return {"max": int(w.max()), "mean": float(w.mean()), "p99": float(w.quantile(0.99)),
+            "densest_share": float(w.max() / w.sum().clamp(min=1.0))}
 
 
 def table_bounds(args, stats, backward):
@@ -1692,6 +1767,37 @@ def drive_launcher(torch, np, rb, tb, card, video, device, tmp):
               f"-> step {rows[-1][1]} {rows[-1][5]['loss_total']:.6g}")
     check(dyn_exp.state.step == LAUNCH_RESUMED_STEPS, "the last experiment is not at the last step")
 
+    # the static YAML again on backend: pallas (B6/B7; 16 tiles a Gaussian at 16 px)
+    table_run = [x for x in static if not x.startswith("tag=")] + [
+        "tag=static_pallas", "system.renderer.backend=pallas",
+        f"system.renderer.max_tiles_per_gaussian={STATIC_M}"]
+    table_spans = Spans(torch, counts)
+    table_spans.train_steps(assembly.SugarStaticExperiment, "static_pallas")
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    try:
+        launch.main(launch.make_args(static_yaml, "train"), table_run)
+    finally:
+        table_spans.close()
+    torch.cuda.synchronize()
+    res["table_launches"] = {k: v for k, v in counts().items() if v}
+    want = {"table_fwd": views["static"], "table_bwd": views["static"]}
+    rows = table_spans.steps
+    check([s[1] for s in rows] == list(range(LAUNCH_STEPS)), "static on pallas: steps taken")
+    for _, step, _, _, launched, metrics in rows:
+        got = {k: v for k, v in launched.items() if v}
+        check(got == want, f"static on pallas, step {step}: launches {got} != {want}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"static on pallas, step {step}: non-finite metric")
+    check(not any(k.startswith("resident") for k in res["table_launches"]),
+          "the launcher run on backend pallas launched a resident kernel")
+    ms = [r[3] for r in rows]
+    res["static_pallas_ms"] = statistics.median(ms[1:])
+    print(f"[{card}] launcher static train_step on backend pallas ({json.dumps(want)} per step): "
+          f"{res['static_pallas_ms']:.2f} ms/step (median without the first step; all: "
+          f"{', '.join(f'{x:.1f}' for x in ms)}) beside {res['static_ms']:.2f} on pallas_resident; the run's "
+          f"launches (steps, validation, test) {json.dumps(res['table_launches'])}; loss_total step 0 "
+          f"{rows[0][5]['loss_total']:.6g} -> step {rows[-1][1]} {rows[-1][5]['loss_total']:.6g}")
+
     # Viewer4D.from_trial against the experiment's own render of that state
     viewer = Viewer4D.from_trial(dyn_trial, device=device)
     rb.reset_launch_counts()
@@ -1897,6 +2003,78 @@ def fmt_s(xs):
     return ", ".join(f"{x:.3f}" for x in xs)
 
 
+def time_kernels(torch, rb, tb, path):
+    """``--time-kernels TREE FILE``, which ``compare_trees`` runs in a
+    process of its own: device time (``device_ms``; None where the profiler
+    kept no record) and CUDA-event time (ten launches a pair) of B6/B7 on
+    every table case in FILE (C = 7 and 4) and of B1 (C = 7) and B2 (C = 4
+    and 7) on its pair main views, launched through the wrappers of TREE's
+    package with the arguments every tree's wrappers take.  B6 and B7 are
+    held to that package's plain versions first, as in ``check_table``.
+    Prints {"kernel C=.. case": [device ms, ms]} as its last line."""
+    saved = torch.load(path)
+    res = {}
+
+    def timed(kernel, C, case, run):
+        res[f"{kernel} C={C} {case}"] = [device_ms(torch, run, f"{kernel}_kernel", required=False),
+                                         time_ms(torch, run, reps=10)]
+
+    for C, cases in saved["tables"].items():
+        for case, a in cases.items():
+            rows, tile_gauss, counts, tiles_x, group, _ = a
+            out = tb.blend_table_plain(*a)
+            err = float((tb.blend_table_cuda(*a) - out).abs().max())
+            check(err <= TABLE_FWD_TOL, f"B6 {case} C={C}: kernel vs plain {err:.3g} > {TABLE_FWD_TOL}")
+            cot = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(5),
+                              device=out.device)
+            bwd = lambda: tb.blend_table_bwd_cuda(rows, tile_gauss, counts, out, cot, tiles_x, group, C)  # noqa: E731
+            g_p = tb.blend_table_bwd_plain(rows, tile_gauss, counts, out, cot, tiles_x, group, C)
+            for gname, g_err, scale in grad_group_errors(tb, bwd(), g_p, C):
+                check(g_err <= GRAD_TOL * scale, f"B7 {case} C={C} {gname}: |d| {g_err:.3g} > {GRAD_TOL} x {scale:.3g}")
+            timed("table_fwd", C, case, lambda: tb.blend_table_cuda(*a))
+            timed("table_bwd", C, case, bwd)
+    for C, a in saved["pairs"].items():
+        out = rb.blend_pairs_cuda(*a)
+        cot = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(5), device=out.device)
+        if C == 7:  # B1 serves C = 7
+            timed("resident_fwd", C, "main_view", lambda: rb.blend_pairs_cuda(*a))
+        timed("resident_bwd", C, "main_view", lambda: rb.blend_pairs_bwd_cuda(*a[:4], out, cot, *a[4:]))
+    print(json.dumps(res))
+
+
+def compare_trees(torch, table_cases, pair_views, parent, card):
+    """``--parent DIR``: the kernels of an unpacked parent tree (``git
+    archive``) against this tree's on the same inputs, each tree's through
+    its own wrappers in a process of its own (``time_kernels``), in the
+    order parent, this, this, parent.  Prints every kernel's readings and
+    returns {"kernel C=.. case": {"parent": [[device ms, ms], ..], "this":
+    ..}}."""
+    parent = os.path.abspath(parent)
+    check(os.path.isfile(os.path.join(parent, "dreammesh4d_tpu_torch", "ops", "gs", "table_blend.py")),
+          f"--parent {parent}: no port there")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "cases.pt")
+    torch.save({"tables": table_cases, "pairs": pair_views}, path)
+    results = {}
+    for label, tree in (("parent", parent), ("this", REPO), ("this", REPO), ("parent", parent)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", tree, path],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"--time-kernels {tree} exited {proc.returncode}:\n"
+              f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        for key, reading in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            results.setdefault(key, {}).setdefault(label, []).append(reading)
+        print(f"[{card}] kernels of {label} ({tree}) timed in {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
+    fmt = lambda xs: ", ".join("not measured" if x is None else f"{x:.4f}" for x in xs)  # noqa: E731
+    for key, r in results.items():
+        print(f"[{card}] {key}: " + "; ".join(
+            f"{label} device {fmt([x[0] for x in xs])} ms, events {fmt([x[1] for x in xs])} ms"
+            for label, xs in r.items()))
+    print("tree comparison: " + json.dumps(results))
+    return results
+
+
 def kernel_bounds(args, stats, table_rows, per_pair):
     """The least time the card could take for one backward launch on these
     inputs: bytes (rows, pairs, starts, counts, out and cotangent read once,
@@ -1918,6 +2096,14 @@ def kernel_bounds(args, stats, table_rows, per_pair):
 
 
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
+    parser.add_argument("--parent", metavar="DIR", help="an unpacked parent tree: time its B1/B2/B6/B7 "
+                        "against this tree's in phase 10 (compare_trees)")
+    parser.add_argument("--time-kernels", nargs=2, metavar=("TREE", "FILE"),
+                        help="only time TREE's kernels on the inputs in FILE (time_kernels)")
+    opts = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -1926,7 +2112,13 @@ def main():
         fail("no CUDA device: this smoke test runs only on a GPU")
     import numpy as np
 
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, opts.time_kernels[0] if opts.time_kernels else REPO)
+    if opts.time_kernels:
+        from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
+        from dreammesh4d_tpu_torch.ops.gs import table_blend as tb
+
+        time_kernels(torch, rb, tb, opts.time_kernels[1])
+        return
     try:
         from dreammesh4d_tpu_torch import cuda_build
         from dreammesh4d_tpu_torch.ops import hashgrid_cell as hc
@@ -2007,7 +2199,8 @@ def main():
     for C in (7, 4):
         table_cases[C] = {"main_view": main_views[C][0]}
         check(main_views[C][0][-1] == C, f"the captured main-view blend has {main_views[C][0][-1]} channels, not {C}")
-        for case in ("capacity", "empty_tiles", "first_group_exit", "whole_image", "rows_1001"):
+        for case in ("capacity", "saturated", "empty_tiles", "first_group_exit", "opaque_wall", "whole_image",
+                     "rows_1001"):
             table_cases[C][case] = synthetic_table_inputs(torch, case, dev, C)
     print(f"static scene, reference view, backend pallas: {json.dumps(report)} (largest tile count "
           f"against K; Gaussians whose tile span exceeds 16 tiles of 16 px, and 6 of 32 px)")
@@ -2018,6 +2211,15 @@ def main():
     cap_counts = table_cases[7]["capacity"][2]
     check(int((cap_counts == 2048).sum()) >= 1 and int((cap_counts > 2048).sum()) >= 1,
           "the capacity case has no tile at K and none over it")
+    sat_over = table_cases[7]["saturated"][2] > 2048
+    check(int(sat_over.sum()) >= 4 and bool((table_work[7]["saturated"]["walked_per_tile"][sat_over] == 2048).all()),
+          "the saturated case has fewer than 4 tiles over K, or one stopped before K")
+    wall_counts, wall_walked = table_cases[7]["opaque_wall"][2], table_work[7]["opaque_wall"]["walked_per_tile"]
+    check(bool((wall_counts > 128).all()) and bool((wall_walked == 128).all()),
+          "opaque_wall: a tile holds one group or less, or did not stop after its first group")
+    walked_dist = {C: walked_distribution(table_work[C]["main_view"]) for C in (7, 4)}
+    print(f"B6/B7 main view, entries walked per tile (T {table_cases[7]['main_view'][1].shape[0]}): "
+          f"C=7 {json.dumps(walked_dist[7])}, C=4 {json.dumps(walked_dist[4])}")
     check(int((table_cases[7]["empty_tiles"][2] == 0).sum()) >= 1, "the empty-tile case has no empty tile")
     wall = table_cases[7]["first_group_exit"]
     check(table_work[7]["first_group_exit"]["pairs_read"] < int(torch.clamp(wall[2], max=2048).sum()),
@@ -2089,7 +2291,8 @@ def main():
     launch_tmp = tempfile.TemporaryDirectory()  # phase 11 exports the trials
     launcher = drive_launcher(torch, np, rb, tb, card, video, dev, launch_tmp.name)
     print(f"[{card}] launcher ms/step: static {launcher['static_ms']:.2f} (direct make_static_train_step "
-          f"on pallas_resident, phase 8: {static_res['pallas_resident']['ms']:.2f}); dynamic "
+          f"on pallas_resident, phase 8: {static_res['pallas_resident']['ms']:.2f}); static on pallas "
+          f"{launcher['static_pallas_ms']:.2f} (direct, phase 8: {static_res['pallas']['ms']:.2f}); dynamic "
           f"{launcher['dynamic_ms']:.2f} (direct make_dynamic_train_step with guidance_fn=None, phase 5: "
           f"{bare_step_ms:.2f})")
     del video
@@ -2198,6 +2401,27 @@ def main():
                   f"{table_work[C]['main_view']['pairs_read']} entries walked): {ms:.4f} ms, "
                   f"{table_dev[kernel, C]:.4f} ms device time (plain "
                   f"{p_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nb} B, {no} ops)")
+    # the cull, measured: B6's main views through B1's and B2's entries, the
+    # same bodies with the box cull on (and the compiler's unroll)
+    for C in (7, 4):
+        a = table_cases[C]["main_view"]
+        seg = table_segment_args(tb, a)
+        walked = new_walked(torch, seg)
+        out = rb.blend_pairs_cuda(*seg, walked=walked)
+        err = float((out - tb.blend_table_plain(*a)).abs().max())
+        check(err <= TABLE_FWD_TOL, f"B1 over B6's main view C={C}: kernel vs plain {err:.3g} > {TABLE_FWD_TOL}")
+        box_kept = check_walked(torch, rb, "B1", f"over B6's main view C={C}", walked,
+                                table_work[C]["main_view"], seg)
+        cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        culled = {"B1": device_ms(torch, lambda: rb.blend_pairs_cuda(*seg), "resident_fwd_kernel"),
+                  "B2": device_ms(torch, lambda: rb.blend_pairs_bwd_cuda(*seg[:4], out, cot, *seg[4:]),
+                                  "resident_bwd_kernel")}
+        print(f"[{card}] B6's main view C={C} through B1/B2 (box cull on; kept {box_kept:.4f} of the walked "
+              f"entries, = quadrant_kept_plain per tile): device time B1 {culled['B1']:.4f} ms, B2 "
+              f"{culled['B2']:.4f} ms, beside B6 {table_dev['table_fwd', C]:.4f} ms, B7 "
+              f"{table_dev['table_bwd', C]:.4f} ms without the cull")
+    if opts.parent:
+        compare_trees(torch, table_cases, {C: cases[C]["main_view"] for C in (7, 4)}, opts.parent, card)
     for label, r in static_res.items():
         print(f"[{card}] static refine step on {label} (1 + {STATIC_RAND_VIEWS} views at {RES}x{RES}): "
               f"{r['ms']:.2f} ms/step, peak memory {r['peak']:.2f} GiB")
@@ -2215,8 +2439,8 @@ def main():
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"
-    table_src = "dreammesh4d_tpu_torch/csrc/table_blend.cu"
     static_table = static_res["pallas"]["launches"]
+    table_launcher = launcher["table_launches"]
     static_resident = static_res["pallas_resident"]["launches"]
     b2, b3 = bwd["resident_bwd_accum", 4], bwd["resident_bwd_pairs", 4]
     print(json.dumps({"kernels": [
@@ -2259,15 +2483,19 @@ def main():
               hg_err["bwd_abs"], *hg_ms["hashgrid_cell_bwd"], *hg_bound["hashgrid_cell_bwd"][:2],
               max_rel_err=hg_err["bwd_rel"], ms_g_feats_only=bwd_feats_only_ms,
               device_ms=hg_dev["hashgrid_cell_bwd"]),
-        entry("table_fwd", "B6", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:286",
-              "ops/gs/pallas_blend.py::_fwd_kernel", static_table["table_fwd"] + serving_table["table_fwd"],
+        entry("table_fwd", "B6", "dreammesh4d_tpu_torch/csrc/resident_fwd.cu",
+              "dreammesh4d_tpu/ops/gs/pallas_blend.py:286", "ops/gs/pallas_blend.py::_fwd_kernel",
+              static_table["table_fwd"] + serving_table["table_fwd"],
               table_err["fwd_abs"], *table_ms["table_fwd", 7], n_channels=7,
               launches_static=static_table["table_fwd"], launches_serving=serving_table["table_fwd"],
+              launches_launcher=table_launcher.get("table_fwd", 0),
               ms_c4=table_ms["table_fwd", 4][0], device_ms=table_dev["table_fwd", 7],
-              device_ms_c4=table_dev["table_fwd", 4]),
-        entry("table_bwd", "B7", table_src, "dreammesh4d_tpu/ops/gs/pallas_blend.py:316",
-              "ops/gs/pallas_blend.py::_bwd_kernel", static_table["table_bwd"], table_err["bwd_abs"],
+              device_ms_c4=table_dev["table_fwd", 4], walked_per_tile=walked_dist[7]),
+        entry("table_bwd", "B7", "dreammesh4d_tpu_torch/csrc/resident_bwd.cu",
+              "dreammesh4d_tpu/ops/gs/pallas_blend.py:316", "ops/gs/pallas_blend.py::_bwd_kernel",
+              static_table["table_bwd"], table_err["bwd_abs"],
               *table_ms["table_bwd", 7], max_rel_err=table_err["bwd_rel"], n_channels=7,
+              launches_static=static_table["table_bwd"], launches_launcher=table_launcher.get("table_bwd", 0),
               ms_c4=table_ms["table_bwd", 4][0], device_ms=table_dev["table_bwd", 7],
               device_ms_c4=table_dev["table_bwd", 4]),
     ]}))

@@ -1,9 +1,9 @@
-// The per-pixel compositing rules that the forward and replay-backward
-// kernels share: resident_fwd.cu (B1), resident_bwd.cu (B2/B3, both through
-// cluster_blend.cuh) and table_blend.cu (B6/B7) include this header, so the
-// row layout, the constants, the live test and one entry's forward and
-// replay step exist once, and every backend decides the -4.5 and 1/255 edges
-// alike.  The row staging and block reduction below serve B6/B7.
+// The per-pixel compositing rules of the forward and replay-backward
+// kernels: resident_fwd.cu (B1, and B6 over the (T, K) table) and
+// resident_bwd.cu (B2/B3, and B7) include this header through
+// cluster_blend.cuh, so the row layout, the constants, the live test and one
+// entry's forward and replay step exist once, and every backend decides the
+// -4.5 and 1/255 edges alike.
 //
 // Row layout (N+1, 16) f32: [mx, my, ca, cb, cc, c_0..c_{C-1}, 0.., op@14, 0];
 // row N is a zero sentinel.  Per entry at pixel (px, py), no +0.5:
@@ -34,7 +34,6 @@ constexpr int kRow = 16;
 constexpr int kOpCol = 14;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;  // backward: entries staged and reduced together
 constexpr int kMaxGroup = 512;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
@@ -42,17 +41,6 @@ constexpr float kTEps = 1e-4f;
 
 // Every kernel that includes this header launches blocks of kThreads
 // threads; the compile-time stride lets nvcc unroll the block-wide loops.
-
-// Copies the rows of entries ids[0..n) into shared memory, one float4 per
-// thread and step; `sidx`, where given, keeps the ids.
-__device__ __forceinline__ void stage_rows(float4* dst, int* sidx, const float4* __restrict__ rows,
-                                           const int* __restrict__ ids, int n) {
-  for (int i = threadIdx.x; i < n * (kRow / 4); i += kThreads) {
-    const int idx = ids[i >> 2];
-    if (sidx != nullptr && (i & 3) == 0) sidx[i >> 2] = idx;
-    dst[i] = rows[static_cast<size_t>(idx) * (kRow / 4) + (i & 3)];
-  }
-}
 
 // One staged row r at one pixel.
 struct Hit {
@@ -126,77 +114,6 @@ __device__ __forceinline__ void replay(const float* r, const Hit& h, const float
   s.sxy += t1 * h.dy;
   s.syy += t2 * h.dy;
   trans *= (1.0f - h.alpha);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared memory of the block reduction: each warp's partial row of each
-// staged entry, and whether the warp composited the entry at all.
-struct Partials {
-  float row[kWarps][kChunk][kRow];
-  unsigned char flag[kWarps][kChunk];
-};
-
-// Warp half of the reduction of staged entry j: a warp none of whose pixels
-// composites the entry adds nothing; otherwise its lanes' sums become one
-// partial gradient row.  Every lane of the warp calls it.
-template <int C>
-__device__ __forceinline__ void warp_partial(const float* r, bool any_live, Sums<C>& s,
-                                             Partials& part, int j) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  // read before the stores into `part`, which the compiler cannot tell apart
-  // from the staged row: the values stay those `evaluate` already loaded
-  const float ca = r[2], cb = r[3], cc = r[4], op = r[kOpCol];
-  const bool warp_live = __any_sync(0xffffffffu, any_live);
-  if (warp_live) {
-    s.s0 = warp_sum(s.s0);
-    s.sx = warp_sum(s.sx);
-    s.sy = warp_sum(s.sy);
-    s.sxx = warp_sum(s.sxx);
-    s.sxy = warp_sum(s.sxy);
-    s.syy = warp_sum(s.syy);
-#pragma unroll
-    for (int c = 0; c < C; ++c) s.dcol[c] = warp_sum(s.dcol[c]);
-    if (lane == 0) {
-      float* pr = part.row[warp][j];
-      pr[0] = -(ca * s.sx + cb * s.sy);
-      pr[1] = -(cc * s.sy + cb * s.sx);
-      pr[2] = -0.5f * s.sxx;
-      pr[3] = -s.sxy;
-      pr[4] = -0.5f * s.syy;
-#pragma unroll
-      for (int c = 0; c < C; ++c) pr[5 + c] = s.dcol[c];
-      pr[kOpCol] = s.s0 / fmaxf(op, 1e-12f);
-    }
-  }
-  if (lane == 0) part.flag[warp][j] = warp_live ? 1 : 0;
-}
-
-// Block half, after a barrier: sums the warps' partial rows of the n staged
-// entries and hands every column of an entry some warp composited to
-// store(j, c, v); the structurally zero columns are skipped.
-template <int C, class Store>
-__device__ __forceinline__ void emit_rows(const Partials& part, int n, Store store) {
-  for (int i = threadIdx.x; i < n * kRow; i += kThreads) {
-    const int j = i >> 4;
-    const int c = i & (kRow - 1);
-    if (c >= 5 + C && c != kOpCol) continue;
-    float v = 0.0f;
-    bool any = false;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (part.flag[w][j]) {
-        v += part.row[w][j][c];
-        any = true;
-      }
-    }
-    if (any) store(j, c, v);
-  }
 }
 
 }  // namespace blend

@@ -1,15 +1,21 @@
-// The parts of the resident compositing kernels (resident_fwd.cu B1,
-// resident_bwd.cu B2/B3) that split a screen tile over a cluster of CTAs
-// (Hopper, sm_90a).  Everything a pixel computes (the live test, the forward
-// and replay steps) stays in blend_common.cuh.
+// The parts of the compositing kernels (resident_fwd.cu B1 and B6,
+// resident_bwd.cu B2/B3 and B7) that split a screen tile over a cluster of
+// CTAs (Hopper, sm_90a).  Everything a pixel computes (the live test, the
+// forward and replay steps) stays in blend_common.cuh.
+//
+// A tile's entries are a segment of an index array, front to back: B1-B3
+// read depth-sorted pair segments (pairs + starts[t]); B6/B7 read the dense
+// (T, K) table of backend: pallas as segments of cap = K entries at t * K
+// (starts null), on 16-px tiles, one CTA each.
 //
 // A tile of side <= 32 is cut into 16x16 quadrants, one CTA of 256 threads
-// each, one pixel per thread; the tile's CTAs form one thread block cluster
-// (4 CTAs, or 1 when tile <= 16).  What the cluster shares is the exit
-// vote: before each group every CTA stores its __syncthreads_or in shared
-// memory, the cluster synchronises and every CTA reads all the flags through
-// distributed shared memory, so the whole tile stops before the same group,
-// as the plain version and the TPU kernel do.  What a CTA does alone: it
+// each, one pixel per thread; the four CTAs of a 32-px tile form one thread
+// block cluster (a tile <= 16 px is one CTA, launched without a cluster,
+// whose vote is its own __syncthreads_or).  What the cluster shares is the
+// exit vote: before each group every CTA stores its __syncthreads_or in
+// shared memory, the cluster synchronises and every CTA reads all the flags
+// through distributed shared memory, so the whole tile stops before the same
+// group, as the plain version and the TPU kernel do.  What a CTA does alone: it
 // stages the group's rows with cp.async (the next group while the current
 // one composites), lists only the rows that can be live at one of its pixels
 // (row_box + box_meets), in their order, and (backward) sums its pixels'
@@ -43,6 +49,35 @@ constexpr float kCullDetRel = 1e-4f;
 
 __host__ __device__ constexpr int quads_of(int tile) { return tile > kQuad ? kMaxQuads : 1; }
 
+// B6/B7 composite every staged row, without cull_rows: at 16-px tiles
+// bin_gaussians already drops every (Gaussian, tile) pair that composites no
+// pixel of the tile (binning.py _tile_cull), so the box cull would keep
+// nearly every row and only cost its two barriers a group.  They unroll
+// their walk over a group's rows by 4: the rows' live tests are independent,
+// and a dense tile's CTA, often alone on its SM at the end of the launch,
+// has no other warps to hide their latency (-5 to -20 % on the H100; B1-B3
+// keep the compiler's choice; PERF.md has the times).
+constexpr int kTableUnroll = 4;
+
+// step(i) for i in [0, n), unrolled by UNROLL, or as the compiler chooses
+// where UNROLL is 0.
+template <int UNROLL, class Step>
+__device__ __forceinline__ void walk_rows(int n, Step step) {
+  if constexpr (UNROLL > 0) {
+#pragma unroll (UNROLL > 0 ? UNROLL : 1)
+    for (int i = 0; i < n; ++i) step(i);
+  } else {
+    for (int i = 0; i < n; ++i) step(i);
+  }
+}
+
+// The first entry of tile t's segment: pairs + starts[t], or, where starts
+// is null, row t of a (T, cap) table.
+__device__ __forceinline__ const int* segment(const int* pairs, const int* starts, int t, int cap) {
+  return pairs + (starts != nullptr ? static_cast<size_t>(starts[t])
+                                    : static_cast<size_t>(t) * static_cast<size_t>(cap));
+}
+
 // This CTA's quadrant of its tile and this thread's pixel in it; a warp
 // holds 8x4 pixels (warps 2 across, 4 down), so that fewer warps than with
 // 16x2 strips see a small Gaussian and run its reduction.
@@ -62,7 +97,7 @@ static_assert(kQuad % kWarpW == 0 && (kQuad / kWarpW) * (kQuad / kWarpH) == kWar
 
 __device__ __forceinline__ Quadrant quadrant(int nq, int tiles_x, int tile) {
   Quadrant q;
-  q.rank = static_cast<int>(cg::this_cluster().block_rank());
+  q.rank = nq > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   q.t = blockIdx.x / nq;
   const int qx = (q.rank & 1) * kQuad;
   const int qy = (q.rank >> 1) * kQuad;
@@ -89,8 +124,9 @@ __device__ __forceinline__ Quadrant quadrant(int nq, int tiles_x, int tile) {
 // has transmittance > kTEps.  `vote` is a 2-slot shared array; slot `parity`
 // alternates by group, so a CTA that is already a group ahead never
 // overwrites a flag another CTA has yet to read.  A barrier for the CTA and
-// the cluster.
+// the cluster; a tile of one CTA votes with its __syncthreads_or alone.
 __device__ __forceinline__ bool tile_alive(int* vote, int parity, bool alive, int nq) {
+  if (nq == 1) return __syncthreads_or(alive) != 0;
   cg::cluster_group cluster = cg::this_cluster();
   const int any = __syncthreads_or(alive);
   if (threadIdx.x == 0) vote[parity] = any;
@@ -288,8 +324,9 @@ __device__ __forceinline__ float gradient_column(const float* R, const float* r,
 }
 
 // Host: launches `kernel` on n_tiles * quads_of(tile) CTAs of kThreads
-// threads in clusters of quads_of(tile), with `smem` bytes of dynamic shared
-// memory (the limit raised past the default 48 KB where needed).  Returns
+// threads in clusters of quads_of(tile) (none where that is one), with `smem`
+// bytes of dynamic shared memory (the limit raised past the default 48 KB
+// where needed).  Returns
 // the first CUDA error, also a refused cluster launch.
 template <class... Expected, class... Actual>
 cudaError_t launch_clusters(void (*kernel)(Expected...), int n_tiles, int tile, size_t smem,
@@ -312,7 +349,7 @@ cudaError_t launch_clusters(void (*kernel)(Expected...), int n_tiles, int tile, 
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = nq > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Actual>(args)...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }

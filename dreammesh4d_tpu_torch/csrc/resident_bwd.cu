@@ -1,11 +1,15 @@
 // Replay backward of the per-tile alpha compositing (Hopper, sm_90a): one
-// cluster of CTAs per screen tile, two entry points that differ only in
-// where a pair's 16-wide gradient row goes.
+// cluster of CTAs per screen tile, three entry points over one body that
+// differ in where a tile's entries come from and where an entry's 16-wide
+// gradient row goes.
 //
 // Replaces: dreammesh4d_tpu/ops/gs/pallas_resident.py::_bwd_kernel_accum
-// (entry resident_bwd_accum: rows summed per Gaussian into an (N+1, 16)
-// table) and ::_bwd_kernel (entry resident_bwd_pairs: rows written per pair
-// slot into (T, cap, 16), reduced per Gaussian outside).  Same function, not
+// (entry resident_bwd_accum, B2: rows summed per Gaussian into an (N+1, 16)
+// table) and ::_bwd_kernel (entry resident_bwd_pairs, B3: rows written per
+// pair slot into (T, cap, 16), reduced per Gaussian outside), and
+// dreammesh4d_tpu/ops/gs/pallas_blend.py::_bwd_kernel with the per-Gaussian
+// scatter-add of _blend_bwd_rule that follows it (entry table_bwd, B7: B2
+// over the (T, K) table of backend: pallas, 16-px tiles).  Same function, not
 // the same layout: the TPU kernels form the running transmittance and the
 // prefix sums of a 128-pair group with triangular bf16 matmuls and
 // read-modify-write a VMEM table, which is legal there because the TPU grid
@@ -19,6 +23,7 @@
 // Inputs
 //   rows   (N+1, 16) f32  [mx, my, ca, cb, cc, c_0..c_{C-1}, 0.., op@14, 0]
 //   pairs  (NM,) i32, starts/counts (T,) i32: per-tile segments, front to back
+//          (table_bwd: tile_gauss (T, K) i32, tile t's segment at t * K)
 //   out    (T, C+1, tile*tile) f32: the forward's output (colours, final T)
 //   cot    (T, C+1, tile*tile) f32: its cotangent
 // Outputs
@@ -38,10 +43,12 @@
 // outputs are a few tens of MB, ~10 us at 3.35 TB/s).  Design
 // (cluster_blend.cuh): four 16x16 quadrant CTAs per 32-px tile, one pixel
 // per thread; a CTA replays only the staged rows that can be live in its
-// quadrant, while the next group's rows arrive by cp.async.  A warp with a
-// live pixel reduces its 6 + C sums of a row in 16 shuffles (a transposed
-// butterfly that leaves column c on lane c) and its lanes add them into the
-// CTA's raw row of that pair in shared memory; after the group each CTA
+// quadrant (B7, one CTA per 16-px tile: every staged row, in a
+// walk unrolled by kTableUnroll, as B6), while the next
+// group's rows arrive by cp.async.  A warp with a live pixel reduces its
+// 6 + C sums of a row in 16 shuffles (a transposed butterfly that leaves
+// column c on lane c) and its lanes add them into the CTA's raw row of that
+// pair in shared memory; after the group each CTA
 // forms the conic and opacity columns of its rows and adds them to the
 // table, so a per-pair slot of resident_bwd_pairs too gets up to four adds
 // in no fixed order and its bits may differ by rounding from run to run.
@@ -60,13 +67,17 @@ __host__ __device__ constexpr size_t smem_bytes(int group) {
   return static_cast<size_t>(group) * (3 * kRow * sizeof(float) + sizeof(int));
 }
 
-template <int C, bool PER_PAIR>
-__global__ void __launch_bounds__(kThreads)
-resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pairs,
-                    const int* __restrict__ starts, const int* __restrict__ counts,
-                    const float* __restrict__ out, const float* __restrict__ cot,
-                    float* __restrict__ grads, int* __restrict__ walked, int nq, int tiles_x,
-                    int tile, int cap, int group) {
+// The body of the kernels; CULL: replay only the staged rows cull_rows
+// keeps, else every staged row; UNROLL: of the walk over them (walk_rows).
+template <int C, bool PER_PAIR, bool CULL, int UNROLL>
+__device__ __forceinline__ void bwd_body(const float4* __restrict__ rows,
+                                         const int* __restrict__ pairs,
+                                         const int* __restrict__ starts,
+                                         const int* __restrict__ counts,
+                                         const float* __restrict__ out,
+                                         const float* __restrict__ cot, float* __restrict__ grads,
+                                         int* __restrict__ walked, int nq, int tiles_x, int tile,
+                                         int cap, int group) {
   extern __shared__ float4 smem4[];
   __shared__ int vote[2];
   __shared__ int warp_cnt[kMaxRounds * kWarps];
@@ -74,12 +85,11 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
   auto buffer = [&](int k) { return smem4 + (k & 1) * group * (kRow / 4); };
   float* part = reinterpret_cast<float*>(smem4 + 2 * group * (kRow / 4));
   int* list = reinterpret_cast<int*>(part + group * kRow);
-  cg::cluster_group cluster = cg::this_cluster();
 
   const Quadrant q = quadrant(nq, tiles_x, tile);
   const int P = tile * tile;
   const int count = min(counts[q.t], cap);
-  const int* seg = pairs + starts[q.t];
+  const int* seg = segment(pairs, starts, q.t, cap);
 
   float gc[C];
   float s_tot = 0.0f;
@@ -114,10 +124,10 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
     __syncthreads();
 
     const float* srow = reinterpret_cast<const float*>(buffer(k));
-    const int kept = cull_rows(srow, n, q, list, warp_cnt);
+    const int kept = CULL ? cull_rows(srow, n, q, list, warp_cnt) : n;
     n_kept += kept;
-    for (int i = 0; i < kept; ++i) {
-      const int j = list[i];
+    walk_rows<UNROLL>(kept, [&](int i) {
+      const int j = CULL ? list[i] : i;
       float r[kRow];
       load_row(r, srow + j * kRow);
       const Hit h = evaluate(r, q.px, q.py);
@@ -126,7 +136,7 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
       sums.zero();
       if (live) replay<C>(r, h, gc, s_tot, trans, prefix, sums);
       warp_add_sums<C>(sums, live, part + j * kRow);
-    }
+    });
     // every warp's adds into this CTA's raw sums are done
     __syncthreads();
     // each CTA adds its own partial rows: a Gaussian occurs once per tile, so
@@ -143,70 +153,109 @@ resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pai
   }
   cp_async_wait<0>();
   // no CTA leaves while another may still read its vote
-  cluster.sync();
+  if (nq > 1) cg::this_cluster().sync();
   if (walked != nullptr && threadIdx.x == 0) write_walked(walked, q, nq, n_walked, n_kept);
 }
 
+// B2/B3 and B7 under names of their own, which the profiler tells apart.
 template <int C, bool PER_PAIR>
-int launch(const float* rows, const int* pairs, const int* starts, const int* counts,
-           const float* out, const float* cot, float* grads, int* walked, int n_tiles,
-           int tiles_x, int tile, int cap, int group, cudaStream_t stream) {
-  return static_cast<int>(launch_clusters(
-      resident_bwd_kernel<C, PER_PAIR>, n_tiles, tile, smem_bytes(group), stream,
-      reinterpret_cast<const float4*>(rows), pairs, starts, counts, out, cot, grads, walked,
-      quads_of(tile), tiles_x, tile, cap, group));
+__global__ void __launch_bounds__(kThreads)
+resident_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pairs,
+                    const int* __restrict__ starts, const int* __restrict__ counts,
+                    const float* __restrict__ out, const float* __restrict__ cot,
+                    float* __restrict__ grads, int* __restrict__ walked, int nq, int tiles_x,
+                    int tile, int cap, int group) {
+  bwd_body<C, PER_PAIR, true, 0>(rows, pairs, starts, counts, out, cot, grads, walked, nq, tiles_x,
+                              tile, cap, group);
 }
 
-template <bool PER_PAIR>
-int dispatch(const float* rows, const int* pairs, const int* starts, const int* counts,
-             const float* out, const float* cot, float* grads, int* walked, int n_tiles,
-             int tiles_x, int tile, int cap, int group, int n_channels, void* stream) {
-  if (tile < 1 || tile > 2 * kQuad || group < 1 || group > kMaxGroup || cap < 0) {
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+table_bwd_kernel(const float4* __restrict__ rows, const int* __restrict__ pairs,
+                 const int* __restrict__ starts, const int* __restrict__ counts,
+                 const float* __restrict__ out, const float* __restrict__ cot,
+                 float* __restrict__ grads, int* __restrict__ walked, int nq, int tiles_x,
+                 int tile, int cap, int group) {
+  bwd_body<C, false, false, kTableUnroll>(rows, pairs, starts, counts, out, cot, grads, walked,
+                                           nq, tiles_x, tile, cap, group);
+}
+
+enum class Entry { kAccum, kPairs, kTable };
+
+template <int C>
+int launch(Entry entry, const float* rows, const int* pairs, const int* starts, const int* counts,
+           const float* out, const float* cot, float* grads, int* walked, int n_tiles,
+           int tiles_x, int tile, int cap, int group, cudaStream_t stream) {
+  auto kernel = entry == Entry::kTable   ? table_bwd_kernel<C>
+                : entry == Entry::kPairs ? resident_bwd_kernel<C, true>
+                                         : resident_bwd_kernel<C, false>;
+  return static_cast<int>(launch_clusters(
+      kernel, n_tiles, tile, smem_bytes(group), stream, reinterpret_cast<const float4*>(rows),
+      pairs, starts, counts, out, cot, grads, walked, quads_of(tile), tiles_x, tile, cap, group));
+}
+
+// The caller checks shapes and zeroes `grads` on `stream` before the call;
+// here only the ranges the kernels rely on.
+int dispatch(Entry entry, const float* rows, const int* pairs, const int* starts,
+             const int* counts, const float* out, const float* cot, float* grads, int* walked,
+             int n_tiles, int tiles_x, int tile, int cap, int group, int n_channels,
+             void* stream) {
+  if (n_tiles < 0 || tiles_x < 1 || tile < 1 || tile > 2 * kQuad || cap < 0 || group < 1 ||
+      group > kMaxGroup) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RESIDENT_BWD_CASE(CH)                                                              \
-  case CH:                                                                                 \
-    return launch<CH, PER_PAIR>(rows, pairs, starts, counts, out, cot, grads, walked,      \
-                                n_tiles, tiles_x, tile, cap, group, s);
+#define BWD_CASE(CH)                                                                        \
+  case CH:                                                                                  \
+    return launch<CH>(entry, rows, pairs, starts, counts, out, cot, grads, walked, n_tiles, \
+                      tiles_x, tile, cap, group, s);
   switch (n_channels) {
-    RESIDENT_BWD_CASE(1)
-    RESIDENT_BWD_CASE(2)
-    RESIDENT_BWD_CASE(3)
-    RESIDENT_BWD_CASE(4)
-    RESIDENT_BWD_CASE(5)
-    RESIDENT_BWD_CASE(6)
-    RESIDENT_BWD_CASE(7)
-    RESIDENT_BWD_CASE(8)
-    RESIDENT_BWD_CASE(9)
+    BWD_CASE(1)
+    BWD_CASE(2)
+    BWD_CASE(3)
+    BWD_CASE(4)
+    BWD_CASE(5)
+    BWD_CASE(6)
+    BWD_CASE(7)
+    BWD_CASE(8)
+    BWD_CASE(9)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef RESIDENT_BWD_CASE
+#undef BWD_CASE
 }
 
 }  // namespace
 
-// Both return the CUDA error code of the launch (0 = success), also where
-// the card refuses the cluster launch.  The caller checks shapes and zeroes
-// `grads` on `stream` before the call.
+// All return the CUDA error code of the launch (0 = success), also where
+// the card refuses the cluster launch.
 
-// grads (N+1, 16): each pair's row added to its Gaussian's row.
+// B2, grads (N+1, 16): each pair's row added to its Gaussian's row.
 extern "C" int resident_bwd_accum(const float* rows, const int* pairs, const int* starts,
                                   const int* counts, const float* out, const float* cot,
                                   float* grads, int* walked, int n_tiles, int tiles_x, int tile,
                                   int cap, int group, int n_channels, void* stream) {
-  return dispatch<false>(rows, pairs, starts, counts, out, cot, grads, walked, n_tiles, tiles_x,
-                         tile, cap, group, n_channels, stream);
+  return dispatch(Entry::kAccum, rows, pairs, starts, counts, out, cot, grads, walked, n_tiles,
+                  tiles_x, tile, cap, group, n_channels, stream);
 }
 
-// grads (T, cap, 16): each pair's row added at (tile, slot) by the quadrant CTAs
+// B3, grads (T, cap, 16): each pair's row added at (tile, slot) by the quadrant CTAs
 // that composited it (at most four adds into the zeroed slot, in no fixed order).
 extern "C" int resident_bwd_pairs(const float* rows, const int* pairs, const int* starts,
                                   const int* counts, const float* out, const float* cot,
                                   float* grads, int* walked, int n_tiles, int tiles_x, int tile,
                                   int cap, int group, int n_channels, void* stream) {
-  return dispatch<true>(rows, pairs, starts, counts, out, cot, grads, walked, n_tiles, tiles_x,
-                        tile, cap, group, n_channels, stream);
+  return dispatch(Entry::kPairs, rows, pairs, starts, counts, out, cot, grads, walked, n_tiles,
+                  tiles_x, tile, cap, group, n_channels, stream);
+}
+
+// B7, grads (N+1, 16): B2 over the (T, K) table, row t of tile_gauss being
+// tile t's segment, 16-px tiles (one CTA, so one add per (tile, entry)).
+extern "C" int table_bwd(const float* rows, const int* tile_gauss, const int* counts,
+                         const float* out, const float* cot, float* grads, int* walked,
+                         int n_tiles, int K, int tiles_x, int group, int n_channels,
+                         void* stream) {
+  return dispatch(Entry::kTable, rows, tile_gauss, nullptr, counts, out, cot, grads, walked,
+                  n_tiles, tiles_x, kQuad, K, group, n_channels, stream);
 }

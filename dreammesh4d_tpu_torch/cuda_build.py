@@ -10,6 +10,7 @@ PyTorch headers are compiled, which keeps a build to seconds.
     from dreammesh4d_tpu_torch import cuda_build
     cuda_build.build(["resident_fwd"])   # optional: all sources in parallel
     lib = cuda_build.load("resident_fwd")
+    fn = cuda_build.entry("resident_fwd", "resident_fwd", argtypes)  # types bound once
 
 A failed build raises; nothing falls back to a plain version.
 """
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -32,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 build_logs: Dict[str, Tuple[float, str]] = {}  # name -> (seconds, nvcc output)
 
 
@@ -89,3 +91,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, its
+    argument types (``ctypes.c_void_p`` for each pointer and the stream: an
+    unbound Python int would be cut to 32 bits) and its int result bound once
+    per process."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[name, symbol] = fn
+    return fn

@@ -19,8 +19,9 @@ Backends (``RasterizerConfig.backend``):
   ``index_add_``; on CPU tensors their plain PyTorch versions.
 - ``pallas`` — the (T, K) index table of ``bin_gaussians`` on fixed 16-px
   tiles whatever ``tile_px`` says, K = ``tile_capacity``, and the table
-  compositing of ``table_blend.py``: on CUDA tensors the Hopper kernels
-  ``csrc/table_blend.cu`` (B6 forward, B7 backward), on CPU tensors their
+  compositing of ``table_blend.py``: on CUDA tensors the Hopper kernels B6
+  and B7 (``table_fwd`` / ``table_bwd``, B1's and B2's bodies in
+  ``csrc/resident_fwd.cu`` / ``resident_bwd.cu``), on CPU tensors their
   plain versions.  Tiles with more than K entries drop the farthest, and a
   Gaussian spanning more than ``max_tiles_per_gaussian`` 16-px tiles loses
   the rest, as in the JAX package.  The group (the entries between two

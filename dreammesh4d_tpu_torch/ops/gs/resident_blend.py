@@ -292,10 +292,8 @@ def blend_pairs_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.Tens
     _check_cuda_inputs(rows, pairs, starts, counts, C)
     dev = rows.device
 
-    lib = cuda_build.load("resident_fwd")
-    fn = lib.resident_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("resident_fwd", "resident_fwd",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     walked_ptr = _walked_ptr(walked, T, dev)
     out = torch.empty((T, C + 1, tile * tile), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -429,9 +427,8 @@ def blend_pairs_bwd_cuda(rows: torch.Tensor, pairs: torch.Tensor, starts: torch.
             raise ValueError(f"{name}: need a contiguous {(T, C + 1, P)} float32 tensor on {dev}, "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     name = "resident_bwd_pairs" if per_pair else "resident_bwd_accum"
-    fn = getattr(cuda_build.load("resident_bwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("resident_bwd", name,
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     walked_ptr = _walked_ptr(walked, T, dev)
     with torch.cuda.device(dev):
         # zeroed on the launch's stream: blocks run in no order and add into it

@@ -16,9 +16,11 @@ packing, constants and image finish this module shares).
   backward; the backward sums the rows per Gaussian (``index_add_``), as
   ``_blend_bwd_rule``'s scatter does;
 - :func:`blend_table_cuda` / :func:`blend_table_bwd_cuda` — the wrappers of
-  the hand-written Hopper kernels ``csrc/table_blend.cu`` (entries
-  ``table_fwd``, B6, and ``table_bwd``, B7, which adds each Gaussian's row
-  with atomics into a zeroed (N+1, 16) table);
+  the hand-written Hopper kernels B6 (entry ``table_fwd`` of
+  ``csrc/resident_fwd.cu``) and B7 (``table_bwd`` of ``csrc/resident_bwd.cu``,
+  which adds each Gaussian's row with atomics into a zeroed (N+1, 16)
+  table): the bodies of B1 and B2 over the same reading of the table as
+  segments, one CTA per 16-px tile;
 - :func:`blend_table` — the differentiable entry: CUDA tensors launch the
   kernels (or raise), CPU tensors take the plain versions;
 - :func:`blend_image_table` — depth as an extra channel (C = C_user + 1 ≤ 9),
@@ -46,6 +48,7 @@ from .resident_blend import (
     ROW,
     _check_group,
     _pack_rows,
+    _walked_ptr,
     blend_pairs_bwd_plain,
     blend_pairs_plain,
     finish_image,
@@ -108,32 +111,34 @@ def _check_cuda_inputs(rows, tile_gauss, counts, group: int, n_channels: int) ->
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     if rows.shape[1] != ROW:
         raise ValueError(f"rows must be (N+1, {ROW}), got {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: the kernels copy 16-byte pieces of it, need a 16-byte aligned start")
     if counts.shape[0] != tile_gauss.shape[0]:
         raise ValueError("tile_gauss and counts must have one row per tile")
 
 
-def _entry(name: str, n_pointers: int):
+def blend_table_cuda(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: torch.Tensor,
+                     tiles_x: int, group: int, n_channels: int,
+                     walked: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch B6 (entry ``table_fwd`` of ``csrc/resident_fwd.cu``) on the
+    current stream.  Same contract as :func:`blend_table_plain`; raises on a
+    tensor it does not take or a launch that fails.  ``walked``, a (2, T, 4)
+    int32 tensor, receives in column 0 each tile's walked entries (plane 0),
+    which must equal the plain version's ``walked_per_tile``, and in plane 1
+    the rows it composited of those: all of them, since B6 does not cull
+    (the binning already did, per 16-px tile)."""
     from ... import cuda_build
 
-    fn = getattr(cuda_build.load("table_blend"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def blend_table_cuda(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: torch.Tensor,
-                     tiles_x: int, group: int, n_channels: int) -> torch.Tensor:
-    """Launch B6 (``csrc/table_blend.cu``, entry ``table_fwd``) on the current
-    stream.  Same contract as :func:`blend_table_plain`; raises on a tensor it
-    does not take or a launch that fails."""
     _check_cuda_inputs(rows, tile_gauss, counts, group, n_channels)
     (T, K), C, dev = tile_gauss.shape, n_channels, rows.device
-    fn = _entry("table_fwd", 4)
+    fn = cuda_build.entry("resident_fwd", "table_fwd",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    walked_ptr = _walked_ptr(walked, T, dev)
     out = torch.empty((T, C + 1, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(rows.data_ptr(), tile_gauss.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                    T, K, tiles_x, group, C, stream)
+                    walked_ptr, T, K, tiles_x, group, C, stream)
     if status != 0:
         raise RuntimeError(f"table_fwd launch failed with CUDA error {status}")
     launch_counts["table_fwd"] += 1
@@ -142,11 +147,14 @@ def blend_table_cuda(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: torch
 
 def blend_table_bwd_cuda(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: torch.Tensor,
                          out: torch.Tensor, cot: torch.Tensor, tiles_x: int, group: int,
-                         n_channels: int) -> torch.Tensor:
-    """Launch B7 (``csrc/table_blend.cu``, entry ``table_bwd``) on the current
-    stream: the gradient of ``rows`` summed per Gaussian with atomics, (N+1,
-    16).  Same contract as :func:`blend_table_bwd_plain`; raises on a tensor
-    it does not take or a launch that fails."""
+                         n_channels: int, walked: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch B7 (entry ``table_bwd`` of ``csrc/resident_bwd.cu``) on the
+    current stream: the gradient of ``rows`` summed per Gaussian with
+    atomics, (N+1, 16).  Same contract as :func:`blend_table_bwd_plain`;
+    raises on a tensor it does not take or a launch that fails; ``walked`` as
+    in :func:`blend_table_cuda`."""
+    from ... import cuda_build
+
     _check_cuda_inputs(rows, tile_gauss, counts, group, n_channels)
     (T, K), C, dev = tile_gauss.shape, n_channels, rows.device
     cot = cot.contiguous()  # it comes back through the untiling's permute
@@ -155,13 +163,15 @@ def blend_table_bwd_cuda(rows: torch.Tensor, tile_gauss: torch.Tensor, counts: t
                 or not x.is_contiguous()):
             raise ValueError(f"{name}: need a contiguous {(T, C + 1, P)} float32 tensor on {dev}, "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
-    fn = _entry("table_bwd", 6)
+    fn = cuda_build.entry("resident_bwd", "table_bwd",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    walked_ptr = _walked_ptr(walked, T, dev)
     with torch.cuda.device(dev):
         # zeroed on the launch's stream: blocks run in no order and add into it
         grads = torch.zeros((rows.shape[0], ROW), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(rows.data_ptr(), tile_gauss.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                    cot.data_ptr(), grads.data_ptr(), T, K, tiles_x, group, C, stream)
+                    cot.data_ptr(), grads.data_ptr(), walked_ptr, T, K, tiles_x, group, C, stream)
     if status != 0:
         raise RuntimeError(f"table_bwd launch failed with CUDA error {status}")
     launch_counts["table_bwd"] += 1

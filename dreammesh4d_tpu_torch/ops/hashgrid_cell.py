@@ -66,6 +66,11 @@ class _Levels(ctypes.Structure):
     _fields_ = [("res", ctypes.c_int * MAX_LEVELS)]
 
 
+# both entries: four pointers, N, L, T, the level resolutions, the stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _Levels,
+                                     ctypes.c_void_p]
+
+
 def _check_cfg(cfg: HashGridConfig, tables: torch.Tensor) -> None:
     if cfg.n_features_per_level != 2:
         raise ValueError("the cell layout needs n_features_per_level == 2 (one 16-float row)")
@@ -150,10 +155,7 @@ def encode_cell_fwd_cuda(tables: torch.Tensor, x: torch.Tensor, cfg: HashGridCon
     N, L, T = x.shape[0], cfg.n_levels, tables.shape[1]
     _check_cuda("tables", tables, (L, T, ROW), dev)
     _check_cuda("x", x, (N, 3), dev)
-    fn = cuda_build.load("hashgrid_cell").hashgrid_cell_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           _Levels, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("hashgrid_cell", "hashgrid_cell_fwd", _ARGTYPES)
     feats = torch.empty((N, 2 * L), dtype=torch.float32, device=dev)
     dfeats = torch.empty((N, 2 * L, 3), dtype=torch.float32, device=dev) if with_dfeats else None
     if N == 0:
@@ -190,10 +192,7 @@ def encode_cell_bwd_cuda(x: torch.Tensor, cfg: HashGridConfig,
     if g_dfeats is not None:
         g_dfeats = g_dfeats.contiguous()
         _check_cuda("g_dfeats", g_dfeats, (N, 2 * L, 3), dev)
-    fn = cuda_build.load("hashgrid_cell").hashgrid_cell_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           _Levels, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("hashgrid_cell", "hashgrid_cell_bwd", _ARGTYPES)
     with torch.cuda.device(dev):
         # zeroed on the launch's stream: blocks run in no order and add into it
         d_tables = torch.zeros((L, T, ROW), dtype=torch.float32, device=dev)

@@ -228,15 +228,15 @@ def _wall_inputs(quadrant_only):
     return f32(means), f32(conics), f32(colors), f32(op), f32(depths), radii.astype(np.int32)
 
 
-def _walk_count(rows, pairs, starts, counts, tile, cap, group):
+def _walk_count(rows, pairs, starts, counts, tile, cap, group, tiles_x=TILES_X):
     """Pair slots per tile before the first group at whose start every
     pixel's transmittance is <= 1e-4, counted pair by pair (numpy)."""
     T, P = len(starts), tile * tile
     p = np.arange(P)
     walked = np.zeros(T, np.int64)
     for t in range(T):
-        px = np.float32((t % TILES_X) * tile) + (p % tile).astype(np.float32)
-        py = np.float32((t // TILES_X) * tile) + (p // tile).astype(np.float32)
+        px = np.float32((t % tiles_x) * tile) + (p % tile).astype(np.float32)
+        py = np.float32((t // tiles_x) * tile) + (p // tile).astype(np.float32)
         trans = np.ones(P, np.float32)
         count = min(int(counts[t]), cap)
         for g0 in range(0, count, group):
