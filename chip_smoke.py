@@ -71,8 +71,8 @@ Phases, each of which fails the run on a failed check:
    ``RandomCameraSampler`` with the YAML's ranges).  The loop around the step
    — level mask, ambient ratio, the occupancy update every 16 steps, the
    resolution milestones — is written out here by hand as
-   ``Zero123Experiment.train_step`` of the JAX package does it (the
-   experiment class itself is not ported yet).  The reference image is
+   ``Zero123Experiment.train_step`` does it (phase 12 drives the
+   experiment itself, through the launcher).  The reference image is
    synthetic: a shaded sphere seen from the reference camera.  Steps 0..17 at
    the first milestone's shapes (reference 128², 8 views at 64²), then a few
    steps at the last milestone's (reference 512², 2 views at 256²) from the
@@ -130,7 +130,29 @@ Phases, each of which fails the run on a failed check:
     at the YAML's full width (120 predict views at 1024², one B1 launch
     each, texture 1024), each frame OBJ held to ``timed_all``; seconds of
     the bake, the OBJ writes and the PNG, peak memory;
-12. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+12. the README's six-stage recipe chained at full width (``drive_recipe``),
+    guidance off, each stage reading the file the stage before it wrote:
+    ``configs/stable-zero123.yaml --train`` at the YAML's widths for 6 steps
+    with the resolution milestones moved to steps 2 and 4 (all three sizes
+    run; phase 9's frame 0 the reference image), ``--test`` and ``--export
+    resume=LAST`` with the README's ``mc-cpu`` dotlist at 256³; the
+    simplification tool (``python3 -m
+    dreammesh4d_tpu_torch.scripts.mesh_simplification``), QEM to 5000 faces
+    and clustering at scale 30; ``configs/sugar_static_refine.yaml --train``
+    bound to the QEM mesh and ``configs/sugar_dynamic_dg.yaml --train`` from
+    its last checkpoint with phase 9's 32 frames, 4 steps each; the 4D
+    export.  Checks the B4/B5 launches of every stage-1 step against phase
+    6's prediction, 256 + 1 B4 launches for the export's grid and vertex
+    colours, the grid against the plain version at 4096 cells, the mesh
+    (closed inside the box, colours in [0, 1]), ≤ 5000 QEM faces and 6
+    Gaussians a face, 5 + 5 and 8 + 4 launches a Gaussian step, 120 B1 for
+    the 4D export and each frame OBJ against ``timed_all``, no plain
+    version called; prints the seconds of every stage and sub-step (density
+    grid, extraction, component removal, vertex colours, OBJ write, QEM,
+    clustering, bind), stage-1 ms/step per milestone beside phase 6's, the
+    mesh's V/F before and after simplification and each stage's peak
+    memory;
+13. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -185,6 +207,15 @@ GT_FACE_SHARE = 0.999  # face_idx equal on at least this share of pixels
 GT_RGB_TOL = 1e-5  # rgb elsewhere
 GT_SIZES = (64, 1024)  # the recipe's size and the bake's
 EXPORT_VERT_TOL = 1e-5  # a frame OBJ's vertices against timed_all's (six decimals written)
+# the README recipe chained (phase 12): stage 1 at the YAML's widths, its three
+# resolution milestones moved to steps 2 and 4, then stages 2-6
+RECIPE_S1_STEPS = 6
+RECIPE_MILESTONES = (2, 4)
+RECIPE_QEM_FACES = 5000
+RECIPE_CLUSTER_SCALE = 30
+RECIPE_GS_STEPS = 4  # the static refine and the dynamic stage, each
+MC_EXPORT = ["system.exporter_type=mesh-exporter", "system.exporter.fmt=obj",
+             "system.geometry.isosurface_method=mc-cpu", "system.geometry.isosurface_resolution=256"]
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 
@@ -996,6 +1027,21 @@ def sphere_reference(torch, c2w, hw, fovy_deg, device):
             "ref_light": torch.tensor([0.0, 0.0, 3.0], device=device)}
 
 
+def stage1_predicted(n_rays, updated):
+    """B4 / B5 launches of one stage-1 step with (reference, random) rays
+    ``n_rays``: an encode per 8192-ray chunk of the reference view, two per
+    chunk of the random views (the samples and the perturbed samples of the
+    3D normal smoothness); each encode runs once in the forward and once more
+    when its chunk is rematerialised, and has one backward; the occupancy
+    update adds one forward."""
+    fwd = bwd = 0
+    for n, per_chunk in zip(n_rays, (1, 2)):
+        encodes = -(-n // S1_CHUNK_RAYS) * per_chunk
+        fwd += encodes * (2 if n > S1_CHUNK_RAYS else 1)
+        bwd += encodes
+    return fwd + int(updated), bwd
+
+
 def drive_stage1(torch, np, hc, card, device):
     """The stage-1 training main path and the export pass.  Returns the
     launch counts of the main path, ms per step, the peak memory, the
@@ -1052,19 +1098,6 @@ def drive_stage1(torch, np, hc, card, device):
         n_rays = batch["ref_rays_o"].shape[0], rand["rays_o"][..., 0].numel()
         return steps[guidance](state, batch, gen, lm, ambient, None, occ[0]), n_rays, updated
 
-    def predicted(n_rays, updated):
-        """B4 / B5 launches of one step: an encode per 8192-ray chunk of the
-        reference view, two per chunk of the random views (the samples and
-        the perturbed samples of the 3D normal smoothness); each encode runs
-        once in the forward and once more when its chunk is rematerialised,
-        and has one backward; the occupancy update adds one forward."""
-        fwd = bwd = 0
-        for n, per_chunk in zip(n_rays, (1, 2)):
-            encodes = -(-n // S1_CHUNK_RAYS) * per_chunk
-            fwd += encodes * (2 if n > S1_CHUNK_RAYS else 1)
-            bwd += encodes
-        return fwd + int(updated), bwd
-
     def run(label, n_steps, first_step, ref_hw, sampler_step, guidance, state):
         hc.reset_launch_counts()
         want = [0, 0]
@@ -1078,12 +1111,12 @@ def drive_stage1(torch, np, hc, card, device):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             history.append({k: float(v) for k, v in metrics.items()})
-            fwd, bwd = predicted(n_rays, updated)
+            fwd, bwd = stage1_predicted(n_rays, updated)
             want[0] += fwd
             want[1] += bwd
         peak = torch.cuda.max_memory_allocated() / 2**30
         counts, plain = dict(hc.launch_counts), dict(hc.plain_counts)
-        per_step = predicted(n_rays, False)
+        per_step = stage1_predicted(n_rays, False)
         print(f"[{card}] stage 1 {label}: {n_steps} steps, reference {n_rays[0]} rays + random "
               f"{n_rays[1]} rays; launches {json.dumps(counts)}, predicted B4 {want[0]} B5 {want[1]} "
               f"({per_step[0]} + {per_step[1]} per step, + 1 B4 per occupancy update); plain "
@@ -1164,7 +1197,6 @@ def drive_export(torch, np, hc, card, geo, params):
     through B4 (features only), checked at random cells against the plain
     version."""
     from dreammesh4d_tpu_torch.models.geometry import implicit_volume as iv
-    from dreammesh4d_tpu_torch.ops.hashgrid import hashgrid_encode_cell
 
     hc.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1173,26 +1205,39 @@ def drive_export(torch, np, hc, card, geo, params):
     seconds = time.perf_counter() - t0
     counts = dict(hc.launch_counts)
     n_chunks = -(-EXPORT_RES ** 3 // 65536)
-    check(grid.shape == (EXPORT_RES,) * 3 and np.isfinite(grid).all(), "export: bad density grid")
     check(counts["hashgrid_cell_fwd"] == n_chunks and counts["hashgrid_cell_bwd"] == 0
           and sum(hc.plain_counts.values()) == 0, f"export: launches {counts}, expected {n_chunks} B4")
+    err, limit = check_density_grid(torch, np, geo, params, grid, "export")
+    print(f"[{card}] export_density_grid {EXPORT_RES}^3: {seconds:.2f} s, {counts['hashgrid_cell_fwd']} "
+          f"B4 launches (features only), 0 B5; density in [{grid.min():.4g}, {grid.max():.4g}], "
+          f"{float((grid > 1.0).mean()):.4f} of the cells above 1; 4096 cells vs the plain version: "
+          f"max |d| {err:.3g} (limit {limit:.3g})")
+    return counts["hashgrid_cell_fwd"], seconds
+
+
+def check_density_grid(torch, np, geo, params, grid, label):
+    """The density grid at 4096 random cells against the plain version (the
+    plain hash-grid encode, the MLP and the bias), within 1e-4 of
+    max(1, max |density|) there; the grid finite and holding density.
+    Returns the error and its limit."""
+    from dreammesh4d_tpu_torch.models.geometry import implicit_volume as iv
+    from dreammesh4d_tpu_torch.ops.hashgrid import hashgrid_encode_cell
+
+    res = grid.shape[0]
+    check(grid.shape == (res,) * 3 and np.isfinite(grid).all(), f"{label}: bad density grid")
     rng = np.random.default_rng(0)
-    ijk = rng.integers(0, EXPORT_RES, (4096, 3))
-    lin = np.linspace(-geo.radius, geo.radius, EXPORT_RES, dtype=np.float32)
+    ijk = rng.integers(0, res, (4096, 3))
+    lin = np.linspace(-geo.radius, geo.radius, res, dtype=np.float32)
     pts = torch.as_tensor(lin[ijk], device=params["density_mlp"][0]["w"].device)
     with torch.no_grad():
         enc = hashgrid_encode_cell(params["encoding"], geo.hashgrid, iv._contract(geo, pts))
         ref = iv._activate_density(geo, iv._mlp_apply(params["density_mlp"], enc)
                                    + iv.density_bias(geo, pts))[:, 0].cpu().numpy()
-    got = grid[ijk[:, 0], ijk[:, 1], ijk[:, 2]]
-    err = float(np.abs(got - ref).max())
-    print(f"[{card}] export_density_grid {EXPORT_RES}^3: {seconds:.2f} s, {counts['hashgrid_cell_fwd']} "
-          f"B4 launches (features only), 0 B5; density in [{grid.min():.4g}, {grid.max():.4g}], "
-          f"{float((grid > 1.0).mean()):.4f} of the cells above 1; 4096 cells vs the plain version: "
-          f"max |d| {err:.3g} (limit 1e-4 x {max(float(np.abs(ref).max()), 1.0):.3g})")
-    check(err <= 1e-4 * max(float(np.abs(ref).max()), 1.0), "export: density differs from the plain version")
-    check(float((grid > 1.0).mean()) > 0, "export: the grid holds no density")
-    return counts["hashgrid_cell_fwd"], seconds
+    err = float(np.abs(grid[ijk[:, 0], ijk[:, 1], ijk[:, 2]] - ref).max())
+    limit = 1e-4 * max(float(np.abs(ref).max()), 1.0)
+    check(err <= limit, f"{label}: density differs from the plain version ({err:.3g} > {limit:.3g})")
+    check(float((grid > 1.0).mean()) > 0, f"{label}: the grid holds no density")
+    return err, limit
 
 
 def static_configs():
@@ -1669,6 +1714,7 @@ def drive_launcher(torch, np, rb, tb, card, video, device, tmp):
     for i, frame in enumerate(rgba):
         write_png(os.path.join(frames_dir, f"{i:03d}_rgba.png"), frame)
     res["encode_s"] = time.perf_counter() - t0
+    res["frames_dir"] = frames_dir
     out = os.path.join(tmp, "out")
     common = ["system.guidance.pretrained_model_name_or_path=none",
               f"system.geometry.surface_mesh_to_bind_path={mesh_path}", f"exp_root_dir={out}",
@@ -1831,6 +1877,35 @@ def drive_launcher(torch, np, rb, tb, card, video, device, tmp):
     return res
 
 
+def check_frame_objs(torch, np, exp, out_dir, device, label):
+    """The 4D export's file set in ``out_dir`` (one OBJ per timestamp, one
+    material), each frame OBJ on the bind mesh's faces with its vertices
+    within EXPORT_VERT_TOL of ``timed_all``'s.  Returns the worst error, the
+    vertices of every frame and the faces."""
+    from dreammesh4d_tpu_torch.data.temporal_image import frame_timestamps
+    from dreammesh4d_tpu_torch.export.mesh_io import load_obj
+    from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import timed_all
+
+    L = exp.data.video_length
+    names = [f"frame_{i:03d}.obj" for i in range(L)]
+    check(sorted(os.listdir(out_dir)) == names + ["material0.mtl", "material0.png"],
+          f"{label}: files {sorted(os.listdir(out_dir))}")
+    with torch.no_grad():
+        _, vert = timed_all(exp.sugar_params, exp.state.deform_params, exp.dyn_cfg.deformation, exp.static,
+                            torch.as_tensor(frame_timestamps(L), device=device),
+                            frame_indices=torch.arange(L, device=device))
+    xyz = vert.xyz.cpu().numpy()
+    faces = exp.static.sugar.faces.cpu().numpy()
+    worst = 0.0
+    for i, name in enumerate(names):
+        m = load_obj(os.path.join(out_dir, name))
+        check(m.v_pos.shape == xyz[i].shape and (m.t_pos_idx == faces).all(),
+              f"{label} {name}: {m.v_pos.shape[0]} vertices / {m.t_pos_idx.shape[0]} faces, not the mesh's")
+        worst = max(worst, float(np.abs(m.v_pos - xyz[i]).max()))
+    check(worst <= EXPORT_VERT_TOL, f"{label}: frame vertices differ from timed_all ({worst:.3g})")
+    return worst, xyz, faces
+
+
 def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
     """(a) The recovery benchmark's ground truth (``render_vertex_color_view``
     of the animated icosphere(3) at 64²) on the card against the same call on
@@ -1852,8 +1927,6 @@ def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
     from dreammesh4d_tpu_torch.data.temporal_image import frame_timestamps
     from dreammesh4d_tpu_torch.export import texture_bake
     from dreammesh4d_tpu_torch.export.gaussian_io import load_gaussians_ply
-    from dreammesh4d_tpu_torch.export.mesh_io import load_obj
-    from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import timed_all
     from dreammesh4d_tpu_torch.ops import cameras as cam_ops
     from dreammesh4d_tpu_torch.ops.mesh_raster import rasterize_mesh
     from dreammesh4d_tpu_torch.systems import assembly
@@ -1965,22 +2038,8 @@ def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
           f"{exp.data.cfg.predict_height}²)")
     check(launches == {"resident_fwd": n_views}, f"dynamic export: expected {n_views} B1 launches")
     out_dir = os.path.join(dyn_trial, "save", "4d_export")
+    worst, xyz, faces = check_frame_objs(torch, np, exp, out_dir, device, "dynamic export")
     L = exp.data.video_length
-    names = [f"frame_{i:03d}.obj" for i in range(L)]
-    check(sorted(os.listdir(out_dir)) == names + ["material0.mtl", "material0.png"],
-          f"dynamic export: files {sorted(os.listdir(out_dir))}")
-    with torch.no_grad():
-        _, vert = timed_all(exp.sugar_params, exp.state.deform_params, exp.dyn_cfg.deformation, exp.static,
-                            torch.as_tensor(frame_timestamps(L), device=device),
-                            frame_indices=torch.arange(L, device=device))
-    xyz = vert.xyz.cpu().numpy()
-    faces = exp.static.sugar.faces.cpu().numpy()
-    worst = 0.0
-    for i, name in enumerate(names):
-        m = load_obj(os.path.join(out_dir, name))
-        check(m.v_pos.shape == xyz[i].shape and (m.t_pos_idx == faces).all(),
-              f"{name}: {m.v_pos.shape[0]} vertices / {m.t_pos_idx.shape[0]} faces, not the mesh's")
-        worst = max(worst, float(np.abs(m.v_pos - xyz[i]).max()))
     res["export_vert_err"] = worst
     tex = png.read_png(os.path.join(out_dir, "material0.png"))
     res["filled_share"] = float((filled[0] > 0).float().mean())
@@ -1988,7 +2047,6 @@ def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
     print(f"4D export: {L} frame OBJs of {xyz.shape[1]} vertices / {faces.shape[0]} faces, vertices against "
           f"timed_all max|d| {worst:.3g} (limit {EXPORT_VERT_TOL}); first to last frame moved {moved:.4g}; "
           f"texture {tex.shape}, filled-texel share {res['filled_share']:.4f}")
-    check(worst <= EXPORT_VERT_TOL, "4D export: frame vertices differ from timed_all")
     check(tex.shape == (1024, 1024, 3) and res["filled_share"] > 0.05, "4D export: texture empty or misshapen")
     sec = res["export_seconds"] = spans.seconds
     print(f"[{card}] export seconds: static {sec['static export'][0]:.3f}; dynamic bake ({n_views} views at "
@@ -1996,6 +2054,232 @@ def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
           f"{len(sec['frame OBJ'])} OBJ writes {sum(sec['frame OBJ']):.3f} (of it the texture PNG "
           f"{sum(sec['texture PNG']):.3f}); setup (build_experiment) {fmt_s(sec['setup'])}; peak memory "
           f"{res['export_peak']:.2f} GiB")
+    return res
+
+
+def open_edges(np, mesh, radius):
+    """(edges used by other than two faces, those of them not on the box's
+    faces): a surface of marching tetrahedra is closed except where it meets
+    the grid's boundary."""
+    f = mesh.t_pos_idx
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    uniq, n = np.unique(edges, axis=0, return_counts=True)
+    bad = uniq[n != 2]
+    on_box = (np.abs(mesh.v_pos[bad]) >= radius - 1e-3).any(-1).all(-1)
+    return int(len(bad)), int((~on_box).sum())
+
+
+def drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, device, tmp):
+    """The README's six-stage recipe chained at full width through the entry
+    points a user calls, guidance off, each stage reading the file the stage
+    before it wrote: ``configs/stable-zero123.yaml --train`` (the YAML's
+    widths, RECIPE_S1_STEPS steps with the resolution milestones moved to
+    RECIPE_MILESTONES, so that all three sizes run; the reference image is
+    phase 9's frame 0), ``--test`` and ``--export resume=LAST`` with the
+    README's ``mc-cpu`` dotlist at 256³; the simplification tool, QEM to
+    RECIPE_QEM_FACES faces (the mesh stage 4 binds) and clustering at
+    ``--scale`` RECIPE_CLUSTER_SCALE; ``configs/sugar_static_refine.yaml
+    --train`` bound to the QEM mesh and ``configs/sugar_dynamic_dg.yaml
+    --train`` from its last checkpoint with phase 9's 32 frames, each
+    RECIPE_GS_STEPS steps; the 4D export.  Launch counts are zeroed before
+    each stage and read after it; every plain version is watched."""
+    from dreammesh4d_tpu_torch import launch, trainer
+    from dreammesh4d_tpu_torch.export import decimate, isosurface
+    from dreammesh4d_tpu_torch.export.mesh_io import load_mesh, load_obj
+    from dreammesh4d_tpu_torch.scripts import mesh_simplification as simplify
+    from dreammesh4d_tpu_torch.systems import assembly
+    from dreammesh4d_tpu_torch.utils.schedule import C_max
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+
+    frames_dir = launcher["frames_dir"]
+    out = os.path.join(tmp, "recipe")
+    cfg_dir = os.path.join(REPO, "configs")
+    nerf_yaml, static_yaml, dyn_yaml = (os.path.join(cfg_dir, n) for n in (
+        "stable-zero123.yaml", "sugar_static_refine.yaml", "sugar_dynamic_dg.yaml"))
+    common = ["system.guidance.pretrained_model_name_or_path=none", f"exp_root_dir={out}",
+              "use_timestamp=false", "trainer.val_check_interval=100000"]
+    milestones = "[" + ",".join(str(m) for m in RECIPE_MILESTONES) + "]"
+    nerf = common + [f"data.image_path={frames_dir}/000_rgba.png", "tag=nerf",
+                     f"data.resolution_milestones={milestones}",
+                     f"data.random_camera.resolution_milestones={milestones}",
+                     f"trainer.max_steps={RECIPE_S1_STEPS}"]
+    nerf_trial = os.path.join(out, "zero123-sai", "nerf")
+    model_obj = os.path.join(nerf_trial, "save", "model.obj")
+
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    spans.time(assembly, "export_density_grid", "density grid", keep=True)
+    for owner, name, label in (
+            (isosurface, "marching_cubes", "extraction"),
+            (isosurface, "remove_small_components", "component removal"),
+            (assembly, "forward_field", "vertex colours"), (assembly, "save_obj", "OBJ write"),
+            (simplify, "load_mesh", "mesh load"), (decimate, "quadric_decimate", "QEM"),
+            (simplify, "simplify_vertex_clustering", "clustering"), (simplify, "save_ply_mesh", "PLY write"),
+            (assembly, "create_sugar", "bind"), (assembly, "build_dynamic_static", "graph"),
+            (trainer.Trainer, "fit", "fit"), (trainer.Trainer, "test", "test"),
+            (assembly, "bake_texture", "bake"), (assembly, "export_textured_mesh", "frame OBJ")):
+        spans.time(owner, name, label)
+    for cls, label in ((assembly.Zero123Experiment, "nerf"), (assembly.SugarStaticExperiment, "refine"),
+                       (assembly.Sugar4DGenExperiment, "dynamic")):
+        spans.train_steps(cls, label)
+    plain_calls = {}
+
+    def watch(fn, name=None):
+        def counted(*a, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    for owner, name in ((rb, "blend_pairs_plain"), (rb, "blend_pairs_bwd_plain"), (tb, "blend_table_plain"),
+                        (tb, "blend_table_bwd_plain"), (hc, "encode_cell_fwd_plain"),
+                        (hc, "encode_cell_bwd_plain")):
+        spans._patch(owner, name, lambda fn, name=name: watch(fn, name))
+
+    res = {"seconds": {}, "launches": {}, "peak": {}}
+
+    def stage(label, fn):
+        for m in (rb, tb, hc):
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        res["seconds"][label] = time.perf_counter() - t0
+        res["peak"][label] = torch.cuda.max_memory_allocated() / 2**30
+        res["launches"][label] = {k: v for k, v in counts().items() if v}
+        print(f"[{card}] recipe {label}: {res['seconds'][label]:.3f} s, launches "
+              f"{json.dumps(res['launches'][label])}, peak memory {res['peak'][label]:.2f} GiB", flush=True)
+        return value
+
+    try:
+        stage("stage 1 --train", lambda: launch.main(launch.make_args(nerf_yaml, "train"), nerf))
+        stage("stage 1 --test", lambda: launch.main(launch.make_args(nerf_yaml, "test"), nerf + ["resume=LAST"]))
+        stage("stage 2 --export", lambda: launch.main(launch.make_args(nerf_yaml, "export"),
+                                                      nerf + MC_EXPORT + ["resume=LAST"]))
+        qem_path = stage("stage 3 QEM", lambda: simplify.main(
+            ["--mesh_path", model_obj, "--method", "quadric", "--target_faces", str(RECIPE_QEM_FACES)]))
+        cluster_path = stage("stage 3 clustering", lambda: simplify.main(
+            ["--mesh_path", model_obj, "--scale", str(RECIPE_CLUSTER_SCALE)]))
+        refine = common + [f"data.image_path={frames_dir}/000_rgba.png", "tag=refine",
+                           f"system.geometry.surface_mesh_to_bind_path={qem_path}",
+                           f"trainer.max_steps={RECIPE_GS_STEPS}"]
+        stage("stage 4 --train", lambda: launch.main(launch.make_args(static_yaml, "train"), refine))
+        refine_ckpt = os.path.join(out, "sugar-refine", "refine", "ckpts", f"step_{RECIPE_GS_STEPS:08d}")
+        dyn = common + [f"data.video_frames_dir={frames_dir}", f"system.weights={refine_ckpt}", "tag=dyn",
+                        f"system.geometry.surface_mesh_to_bind_path={qem_path}",
+                        f"trainer.max_steps={RECIPE_GS_STEPS}"]
+        stage("stage 5 --train", lambda: launch.main(launch.make_args(dyn_yaml, "train"), dyn))
+        stage("stage 6 --export", lambda: launch.main(launch.make_args(dyn_yaml, "export"), dyn + ["resume=LAST"]))
+    finally:
+        spans.close()
+    sec, launches = spans.seconds, res["launches"]
+    check(not plain_calls, f"recipe: a plain version ran on the card: {plain_calls}")
+
+    # stage 1: B4/B5 launches of every step against phase 6's prediction
+    exp1 = spans.results["setup"][0]
+    dcfg, rc = exp1.data.cfg, exp1.data.cfg.random_camera
+    rows = [r for r in spans.steps if r[0] == "nerf"]
+    check([r[1] for r in rows] == list(range(RECIPE_S1_STEPS)), "stage 1: steps taken")
+    by_milestone = {}
+    for _, step, _, ms, launched, metrics in rows:
+        i = sum(step >= m for m in rc.resolution_milestones)
+        n_rays = (int(dcfg.height[i]) * int(dcfg.width[i]),
+                  int(rc.batch_size[i]) * int(rc.height[i]) * int(rc.width[i]))
+        fwd, bwd = stage1_predicted(n_rays, step % exp1.rcfg.grid_update_every == 0)
+        got = {k: v for k, v in launched.items() if v}
+        check(got == {"hashgrid_cell_fwd": fwd, "hashgrid_cell_bwd": bwd},
+              f"stage 1 step {step}: launches {got}, predicted B4 {fwd} B5 {bwd}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"stage 1 step {step}: non-finite metric")
+        by_milestone.setdefault(i, []).append((ms, n_rays, fwd, bwd))
+    res["s1_ms"] = {i: [r[0] for r in v] for i, v in by_milestone.items()}
+    for i, v in sorted(by_milestone.items()):
+        print(f"[{card}] recipe stage 1 milestone {i} (reference {v[0][1][0]} rays + random {v[0][1][1]}): "
+              f"{', '.join(f'{r[0]:.1f}' for r in v)} ms/step, B4 {v[-1][2]} + B5 {v[-1][3]} a step"
+              + (" (step 0: + 1 B4 for the occupancy update)" if i == 0 else ""))
+    print(f"[{card}] recipe stage 1 beside phase 6's direct step with guidance_fn=None: first milestone "
+          f"{s1['first_bare_ms']:.2f}, last {s1['last_bare_ms']:.2f} ms/step")
+    check(os.path.exists(os.path.join(nerf_trial, "save", f"it{RECIPE_S1_STEPS}-nerf.png")),
+          "stage 1: the test pass wrote no it*-nerf.png")
+
+    # stage 2: 256 B4 launches for the grid, one for the vertex colours
+    exp2 = spans.results["setup"][2]
+    grid = spans.results["density grid"][0]
+    n_chunks = -(-grid.size // 65536)
+    want = {"hashgrid_cell_fwd": n_chunks + 1}
+    check(launches["stage 2 --export"] == want,
+          f"stage 2: launches {launches['stage 2 --export']}, expected {want}")
+    err, limit = check_density_grid(torch, np, exp2.geo_cfg, exp2.state.geo_params, grid, "stage 2")
+    mesh = load_obj(model_obj)
+    n_open, n_open_inside = open_edges(np, mesh, exp2.geo_cfg.radius)
+    res["mesh"] = (mesh.n_verts, mesh.n_faces)
+    print(f"recipe stage 2: grid {grid.shape} vs the plain version at 4096 cells max|d| {err:.3g} (limit "
+          f"{limit:.3g}); model.obj {mesh.n_verts} V / {mesh.n_faces} F, {n_open} open edges, {n_open_inside} "
+          f"of them off the box; v_rgb in [{mesh.v_rgb.min():.4f}, {mesh.v_rgb.max():.4f}]")
+    check(mesh.n_faces > 0 and mesh.v_rgb is not None and mesh.v_rgb.shape == mesh.v_pos.shape,
+          "stage 2: empty mesh or no vertex colours")
+    check(n_open_inside == 0, "stage 2: the mesh is open inside the box")
+    check(float(mesh.v_rgb.min()) >= 0.0 and float(mesh.v_rgb.max()) <= 1.0, "stage 2: v_rgb outside [0, 1]")
+
+    # stage 3: the QEM mesh (bound by stage 4) and the clustered one
+    qem, cluster = load_mesh(qem_path), load_mesh(cluster_path)
+    res["qem"], res["cluster"] = (qem.n_verts, qem.n_faces), (cluster.n_verts, cluster.n_faces)
+    print(f"recipe stage 3: {mesh.n_verts} V / {mesh.n_faces} F -> QEM {qem.n_verts} V / {qem.n_faces} F "
+          f"({os.path.basename(qem_path)}), clustering at scale {RECIPE_CLUSTER_SCALE} {cluster.n_verts} V / "
+          f"{cluster.n_faces} F ({os.path.basename(cluster_path)})")
+    check(0 < qem.n_faces <= RECIPE_QEM_FACES, f"stage 3: QEM left {qem.n_faces} faces")
+
+    # stages 4 and 5: launches of every step
+    exp4, exp5 = spans.results["setup"][3], spans.results["setup"][4]
+    # create_sugar binds to the mesh's non-degenerate faces (as in the JAX package)
+    n_gauss, n_bound = int(exp4.state.params.log_scales.shape[0]), int(exp4.static.faces.shape[0])
+    check(0 < n_bound <= qem.n_faces and n_gauss == 6 * n_bound,
+          f"stage 4: {n_gauss} Gaussians on {n_bound} faces, QEM mesh {qem.n_faces}")
+    frames = exp5.data.cfg.num_frames
+    views = 1 + exp4.data.cfg.random_camera.batch_size
+    lw = exp5.losses  # with the guidance off the random views reach a loss only through TV
+    rand_in_loss = any(C_max(w) > 0 for w in (lw.lambda_rgb_tv, lw.lambda_normal_tv, lw.lambda_depth_tv))
+    predicted = {"refine": {"resident_fwd": views, "resident_bwd_accum": views},
+                 "dynamic": {"resident_fwd": 2 * frames,
+                             "resident_bwd_accum": frames * (2 if rand_in_loss else 1)}}
+    for label, want in predicted.items():
+        rows = [r for r in spans.steps if r[0] == label]
+        check([r[1] for r in rows] == list(range(RECIPE_GS_STEPS)), f"{label}: steps taken")
+        for _, step, _, _, launched, metrics in rows:
+            got = {k: v for k, v in launched.items() if v}
+            check(got == want, f"{label} step {step}: launches {got} != {want}")
+            check(all(math.isfinite(v) for v in metrics.values()), f"{label} step {step}: non-finite metric")
+        ms = [r[3] for r in rows]
+        res[f"{label}_ms"] = statistics.median(ms[1:])
+        print(f"[{card}] recipe {label} train_step ({json.dumps(want)} per step): {res[f'{label}_ms']:.2f} "
+              f"ms/step (median without the first; all: {', '.join(f'{x:.1f}' for x in ms)})")
+    print(f"recipe stage 4: {n_gauss} Gaussians = 6 x {n_bound} faces bound of the QEM mesh's {qem.n_faces} "
+          f"({qem.n_faces - n_bound} degenerate ones pruned)")
+
+    # stage 6: 120 B1 launches, the frame OBJs against timed_all
+    exp6 = spans.results["setup"][-1]
+    n_views = exp6.data.cfg.n_predict_views
+    check(launches["stage 6 --export"] == {"resident_fwd": n_views},
+          f"stage 6: launches {launches['stage 6 --export']}, expected {n_views} B1")
+    worst, _, _ = check_frame_objs(torch, np, exp6, os.path.join(out, "sugar-dynamic", "dyn", "save", "4d_export"),
+                                   device, "stage 6")
+    print(f"recipe stage 6: {exp6.data.video_length} frame OBJs of {exp6.static.sugar.faces.shape[0]} faces, "
+          f"against timed_all max|d| {worst:.3g} (limit {EXPORT_VERT_TOL})")
+    res["sub_seconds"] = {k: sum(v) for k, v in sec.items()}
+    print(f"[{card}] recipe seconds: " + "; ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items()))
+    print(f"[{card}] recipe sub-steps (seconds, summed over calls): " + "; ".join(
+        f"{k} {fmt_s(sec[k])}" for k in ("setup", "fit", "test", "density grid", "extraction",
+                                          "component removal", "vertex colours", "OBJ write", "mesh load",
+                                          "QEM", "clustering", "PLY write", "bind", "graph", "bake",
+                                          "frame OBJ") if k in sec))
+    total = {}
+    for per_stage in launches.values():
+        for k, v in per_stage.items():
+            total[k] = total.get(k, 0) + v
+    res["total_launches"] = total
+    print(f"recipe launches in all: {json.dumps(total)}")
     return res
 
 
@@ -2429,13 +2713,20 @@ def main():
 
     # 11. the recovery recipe and the exports of phase 9's trials
     recov = drive_recovery_and_export(torch, np, rb, tb, card, launcher, dev)
-    launch_tmp.cleanup()
 
-    # 12. result lines
+    # 12. the README recipe chained: stages 1-6 through the launcher and the simplification tool
+    recipe = drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, dev, launch_tmp.name)
+    launch_tmp.cleanup()
+    recipe_launches = recipe["total_launches"]
+
+    # 13. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
+        # every path's launches, the recipe's (phase 12) included
+        n_recipe = recipe_launches.get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra}
+                "tpu": tpu, "launches": n_launches + n_recipe, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "launches_recipe": n_recipe, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

@@ -24,7 +24,9 @@ are read back as Python values.  This module imports no jax.
   :func:`implicit_volume_params` (the tree ``{"encoding": {"tables"},
   "density_mlp": [{w, b}, …], "feature_mlp": […]}``), :func:`occgrid_state`
   and :func:`nerf_train_state` (optax Adam's ``mu`` / ``nu`` / ``count``
-  become ``exp_avg`` / ``exp_avg_sq`` / ``step``);
+  become ``exp_avg`` / ``exp_avg_sq`` / ``step``); :func:`zero123_checkpoint`
+  — a JAX ``Zero123Experiment``'s state as the port experiment's
+  ``load_state`` dict;
 - stage 4: :func:`sugar_static_losses` and :func:`static_train_state` (the
   params and the ``optax.multi_transform`` Adam moments of every
   ``SuGaRParams`` field).  ``RasterizerConfig`` crosses over through
@@ -51,7 +53,7 @@ from .ops.hashgrid import HashGridConfig
 from .systems.sugar_4dgen import DynTrainState, Sugar4DGenLosses, init_dyn_state
 from .systems.sugar_static import StaticTrainState, SugarStaticLosses, init_static_state
 from .systems.zero123_system import NeRFTrainState, Zero123Losses, init_nerf_state
-from .utils.tree import tree_leaves
+from .utils.tree import tree_leaves, tree_map
 
 
 def _get(src, name):
@@ -193,6 +195,16 @@ def nerf_train_state(src, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8
         for p, m, v in zip(tree_leaves(state.geo_params), mu, nu):
             _set_adam(state.opt_state, p, _get(adam, "count"), m, v)
     return state
+
+
+def zero123_checkpoint(src, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8) -> dict:
+    """A JAX ``Zero123Experiment``'s state (its ``NeRFTrainState`` as numpy,
+    as for :func:`nerf_train_state`) as the dict the port experiment's
+    ``load_state`` takes (``geo_params``, Adam's moments, ``step``), on the
+    CPU; ``lr`` / ``betas`` / ``eps`` only shape the intermediate optimizer."""
+    state = nerf_train_state(src, lr=lr, betas=betas, eps=eps, device="cpu")
+    return {"geo_params": tree_map(lambda x: x.detach(), state.geo_params),
+            "opt_state": {"state": state.opt_state.state_dict()["state"]}, "step": state.step}
 
 
 def _opt_state(src):

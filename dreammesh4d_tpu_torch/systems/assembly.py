@@ -1,6 +1,6 @@
 """Experiment assembly: config -> runnable stage experiments (counterpart of
 ``dreammesh4d_tpu/systems/assembly.py`` for the stages the port runs from
-their YAML, the static SuGaR refine and the dynamic stage).
+their YAML: the static NeRF, the static SuGaR refine and the dynamic stage).
 
 For each ``system_type`` it builds the data module, the geometry, the
 optimizer and the train step, and exposes the trainer-facing callbacks
@@ -10,15 +10,15 @@ from ``np.random.RandomState(cfg.seed)`` as the JAX ones do; the step's own
 draws (the background inversion) come from a ``torch.Generator`` seeded with
 ``cfg.seed``, where the JAX package splits a ``PRNGKey``.
 
-``export()`` writes the JAX package's file set: the static stage
+``export()`` writes the JAX package's file set: the NeRF stage
+``save/model.obj`` with vertex colours, the static stage
 ``save/refined_mesh.obj`` and ``save/gaussians.ply``, the dynamic stage one
 textured ``save/4d_export/frame_XXX.obj`` per timestamp sharing
 ``material0.mtl`` / ``material0.png``.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: the guidance (A3; only ``pretrained_model_name_or_path``
-``""`` / ``none`` runs), ``zero123-system`` (A4), the Gaussian stage and
-more than one device (A7).
+``""`` / ``none`` runs), the Gaussian stage and more than one device (A7).
 """
 
 from __future__ import annotations
@@ -37,13 +37,21 @@ from ..data.temporal_image import (TemporalImageConfig, TemporalImageDataModule,
                                    frame_timestamps)
 from ..data.uncond import RandomCameraConfig
 from ..export.gaussian_io import save_gaussians_ply
+from ..export.isosurface import extract_isosurface
 from ..export.mesh_io import MeshData, load_mesh, save_obj
 from ..export.texture_bake import bake_texture, export_textured_mesh
 from ..models.geometry.deformation import DeformationConfig, init_deformation
 from ..models.geometry.dynamic_sugar import (DynamicSuGaRConfig, build_dynamic_static,
                                              init_discrete_params, timed_all)
+from ..models.geometry.implicit_volume import (ImplicitVolumeConfig, export_density_grid,
+                                               forward_field, init_implicit_volume)
 from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar, gaussian_attributes
+from ..models.materials import DiffuseWithPointLightMaterial
+from ..models.renderers.nerf_volume_renderer import (NeRFRendererConfig, init_occgrid,
+                                                     make_image_renderer, make_occgrid_update)
+from ..ops.cameras import get_ray_directions, get_rays
 from ..ops.gs.rasterize import RasterizerConfig, rasterize
+from ..ops.hashgrid import HashGridConfig, progressive_level_mask
 from ..ops.meshops import build_one_ring, cotangent_weights
 from ..registry import register
 from ..utils.checkpoint import restore_checkpoint
@@ -54,6 +62,7 @@ from .sugar_4dgen import (Sugar4DGenLosses, init_dyn_state, make_dynamic_render_
                           make_dynamic_train_step)
 from .sugar_static import (SugarStaticLosses, init_static_state, make_render_eval,
                            make_static_train_step)
+from .zero123_system import Zero123Losses, init_nerf_state, make_zero123_train_step
 
 log = logging.getLogger(__name__)
 
@@ -514,15 +523,164 @@ class Sugar4DGenExperiment:
         _load_optimizer_state(self.state.opt_state, saved["opt_state"])
 
 
+# ---------------------------------------------------------------------------
+# zero123 (static NeRF) experiment
+# ---------------------------------------------------------------------------
+
+
+@register("zero123-system")
+class Zero123Experiment:
+    """Stage 1: the implicit volume fitted to the reference image (and, with
+    the guidance, to Zero123's novel views), and its ``mc-cpu`` mesh export
+    (stage 2).
+
+    Adam reads all of ``optimizer.args`` (lr, betas, ``eps``).  The step's
+    draws (the occupancy grid's jitter, the ray samples) come from a
+    ``torch.Generator`` seeded with ``cfg.seed + 1``, where the JAX package
+    splits ``PRNGKey(seed + 1)``; the ambient ratio after
+    ``ambient_only_steps`` is drawn from the global numpy stream, as the JAX
+    package draws it.  The occupancy grid is not part of the checkpoint: a
+    restored experiment starts fully occupied until its next update."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = dev = torch.device(device)
+        system = cfg.system
+        check_single_device(cfg.trainer)
+        self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
+        self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
+
+        geo = dict(system.get("geometry", {}))
+        pos_enc = dict(geo.get("pos_encoding_config", {}))
+        self.hg = HashGridConfig(
+            n_levels=int(pos_enc.get("n_levels", 16)),
+            n_features_per_level=int(pos_enc.get("n_features_per_level", 2)),
+            log2_hashmap_size=int(pos_enc.get("log2_hashmap_size", 19)),
+            base_resolution=int(pos_enc.get("base_resolution", 16)),
+            per_level_scale=float(pos_enc.get("per_level_scale", 1.447269237440378)),
+            layout=str(pos_enc.get("layout", "corner")))
+        self.geo_cfg = ImplicitVolumeConfig(
+            radius=float(geo.get("radius", 2.0)),
+            density_bias=geo.get("density_bias", "blob_magic3d"),
+            density_activation=str(geo.get("density_activation", "softplus")),
+            density_blob_scale=float(geo.get("density_blob_scale", 10.0)),
+            density_blob_std=float(geo.get("density_blob_std", 0.5)),
+            normal_type=str(geo.get("normal_type", "analytic")),
+            hashgrid=self.hg)
+        rend = dict(system.get("renderer", {}))
+        self.rcfg = NeRFRendererConfig(
+            radius=self.geo_cfg.radius,
+            num_samples_coarse=int(rend.get("num_samples_coarse", 64)),
+            num_samples_fine=int(rend.get("num_samples_fine", 64)),
+            estimator=str(rend.get("estimator", "importance")),
+            grid_resolution=int(rend.get("grid_resolution", 32)),
+            occ_candidates=int(rend.get("occ_candidates", 192)),
+            occ_samples=int(rend.get("occ_samples", 64)),
+            occ_thre=float(rend.get("occ_thre", 0.01)),
+            grid_update_every=int(rend.get("grid_update_every", 16)))
+        self.material = DiffuseWithPointLightMaterial()
+        args = dict(system.get("optimizer", {}).get("args", {}))
+        betas = args.get("betas", [0.9, 0.99])
+        self.adam = dict(lr=float(args.get("lr", 0.01)), betas=(float(betas[0]), float(betas[1])),
+                         eps=float(args.get("eps", 1e-8)))
+        self.losses = _loss_config(Zero123Losses, system)
+        maybe_build_guidance(system)
+        self._train_step = make_zero123_train_step(self.geo_cfg, self.rcfg, self.losses,
+                                                    self.material, None, device=dev)
+        self._image_renderer = make_image_renderer(self.geo_cfg, self.rcfg, self.material)
+        params = init_implicit_volume(self.geo_cfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)),
+                                      device=dev)
+        self.state = init_nerf_state(params, **self.adam, device=dev)
+        self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed) + 1)
+        self.ambient_only_steps = int(system.get("material", {}).get("ambient_only_steps", 0))
+        self.occ_state = self._occ_update = None
+        if self.rcfg.estimator == "occgrid":
+            self.occ_state = init_occgrid(self.rcfg, device=dev)
+            self._occ_update = make_occgrid_update(self.geo_cfg, self.rcfg, device=dev)
+        self.ref_light = torch.tensor([0.0, 0.0, 3.0], device=dev)
+
+    def train_batch(self, step: int) -> dict:
+        """The step's batch: the flattened reference view and the random
+        views of the step's milestone."""
+        batch = self.data.train_batch(step)
+        b = {"ref_rays_o": batch["ref_rays_o"].reshape(-1, 3),
+             "ref_rays_d": batch["ref_rays_d"].reshape(-1, 3),
+             "ref_rgb": batch["ref_rgb"].reshape(-1, 3),
+             "ref_mask": batch["ref_mask"].reshape(-1, 1),
+             "ref_light": self.ref_light,
+             "rand_rays_o": batch["rays_o"], "rand_rays_d": batch["rays_d"]}
+        for k in ("light_positions", "elevation", "azimuth", "camera_distances"):
+            b[k] = batch[k]
+        if "ref_depth" in batch:
+            b["ref_depth"] = batch["ref_depth"].reshape(-1, 1)
+        if "ref_normal" in batch:
+            b["ref_normal"] = batch["ref_normal"].reshape(-1, 3)
+        return b
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        batch = self.train_batch(step)
+        lm = progressive_level_mask(self.hg, step)
+        ambient = 1.0 if step < self.ambient_only_steps else 0.1 + 0.9 * float(np.random.rand())
+        if self._occ_update is not None and step % self.rcfg.grid_update_every == 0:
+            self.occ_state = self._occ_update(self.occ_state, self.state.geo_params, self.generator,
+                                              torch.as_tensor(lm, device=self.device))
+        self.state, metrics = self._train_step(self.state, batch, self.generator, lm, ambient, None,
+                                               self.occ_state)
+        return metrics
+
+    def validate(self, step: int, test: bool = False) -> None:
+        """4 orbit views at min(eval_height, 128)² as one image grid,
+        ``it{step}-nerf.png`` (also for ``test``, as in the JAX package)."""
+        R = min(int(self.data.cfg.random_camera.eval_height), 128)
+        orbit = self.data.random_sampler.orbit(n_views=4, height=R, width=R)
+        fovy = math.radians(self.data.cfg.default_fovy_deg)
+        dirs = get_ray_directions(R, R, 0.5 * R / math.tan(0.5 * fovy), device=self.device)
+        white = torch.ones(3, device=self.device)
+        frames = []
+        for i in range(4):
+            ro, rd = get_rays(dirs, orbit["c2w"][i], keepdim=True)
+            out = self._image_renderer(self.state.geo_params, ro, rd, self.ref_light, white,
+                                       ambient_ratio=1.0)
+            frames.append(out["comp_rgb"].cpu().numpy())
+        self.saver.save_image_grid(f"it{step}-nerf.png", [{"type": "rgb", "img": f} for f in frames])
+
+    def export(self) -> None:
+        """``save/model.obj`` with vertex colours: the density grid at
+        ``system.exporter.isosurface_resolution`` (128; the only resolution
+        key read, as in the JAX package) over the geometry's box, marching
+        tetrahedra at the auto threshold, small components removed, and
+        sigmoid(features) of the field at every vertex."""
+        res = int(self.cfg.system.get("exporter", {}).get("isosurface_resolution", 128))
+        params = self.state.geo_params
+        grid = export_density_grid(params, self.geo_cfg, res)
+        r = self.geo_cfg.radius
+        mesh = extract_isosurface(grid, None, (-r,) * 3, (r,) * 3)
+        if mesh.n_verts:
+            with torch.no_grad():
+                _, feats = forward_field(params, self.geo_cfg,
+                                         torch.as_tensor(mesh.v_pos, device=self.device))
+                mesh.v_rgb = torch.sigmoid(feats).cpu().numpy()
+        save_obj(self.saver.path("model.obj"), mesh)
+
+    # checkpoint protocol: the occupancy grid is not saved (nor in the JAX package)
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"geo_params": tree_map(lambda x: x.detach(), s.geo_params),
+                "opt_state": _optimizer_state(s.opt_state), "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        self.state = init_nerf_state(saved["geo_params"], **self.adam, step=int(saved["step"]),
+                                     device=self.device)
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
+
+
 EXPERIMENTS = {"sugar-static-system": SugarStaticExperiment,
-               "sugar-4dgen-system": Sugar4DGenExperiment}
+               "sugar-4dgen-system": Sugar4DGenExperiment,
+               "zero123-system": Zero123Experiment}
 
 
 def build_experiment(cfg, device="cuda"):
     """The experiment of ``cfg.system_type`` on ``device``."""
-    if cfg.system_type == "zero123-system":
-        raise NotImplementedError("system_type 'zero123-system' (stage 1) does not run from its "
-                                  "YAML in the PyTorch port yet (ROADMAP A4)")
     if cfg.system_type == "sugar-static-system" and str(cfg.system.get("stage", "sugar")) == "gaussian":
         raise NotImplementedError("the Gaussian stage (system.stage: gaussian) is not ported to "
                                   "PyTorch yet (ROADMAP A7)")

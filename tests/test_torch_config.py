@@ -190,7 +190,8 @@ def test_dynamic_tag_and_resolvers(tmp_path):
 def test_registry_resolves_the_stages_names():
     from dreammesh4d_tpu_torch.data.image import SingleImageDataModule
     from dreammesh4d_tpu_torch.data.temporal_image import TemporalImageDataModule
-    from dreammesh4d_tpu_torch.systems.assembly import Sugar4DGenExperiment, SugarStaticExperiment
+    from dreammesh4d_tpu_torch.systems.assembly import (Sugar4DGenExperiment, SugarStaticExperiment,
+                                                        Zero123Experiment)
 
     assert registry.find("sugar-static-system") is SugarStaticExperiment
     assert registry.find("sugar-4dgen-system") is Sugar4DGenExperiment
@@ -198,8 +199,9 @@ def test_registry_resolves_the_stages_names():
     assert registry.find("temporal-image-datamodule") is TemporalImageDataModule
     mixed = registry.find("sugar-static-system:single-image-datamodule")
     assert issubclass(mixed, SugarStaticExperiment) and issubclass(mixed, SingleImageDataModule)
+    assert registry.find("zero123-system") is Zero123Experiment
     with pytest.raises(KeyError):
-        registry.find("zero123-system")
+        registry.find("dreamfusion-system")  # the zoo (ROADMAP A7)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

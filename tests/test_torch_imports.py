@@ -6,6 +6,8 @@
 - The entry points default to ``device="cuda"``: without a card they raise
   instead of quietly using the CPU; with one they land on it.
 - ``chip_smoke.py`` fails, and prints no result, where there is no card.
+- No port source names a path under the repository's ``native/``: the port
+  builds its own copies of the host C++ sources.
 """
 
 import json
@@ -42,7 +44,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "utils.checkpoint", "utils.saving", "utils.loggers", "trainer", "systems.assembly",
                "launch", "serving", "ops.mesh_raster", "utils.procedural", "utils.perceptual",
                "utils.metrics", "recovery", "export.mesh_io", "export.gaussian_io",
-               "export.uv_unwrap", "export.texture_bake")
+               "export.uv_unwrap", "export.texture_bake", "host_build", "export.isosurface",
+               "export.decimate", "scripts.mesh_simplification", "scripts.full_pipeline")
 
 
 def test_port_imports_no_jax():
@@ -51,7 +54,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
-    assert int(n_modules) >= 48
+    assert int(n_modules) >= 54
     for name in NEW_MODULES:
         assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad
@@ -201,3 +204,41 @@ def test_launcher_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             launch.main(args, extras)
+
+
+def test_zero123_experiment_and_full_pipeline_default_to_cuda(tmp_path):
+    from dreammesh4d_tpu_torch.config import load_config
+    from dreammesh4d_tpu_torch.scripts import full_pipeline
+    from dreammesh4d_tpu_torch.systems.assembly import Zero123Experiment
+
+    cfg = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
+                      cli_args=["data.image_path=/x/a_rgba.png", f"exp_root_dir={tmp_path}",
+                                "system.guidance.pretrained_model_name_or_path=none",
+                                "system.geometry.pos_encoding_config.n_levels=2",
+                                "system.geometry.pos_encoding_config.log2_hashmap_size=6"])
+    if torch.cuda.is_available():
+        assert Zero123Experiment(cfg).state.geo_params["encoding"]["tables"].device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        Zero123Experiment(cfg)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        full_pipeline.run(str(tmp_path / "pipeline"), tiny=True)
+    assert not (tmp_path / "pipeline").exists()
+    assert Zero123Experiment(cfg, device="cpu").state.geo_params["encoding"]["tables"].device.type == "cpu"
+
+
+def test_port_sources_name_no_path_under_the_repos_native():
+    from dreammesh4d_tpu_torch import host_build
+
+    pkg = os.path.join(REPO, "dreammesh4d_tpu_torch")
+    assert host_build.SRC_DIR == host_build.PKG_DIR / "native"
+    assert sorted(os.listdir(host_build.SRC_DIR)) == ["marching_tets.cpp", "qem_decimate.cpp"]
+    sources = [os.path.join(d, f) for d, _, files in os.walk(pkg) for f in files
+               if f.endswith((".py", ".cpp", ".cu", ".cuh")) and "_build" not in d]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(sources) > 50
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        for pattern in ("native/mc", "native/build", '"native", "mc"', "'native', 'mc'"):
+            assert pattern not in text, (path, pattern)

@@ -29,8 +29,8 @@ from the checkpoint's parameters (the JAX comparison of both files is in
 ``test_torch_export.py``).
 
 And what the port refuses: the guidance paths it cannot serve yet (ROADMAP
-A3), ``zero123-system`` (A4), the Gaussian stage and more than one device
-(A7).
+A3), the Gaussian stage and more than one device (A7); ``zero123-system``
+builds since it runs from its YAML.
 """
 
 import os
@@ -222,11 +222,23 @@ def test_guidance_paths(tmp_path, caplog):
             assembly.maybe_build_guidance({"guidance": {"pretrained_model_name_or_path": path}})
 
 
-def test_unported_systems_and_devices_raise(dotlist):
+def test_unported_systems_and_devices_raise(dotlist, tmp_path):
+    """Since ``zero123-system`` runs from its YAML it builds (from the
+    YAML's full width, guidance off); the Gaussian stage and more than one
+    device still raise."""
     zero123 = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
-                          cli_args=["data.image_path=/x/a_rgba.png", "use_timestamp=false"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        assembly.build_experiment(zero123, device="cpu")
+                          cli_args=["data.image_path=/x/a_rgba.png", "use_timestamp=false",
+                                    f"exp_root_dir={tmp_path}",
+                                    "system.guidance.pretrained_model_name_or_path=none"])
+    exp = assembly.build_experiment(zero123, device="cpu")
+    assert isinstance(exp, assembly.Zero123Experiment)
+    assert tuple(exp.state.geo_params["encoding"]["tables"].shape) == (16, 65536, 16)
+    with pytest.raises(NotImplementedError, match="A7"):
+        assembly.build_experiment(load_config(
+            os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
+            cli_args=["data.image_path=/x/a_rgba.png", f"exp_root_dir={tmp_path}",
+                      "system.guidance.pretrained_model_name_or_path=none", "trainer.devices=2"]),
+            device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         assembly.build_experiment(load_config(YAML, cli_args=dotlist + ["system.stage=gaussian"],
                                               makedirs=False), device="cpu")
