@@ -54,13 +54,14 @@ Phases, each of which fails the run on a failed check:
    differently seeded deformation, 4 random + 4 reference views at 512², 10
    inter-frame timestamps, Adam (lr 1.6e-3, betas 0.9/0.99) — with its own
    launch counts, then one step with ``bwd_accum=False`` from the same state.
-   The guidance model is not ported yet; a stand-in ``guidance_fn`` (mean
-   squared distance of the random-view render from mid-grey) takes its place
-   in the loss, so that the random views' gradients go through the backward
-   kernel as they will with the real guidance.  With ``guidance_fn=None`` and
-   the YAML's zero TV weights the random views do not reach the loss at all
-   and autograd skips their backward; a few such steps are driven and
-   counted too;
+   The guidance is the real one (``sds_guidance_fn``, temporal): Stable
+   Zero123 at ``random:0`` with the YAML's widths (UNet 320 × [1,2,4,4], VAE
+   128, ViT-L/14) in bfloat16, its bank built from the 32 target frames; the
+   random views (at 512², resized to 256² inside SDS) reach the loss through
+   it and go through the backward kernel.  With ``guidance_fn=None`` and the
+   YAML's zero TV weights the random views do not reach the loss at all and
+   autograd skips their backward; a few such steps are driven and counted
+   too;
 6. the stage-1 training main path — ``make_zero123_train_step`` →
    ``train_step`` at the full width of ``configs/stable-zero123.yaml`` (16
    levels × 2 features, cell layout, 2^16 rows, base 16; radius 2,
@@ -76,7 +77,8 @@ Phases, each of which fails the run on a failed check:
    synthetic: a shaded sphere seen from the reference camera.  Steps 0..17 at
    the first milestone's shapes (reference 128², 8 views at 64²), then a few
    steps at the last milestone's (reference 512², 2 views at 256²) from the
-   same state, with the stand-in guidance, and a few with
+   same state, with the real guidance (the same modules under the stage-1
+   YAML's settings, its bank from the 128² reference), and a few with
    ``guidance_fn=None``; B4/B5 launch counts are held to what the code path
    predicts;
 7. the export pass — ``export_density_grid`` at 256³ through B4;
@@ -152,7 +154,27 @@ Phases, each of which fails the run on a failed check:
     clustering, bind), stage-1 ms/step per milestone beside phase 6's, the
     mesh's V/F before and after simplification and each stage's peak
     memory;
-13. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
+13. the Stable Zero123 guidance at the YAMLs' full widths
+    (``drive_guidance``): (a) one float32 ``sds_loss`` (B = 1) on the card
+    and on the CPU with the same random weights (the zero-initialised
+    convolutions drawn too) and draws — the bank, the loss, ``grad_norm``
+    and d loss/d rgb within SDS_CPU_TOL / SDS_CPU_GRAD_TOL — then bfloat16
+    against float32 on the card within SDS_BF16_TOL / SDS_BF16_GRAD_TOL (the
+    gradient's relative L2 error); the
+    UNet's ms per call (CUDA events) and one SDS forward + backward; (b)
+    those weights written as an LDM-layout ``.ckpt`` with the schedule
+    buffers and text-tower keys, loaded through the dynamic YAML's guidance
+    path: zero unmapped keys, equal weights, a bit-equal ``sds_loss`` and
+    its gradient within SDS_CKPT_GRAD_TOL; (c)
+    ``configs/stable-zero123.yaml``, ``sugar_static_refine.yaml`` and
+    ``sugar_dynamic_dg.yaml`` through the launcher with
+    ``pretrained_model_name_or_path=random:0``, GUIDED_STEPS steps each on
+    phase 9's assets: the SDS term in every step's metrics, B4/B5 launches
+    of every stage-1 step as phase 6 predicts, 5 + 5 and 8 + 8 B1/B2 a
+    Gaussian step (the dynamic random views reach SDS at
+    ``guidance_render_size``); ms/step beside the guidance-off steps of
+    phases 9 and 12, the guidance's share, the banks' seconds, peak memory;
+14. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -216,8 +238,16 @@ RECIPE_CLUSTER_SCALE = 30
 RECIPE_GS_STEPS = 4  # the static refine and the dynamic stage, each
 MC_EXPORT = ["system.exporter_type=mesh-exporter", "system.exporter.fmt=obj",
              "system.geometry.isosurface_method=mc-cpu", "system.geometry.isosurface_resolution=256"]
+# the guidance (phases 5, 6 and 13): random:0 at the YAMLs' widths
+GUIDED_STEPS = 3  # each stage through the launcher with the guidance on (phase 13)
+SDS_CPU_TOL = 1e-4  # float32 card vs CPU: loss_sds and grad_norm, relative
+SDS_CPU_GRAD_TOL = 1e-3  # float32 card vs CPU: d loss / d rgb and the bank, of their max |value|
+SDS_CKPT_GRAD_TOL = 1e-5  # the checkpoint's d loss / d rgb vs its source modules', of its max |value|
+SDS_BF16_TOL = 5e-2  # bfloat16 vs float32 on the card: loss_sds and grad_norm, relative
+SDS_BF16_GRAD_TOL = 1e-1  # bfloat16 vs float32 on the card: d loss / d rgb, ||d|| / ||float32||
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bfloat16 tensor-core peak, H100 SXM data sheet, 700 W
 
 
 def fail(msg):
@@ -661,11 +691,13 @@ def profile_call(torch, label, fn, card, top=12):
         print(f"  [{card}] host   {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:80]}")
 
 
-def training_setup(torch, np, viewer, params, static, dparams, dyn_cfg, raster_cfg, device):
+def training_setup(torch, np, viewer, params, static, dparams, dyn_cfg, raster_cfg, guidance, device):
     """The dynamic stage of sugar_dynamic_dg.yaml on the full-width scene:
-    returns (make_step, target video, batch sampler).  The target video is
-    the same mesh under a second deformation (seed 1), rendered once from the
-    reference camera and kept on the device."""
+    returns (make_step, target video, batch sampler, the guidance's bank).
+    The target video is the same mesh under a second deformation (seed 1),
+    rendered once from the reference camera and kept on the device; the
+    guidance's bank holds its 32 frames."""
+    from dreammesh4d_tpu_torch.systems.assembly import sds_guidance_fn
     from dreammesh4d_tpu_torch.data.temporal_image import frame_timestamps
     from dreammesh4d_tpu_torch.data.uncond import assemble_camera_batch
     from dreammesh4d_tpu_torch.ops.meshops import build_one_ring, cotangent_weights
@@ -694,14 +726,14 @@ def training_setup(torch, np, viewer, params, static, dparams, dyn_cfg, raster_c
         lambda_normal_tv=0.0, lambda_obj_centric=0.0, lambda_plane_tv=0.0001,
         lambda_time_smoothness=0.01)
 
-    def guidance_stand_in(guidance_state, generator, rgb, batch):
-        return ((rgb - 0.5) ** 2).mean()
+    bank_s, bank_peak, bank = bank_build(torch, guidance, video[0])
 
-    def make_step(bwd_accum, guidance=True):
-        return make_dynamic_train_step(
+    def make_step(bwd_accum, guidance_on=True):
+        step = make_dynamic_train_step(
             params, static, dcfg, raster_cfg._replace(bwd_accum=bwd_accum), losses, arap_w,
-            guidance_fn=guidance_stand_in if guidance else None, invert_bg_prob=1.0,
-            video_frames=video, device=device)
+            guidance_fn=sds_guidance_fn(guidance, temporal=True) if guidance_on else None,
+            invert_bg_prob=1.0, video_frames=video, device=device)
+        return lambda state, batch, gen: step(state, batch, gen, bank)
 
     rng = np.random.default_rng(0)
     f32 = dict(dtype=torch.float32, device=device)
@@ -716,6 +748,9 @@ def training_setup(torch, np, viewer, params, static, dparams, dyn_cfg, raster_c
         fovy = torch.full((FRAMES_PER_STEP,), math.radians(20.0), **f32)
         start = rng.uniform(0.0, 0.8)
         return {
+            "elevation": torch.as_tensor(np.degrees(el), **f32),
+            "azimuth": torch.as_tensor(np.degrees(az), **f32),
+            "camera_distances": torch.full((FRAMES_PER_STEP,), 3.8, **f32),
             "timestamps": ts_all[torch.as_tensor(fi, device=device)],
             "frame_indices": torch.as_tensor(fi, device=device),
             "ref_cameras": type(ref_cam)(*(x[:FRAMES_PER_STEP] for x in ref_cam)),
@@ -723,7 +758,18 @@ def training_setup(torch, np, viewer, params, static, dparams, dyn_cfg, raster_c
             "inter_timestamps": torch.linspace(start, start + 0.2, N_INTER, **f32),
         }
 
-    return make_step, video, sample_batch
+    return make_step, video, sample_batch, (bank_s, bank_peak)
+
+
+def bank_build(torch, guidance, frames):
+    """(seconds, peak GiB, bank): ``prepare_embeddings`` of ``frames``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bank = guidance.prepare_embeddings(frames)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30, bank
 
 
 def drive_training(torch, np, rb, card, make_step, sample_batch, dparams, device):
@@ -807,7 +853,7 @@ def drive_training(torch, np, rb, card, make_step, sample_batch, dparams, device
 
     # without a guidance_fn (and with the YAML's zero TV weights) the random
     # views are rendered but never reach the loss: no backward for them
-    bare_step = make_step(True, guidance=False)
+    bare_step = make_step(True, guidance_on=False)
     s = init_dyn_state(snapshot, lr=1.6e-3, betas=(0.9, 0.99), step=state.step, device=device)
     rb.reset_launch_counts()
     bare_ms = []
@@ -1042,11 +1088,12 @@ def stage1_predicted(n_rays, updated):
     return fwd + int(updated), bwd
 
 
-def drive_stage1(torch, np, hc, card, device):
+def drive_stage1(torch, np, hc, card, guidance, device):
     """The stage-1 training main path and the export pass.  Returns the
     launch counts of the main path, ms per step, the peak memory, the
     geometry config, the trained parameters and a callable that takes one
     more first-milestone step (for the profile)."""
+    from dreammesh4d_tpu_torch.systems.assembly import sds_guidance_fn
     from dreammesh4d_tpu_torch.data.uncond import RandomCameraSampler
     from dreammesh4d_tpu_torch.models.geometry.implicit_volume import init_implicit_volume
     from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import (init_occgrid,
@@ -1059,15 +1106,16 @@ def drive_stage1(torch, np, hc, card, device):
     geo, rcfg, losses, material, cams = stage1_configs()
     ambient_only_steps = 100000  # system.material.ambient_only_steps
 
-    def guidance_stand_in(guidance_state, generator, rgb, batch):
-        return ((rgb - 0.5) ** 2).mean()
-
+    sds = sds_guidance_fn(guidance)
     steps = {g: make_zero123_train_step(geo, rcfg, losses, material,
-                                        guidance_fn=guidance_stand_in if g else None, device=device)
+                                        guidance_fn=sds if g else None, device=device)
              for g in (True, False)}
     occ_update = make_occgrid_update(geo, rcfg, device=device)
     c2w = torch.as_tensor(make_c2w_numpy(5.0, 0.0, 3.8), device=device)
     refs = {hw: sphere_reference(torch, c2w, hw, 20.0, device) for hw in S1_REF_HW}
+    # the bank from the reference image at the first milestone's size, as the experiment builds it
+    bank_s, bank_peak, bank = bank_build(torch, guidance, refs[S1_REF_HW[0]]["ref_rgb"].reshape(
+        1, S1_REF_HW[0], S1_REF_HW[0], 3))
     for hw, ref in refs.items():
         cover = float(ref["ref_mask"].mean())
         print(f"stage 1 reference {hw}x{hw}: silhouette covers {cover:.4f} of the pixels")
@@ -1096,7 +1144,7 @@ def drive_stage1(torch, np, hc, card, device):
             occ[0] = occ_update(occ[0], state.geo_params, gen, torch.as_tensor(lm, device=device))
             occ_share.append(float(occ[0].binary.mean()))
         n_rays = batch["ref_rays_o"].shape[0], rand["rays_o"][..., 0].numel()
-        return steps[guidance](state, batch, gen, lm, ambient, None, occ[0]), n_rays, updated
+        return steps[guidance](state, batch, gen, lm, ambient, bank, occ[0]), n_rays, updated
 
     def run(label, n_steps, first_step, ref_hw, sampler_step, guidance, state):
         hc.reset_launch_counts()
@@ -1129,7 +1177,7 @@ def drive_stage1(torch, np, hc, card, device):
         check(("loss_sds" in history[0]) == guidance, f"{label}: unexpected metrics")
         return state, history, counts, statistics.median(ms[1:] or ms), peak
 
-    results = {}
+    results = {"bank_s": bank_s, "bank_peak": bank_peak}
     state, hist, counts_first, results["first_ms"], results["first_peak"] = run(
         "first milestone", S1_FIRST_STEPS, 0, S1_REF_HW[0], 0, True, state)
     pair = [h["loss_rgb"] + h["loss_mask"] for h in hist]
@@ -1166,7 +1214,7 @@ def drive_stage1(torch, np, hc, card, device):
     # all rays at once (no chunks, no rematerialisation) at the first
     # milestone: what the chunking saves
     steps["whole"] = make_zero123_train_step(geo, dataclasses.replace(rcfg, ray_chunk_train=0), losses,
-                                             material, guidance_fn=guidance_stand_in, device=device)
+                                             material, guidance_fn=sds, device=device)
     s = fresh()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):  # the first step of this shape also grows the allocator's pool
@@ -1991,7 +2039,7 @@ def drive_recovery_and_export(torch, np, rb, tb, card, launcher, device):
           f"{stats['static_max_tile_count']} / {stats['dynamic_max_tile_count']} against capacity "
           f"{stats['tile_capacity']}; seconds: ground truth {stats['gt_assets_s']:.2f}, static "
           f"{stats['static_s']:.2f}, dynamic {stats['dynamic_s']:.2f}, evaluation {stats['eval_s']:.2f}")
-    print(f"recovery columns (cut run, not gated; CLIP {recovery.CLIP_NOTE}): {json.dumps(cols)}")
+    print(f"recovery columns (cut run, not gated; CLIP on a random tower, relative only): {json.dumps(cols)}")
     check(all(math.isfinite(float(v)) for v in cols.values()), "recovery: a non-finite column")
     check(res["recovery_launches"].get("resident_fwd", 0) > 0
           and res["recovery_launches"].get("resident_bwd_accum", 0) > 0,
@@ -2283,6 +2331,320 @@ def drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, device, tmp):
     return res
 
 
+def yaml_guidance(name, **over):
+    """``system.guidance_type`` and ``system.guidance`` of configs/<name>
+    through the port's config loader, the guidance's keys updated by
+    ``over``: the ``system`` dict ``maybe_build_guidance`` reads."""
+    from dreammesh4d_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", name), makedirs=False,
+                      cli_args=["data.image_path=/nonexistent/ref_rgba.png",
+                                "data.video_frames_dir=/nonexistent"])
+    return {"guidance_type": cfg.system.get("guidance_type"),
+            "guidance": {**dict(cfg.system.guidance), **over}}
+
+
+def rel_err(a, b):
+    """max |a − b| over max |b|, as a float."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def smooth_images(torch, n, hw, seed):
+    """``n`` smooth colour images (n, hw, hw, 3) in [0, 1] on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, hw), torch.linspace(0, 1, hw), indexing="ij")
+    f = 1 + 4 * torch.rand((n, 1, 1, 3, 2), generator=g)
+    ph = 6.3 * torch.rand((n, 1, 1, 3), generator=g)
+    return 0.5 + 0.4 * torch.sin(f[..., 0] * 6.3 * yy[None, ..., None] + f[..., 1] * 6.3
+                                 * xx[None, ..., None] + ph)
+
+
+def drive_guidance(torch, np, rb, tb, hc, card, launcher, recipe, direct, device, tmp):
+    """Phase 13, the Stable Zero123 guidance at the YAMLs' full widths
+    (UNet 320 × [1,2,4,4], VAE 128, ViT-L/14): (a) one float32 ``sds_loss``
+    (B = 1) on the card and on the CPU with the same weights (random, the
+    zero-initialised convolutions drawn too, so that the UNet's output is not
+    zero) and draws, then bfloat16 on the card against float32 on the card;
+    (b) those weights written as an LDM-layout ``.ckpt`` (the real key
+    prefixes, the schedule buffers and text-tower keys to skip) and loaded
+    through the dynamic YAML's guidance path: zero unmapped keys, the same
+    weights, the same ``sds_loss`` (its gradient within SDS_CKPT_GRAD_TOL:
+    cuDNN's backward is not bit-reproducible); (c) stages 1, 4 and 5 through
+    ``launch.main`` with ``pretrained_model_name_or_path=random:0``,
+    GUIDED_STEPS steps each, on phase 9's assets: the SDS term in every
+    step's metrics and each step's launches as the code path predicts.
+    ``direct``: phase 5's and 6's numbers.  Returns the phase's numbers."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.models.guidance.zero123 import guidance as zg
+    from dreammesh4d_tpu_torch.models.guidance.zero123.checkpoint import load_ldm_state_dict
+    from dreammesh4d_tpu_torch.systems import assembly
+
+    res = {}
+    dyn_guidance = yaml_guidance("sugar_dynamic_dg.yaml")
+
+    # (a) float32, card against CPU
+    t0 = time.perf_counter()
+    cfg32 = zg.config_from_dict({**dyn_guidance["guidance"], "dtype": "float32"})
+    card32 = zg.StableZero123Guidance(cfg32, device=device)
+    card32.modules.init_params(torch.Generator(device=device).manual_seed(0), zero_init=False)
+    cpu32 = zg.StableZero123Guidance(cfg32, device="cpu")
+    cpu32.modules.load_state_dict(card32.modules.state_dict())
+    n_params = {part: sum(p.numel() for p in getattr(card32.modules, part).parameters())
+                for part in ("unet", "vae", "clip")}
+    print(f"[{card}] guidance at full width: parameters {json.dumps(n_params)}; built on the card and "
+          f"copied to the CPU in {time.perf_counter() - t0:.2f} s")
+    S, L = cfg32.image_size, cfg32.latent_size
+    frames = smooth_images(torch, 2, 2 * S, 13)
+    rgb = smooth_images(torch, 1, S, 14)
+    draws = {"u": torch.tensor([0.37]),
+             "noise": torch.randn((1, 4, L, L), generator=torch.Generator().manual_seed(15))}
+    pose = [torch.tensor([20.0]), torch.tensor([40.0]), torch.tensor([3.8]), torch.tensor([1])]
+
+    def run_sds(guidance, dev, bank=None):
+        if bank is None:
+            bank = guidance.prepare_embeddings(frames.to(dev))
+        x = rgb.to(dev, copy=True).requires_grad_(True)
+        out = guidance.sds_loss(bank, x, *(p.to(dev) for p in pose), 0, **draws)
+        out["loss_sds"].backward()
+        return bank, {k: v.detach().cpu() for k, v in out.items()}, x.grad.cpu().clone()
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    bank_cpu, out_cpu, grad_cpu = run_sds(cpu32, "cpu")
+    res["cpu_sds_s"] = time.perf_counter() - t0
+    bank32, out32, grad32 = run_sds(card32, device)
+    errs = {k: rel_err(bank32[k].cpu(), bank_cpu[k]) for k in bank32}
+    for k in ("loss_sds", "grad_norm"):
+        errs[k] = abs(float(out32[k]) - float(out_cpu[k])) / abs(float(out_cpu[k]))
+    errs["d_rgb"] = rel_err(grad32, grad_cpu)
+    res["card_vs_cpu"] = errs
+    print(f"[{card}] sds_loss float32, card vs CPU (B = 1, t {int(out32['t'][0])} vs {int(out_cpu['t'][0])}): "
+          f"loss {float(out32['loss_sds']):.8g} vs {float(out_cpu['loss_sds']):.8g}; relative errors "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (limits: loss and grad_norm "
+          f"{SDS_CPU_TOL}, the bank and d loss/d rgb {SDS_CPU_GRAD_TOL} of their max); the CPU's bank and "
+          f"step {res['cpu_sds_s']:.2f} s")
+    check(torch.equal(out32["t"], out_cpu["t"]), "the card and the CPU drew other timesteps")
+    check(float(out32["loss_sds"]) > 0 and float(grad32.abs().max()) > 0, "sds_loss or its gradient is zero")
+    check(errs["loss_sds"] <= SDS_CPU_TOL and errs["grad_norm"] <= SDS_CPU_TOL,
+          "float32 sds_loss: card and CPU disagree")
+    check(max(errs["c_crossattn"], errs["c_concat"], errs["d_rgb"]) <= SDS_CPU_GRAD_TOL,
+          "float32 bank or d loss/d rgb: card and CPU disagree")
+    del cpu32, bank_cpu
+
+    cfg16 = zg.config_from_dict(dyn_guidance["guidance"])
+    check(cfg16.dtype == torch.bfloat16, "the dynamic YAML's guidance does not run in bfloat16")
+    card16 = zg.StableZero123Guidance(cfg16, device=device)
+    card16.modules.load_state_dict(card32.modules.state_dict())
+    _, out16, grad16 = run_sds(card16, device)
+    bf = {k: abs(float(out16[k]) - float(out32[k])) / abs(float(out32[k])) for k in ("loss_sds", "grad_norm")}
+    bf["d_rgb"] = float((grad16 - grad32).norm() / grad32.norm())
+    cos = float((grad16 * grad32).sum() / (grad16.norm() * grad32.norm()))
+    res["bf16_vs_f32"] = {**bf, "d_rgb_cosine": cos, "d_rgb_of_max": rel_err(grad16, grad32)}
+    print(f"[{card}] sds_loss bfloat16 vs float32 on the card: loss {float(out16['loss_sds']):.8g} vs "
+          f"{float(out32['loss_sds']):.8g}; relative errors {json.dumps({k: float(f'{v:.3g}') for k, v in bf.items()})}, "
+          f"d loss/d rgb cosine {cos:.6f}, max |d| / max {res['bf16_vs_f32']['d_rgb_of_max']:.3g} (limits: "
+          f"loss and grad_norm {SDS_BF16_TOL}, d loss/d rgb {SDS_BF16_GRAD_TOL} in L2 norm)")
+    check(bf["loss_sds"] <= SDS_BF16_TOL and bf["grad_norm"] <= SDS_BF16_TOL,
+          "bfloat16 sds_loss outside its band of float32")
+    check(bf["d_rgb"] <= SDS_BF16_GRAD_TOL, "bfloat16 d loss/d rgb outside its band of float32")
+
+    # the UNet per call (CUDA events) at the dynamic step's CFG batch, and one
+    # SDS forward + backward at its 4 views of 256²
+    x = torch.randn((8, 8, L, L), generator=torch.Generator(device=device).manual_seed(3), device=device)
+    tt = torch.full((8,), 500, device=device)
+    ctx = torch.randn((8, 1, cfg32.context_dim), generator=torch.Generator(device=device).manual_seed(4),
+                      device=device)
+    views = smooth_images(torch, 4, S, 16).to(device)
+    bank16 = card16.prepare_embeddings(frames.to(device))
+    fi = torch.tensor([0, 1, 0, 1], device=device)
+    el, az, dist = (torch.full((4,), v, device=device) for v in (20.0, 40.0, 3.8))
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def sds_step(g, bank):
+        v = views.clone().requires_grad_(True)
+        g.sds_loss(bank, v, el, az, dist, fi, 0, gen)["loss_sds"].backward()
+
+    with torch.no_grad():
+        res["unet_ms"] = {"bf16": time_ms(torch, lambda: card16.modules.unet(x, tt, ctx), n=10),
+                          "f32": time_ms(torch, lambda: card32.modules.unet(x, tt, ctx), n=10)}
+        res["vae_encode_ms"] = time_ms(torch, lambda: card16.modules.encode_images(views), n=10)
+    res["sds_ms"] = {"bf16": time_ms(torch, lambda: sds_step(card16, bank16), n=10),
+                     "f32": time_ms(torch, lambda: sds_step(card32, bank32), n=10)}
+    unet_flops = unet_macs(card16.modules.unet, x, tt, ctx) * 2
+    res["unet_bound_ms"] = unet_flops / H100_BF16_FLOPS * 1e3
+    print(f"[{card}] UNet per call (batch 8 = CFG 2 x 4 views, 8 x {L} x {L}): bfloat16 "
+          f"{res['unet_ms']['bf16']:.3f} ms, float32 {res['unet_ms']['f32']:.3f} ms ({unet_flops / 1e9:.1f} "
+          f"GFLOP; at the bfloat16 peak {res['unet_bound_ms']:.3f} ms); VAE encode of 4 x {S}² (bfloat16) "
+          f"{res['vae_encode_ms']:.3f} ms; sds_loss forward + backward of 4 views at {S}²: bfloat16 "
+          f"{res['sds_ms']['bf16']:.3f} ms, float32 {res['sds_ms']['f32']:.3f} ms")
+    del card16, bank16
+
+    # (b) a full-width checkpoint in the LDM layout, through the YAML's guidance path
+    sd = {k: v.cpu() for k, v in card32.modules.state_dict().items() if k != "clip_proj"}
+    sched = card32.modules.schedule
+    extra = {"betas": sched.betas.cpu(), "alphas_cumprod": sched.alphas_cumprod.cpu(),
+             "alphas_cumprod_prev": sched.alphas_cumprod.cpu(), "sqrt_alphas_cumprod": sched.alphas_cumprod.cpu(),
+             "posterior_variance": sched.betas.cpu(), "logvar": torch.zeros(1000),
+             "model_ema.decay": torch.tensor(0.9999),
+             "cond_stage_model.model.transformer.resblocks.0.ln_1.weight": torch.ones(1024),
+             "cond_stage_model.model.logit_scale": torch.tensor(4.6)}
+    path = os.path.join(tmp, "stable_zero123_random.ckpt")
+    t0 = time.perf_counter()
+    torch.save({"state_dict": {**sd, **extra}, "global_step": 0}, path)
+    res["ckpt_write_s"] = time.perf_counter() - t0
+    res["ckpt_gb"] = os.path.getsize(path) / 1e9
+    t0 = time.perf_counter()
+    loaded = assembly.maybe_build_guidance(
+        yaml_guidance("sugar_dynamic_dg.yaml", pretrained_model_name_or_path=path, dtype="float32"),
+        device=device)
+    res["ckpt_load_s"] = time.perf_counter() - t0
+    os.remove(path)
+    same = all(torch.equal(v, sd[k].to(device)) for k, v in loaded.modules.state_dict().items() if k in sd)
+    report = load_ldm_state_dict(loaded.modules, {**sd, **extra}, strict=True)
+    _, out_ck, grad_ck = run_sds(loaded, device, bank32)
+    ck_err = abs(float(out_ck["loss_sds"]) - float(out32["loss_sds"]))
+    print(f"[{card}] full-width checkpoint: {res['ckpt_gb']:.2f} GB written in {res['ckpt_write_s']:.2f} s, "
+          f"built through the YAML's guidance path in {res['ckpt_load_s']:.2f} s; keys consumed "
+          f"{len(report['consumed'])}, skipped {len(report['skipped'])}, unmapped {len(report['unmapped'])}; "
+          f"weights equal: {same}; sds_loss {float(out_ck['loss_sds']):.8g} vs the modules it was written from "
+          f"{float(out32['loss_sds']):.8g} (|d| {ck_err:.3g}), d loss/d rgb max |d| / max "
+          f"{rel_err(grad_ck, grad32):.3g} (limit {SDS_CKPT_GRAD_TOL})")
+    check(type(loaded).__registered_name__ == "temporal-stable-zero123-guidance",
+          "the dynamic YAML's guidance_type did not resolve to the temporal guidance")
+    check(report["unmapped"] == [] and set(report["skipped"]) == set(extra) and same,
+          "the full-width checkpoint did not load key for key")
+    # the loss is bit-equal; cuDNN's backward is not bit-reproducible from run to run
+    check(ck_err == 0 and rel_err(grad_ck, grad32) <= SDS_CKPT_GRAD_TOL,
+          "the loaded checkpoint's sds_loss or its gradient differs")
+    del card32, loaded, bank32, sd
+    torch.cuda.empty_cache()
+
+    # (c) stages 1, 4 and 5 through the launcher, guidance random:0
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+
+    frames_dir = launcher["frames_dir"]
+    out = os.path.join(tmp, "guided")
+    drop = ("tag=", "trainer.max_steps=", "trainer.val_check_interval=", "exp_root_dir=",
+            "system.guidance.pretrained_model_name_or_path=", "checkpoint.")
+    common = ["system.guidance.pretrained_model_name_or_path=random:0", f"exp_root_dir={out}",
+              f"trainer.max_steps={GUIDED_STEPS}", "trainer.val_check_interval=100000"]
+    runs = {"nerf": (os.path.join(REPO, "configs", "stable-zero123.yaml"),
+                     ["use_timestamp=false", f"data.image_path={frames_dir}/000_rgba.png"]),
+            "static": (launcher["trials"]["static"][0],
+                       [x for x in launcher["trials"]["static"][2] if not x.startswith(drop)]),
+            "dynamic": (launcher["trials"]["dynamic"][0],
+                        [x for x in launcher["trials"]["dynamic"][2] if not x.startswith(drop)])}
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    spans.time(zg.StableZero123Guidance, "prepare_embeddings", "bank")
+    rendered = []
+    real_sds = zg.StableZero123Guidance.sds_loss
+    spans._patch(zg.StableZero123Guidance, "sds_loss",
+                 lambda fn: lambda g, bank, rgb, *a, **k: (rendered.append(tuple(rgb.shape)), fn(g, bank, rgb, *a, **k))[1])
+    for cls, label in ((assembly.Zero123Experiment, "nerf"), (assembly.SugarStaticExperiment, "static"),
+                       (assembly.Sugar4DGenExperiment, "dynamic")):
+        spans.train_steps(cls, label)
+    res["peak"], res["shapes"] = {}, {}
+    try:
+        for label, (yaml, dotlist) in runs.items():
+            rendered.clear()
+            torch.cuda.reset_peak_memory_stats()
+            launch.main(launch.make_args(yaml, "train"), dotlist + common + [f"tag={label}_sds"])
+            res["peak"][label] = torch.cuda.max_memory_allocated() / 2**30
+            res["shapes"][label] = sorted(set(rendered))
+    finally:
+        spans.close()
+    check(zg.StableZero123Guidance.sds_loss is real_sds, "sds_loss was not restored")
+    exps = dict(zip(runs, spans.results["setup"]))
+    sds_key = {"nerf": "loss_sds", "static": "loss_sds", "dynamic": "loss_sds_zero123"}
+    static_views = 1 + exps["static"].data.cfg.random_camera.batch_size
+    frames_n = exps["dynamic"].data.cfg.num_frames
+    grs = int(dict(exps["dynamic"].cfg.system.guidance).get("guidance_render_size", 0))
+    predicted = {"static": {"resident_fwd": static_views, "resident_bwd_accum": static_views},
+                 "dynamic": {"resident_fwd": 2 * frames_n, "resident_bwd_accum": 2 * frames_n}}
+    exp1 = exps["nerf"]
+    dcfg, rc = exp1.data.cfg, exp1.data.cfg.random_camera
+
+    def first(v):  # a milestone list's first entry
+        return int(v[0] if isinstance(v, (list, tuple)) else v)
+
+    res["ms"], res["launches"] = {}, {}
+    for label in runs:
+        rows = [r for r in spans.steps if r[0] == label]
+        check([r[1] for r in rows] == list(range(GUIDED_STEPS)), f"guided {label}: steps taken")
+        for _, step, _, ms, launched, metrics in rows:
+            want = predicted.get(label)
+            if label == "nerf":
+                n_rays = (first(dcfg.height) * first(dcfg.width),
+                          first(rc.batch_size) * first(rc.height) * first(rc.width))
+                fwd, bwd = stage1_predicted(n_rays, step % exp1.rcfg.grid_update_every == 0)
+                want = {"hashgrid_cell_fwd": fwd, "hashgrid_cell_bwd": bwd}
+            got = {k: v for k, v in launched.items() if v}
+            check(got == want, f"guided {label} step {step}: launches {got} != {want}")
+            check(sds_key[label] in metrics and metrics[sds_key[label]] > 0,
+                  f"guided {label} step {step}: no {sds_key[label]} in the metrics")
+            check(all(math.isfinite(v) for v in metrics.values()), f"guided {label} step {step}: non-finite metric")
+            for k, v in launched.items():
+                res["launches"][k] = res["launches"].get(k, 0) + v
+        res["ms"][label] = statistics.median([r[3] for r in rows[1:]])
+        print(f"[{card}] launcher {label} with the guidance (random:0): {json.dumps(want)} launches a step; "
+              f"{', '.join(f'{r[3]:.1f}' for r in rows)} ms/step; {sds_key[label]} "
+              f"{', '.join(f'{r[5][sds_key[label]]:.5g}' for r in rows)}; renders into SDS {res['shapes'][label]}; "
+              f"peak memory {res['peak'][label]:.2f} GiB")
+    check(res["shapes"]["dynamic"] == [(frames_n, grs, grs, 3)],
+          f"the dynamic stage's random views did not reach SDS at guidance_render_size {grs}")
+    check(exps["dynamic"].bank["c_concat"].shape[0] == exps["dynamic"].data.video_length,
+          "the dynamic bank does not hold every frame")
+    off = {"nerf": recipe["s1_ms"][0][-1], "static": launcher["static_ms"], "dynamic": launcher["dynamic_ms"]}
+    res["off_ms"] = off
+    res["bank_s"] = spans.seconds["bank"]
+    print(f"[{card}] ms/step with the guidance (random:0, bfloat16) vs without it: " + "; ".join(
+        f"{label} {res['ms'][label]:.2f} vs {off[label]:.2f} (the guidance's share "
+        f"{1 - off[label] / res['ms'][label]:.3f})" for label in runs)
+          + f"; without it = phase 12's stage-1 step at the first milestone and phase 9's launcher steps")
+    print(f"[{card}] banks through the launcher: {fmt_s(res['bank_s'])} (stage 1, 4, 5); phase 5's bank of "
+          f"{VIDEO_LEN} frames at {RES}²: {direct['bank_s']:.3f} s, {direct['bank_peak']:.2f} GiB above the "
+          f"resident set; phase 6's of the 128² reference: {direct['s1_bank_s']:.3f} s")
+    return res
+
+
+def unet_macs(unet, x, t, ctx):
+    """Multiply-accumulates of one UNet call: its convolutions, dense layers
+    and attention products, counted from the shapes (forward hooks)."""
+    import torch
+
+    total = [0]
+
+    def conv_hook(m, inp, out):
+        total[0] += out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1] // m.groups
+
+    def dense_hook(m, inp, out):
+        total[0] += out.numel() * m.in_features
+
+    from dreammesh4d_tpu_torch.models.guidance.zero123 import unet as zu
+
+    hooks = []
+    for m in unet.modules():
+        if isinstance(m, zu.Conv2d):
+            hooks.append(m.register_forward_hook(conv_hook))
+        elif isinstance(m, zu.Linear):
+            hooks.append(m.register_forward_hook(dense_hook))
+        elif isinstance(m, zu.CrossAttention):
+            def attn_hook(m, inp, out):
+                q = inp[0]
+                k = inp[1] if len(inp) > 1 and inp[1] is not None else q
+                total[0] += 2 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+            hooks.append(m.register_forward_hook(attn_hook))
+    try:
+        with torch.no_grad():
+            unet(x, t, ctx)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
 def fmt_s(xs):
     return ", ".join(f"{x:.3f}" for x in xs)
 
@@ -2554,9 +2916,24 @@ def main():
                             "table_fwd": 1, "table_bwd": 0}, "backend pallas: expected one B6 launch")
     check(table_render_err <= 7e-4, "backend pallas and pallas_resident frames differ by more than 7e-4")
 
+    # the guidance of phases 5 and 6: random:0 at the YAMLs' widths, bfloat16;
+    # one set of modules under the dynamic YAML's and stage 1's settings
+    from dreammesh4d_tpu_torch.models.guidance.zero123.guidance import StableZero123Guidance, config_from_dict
+    from dreammesh4d_tpu_torch.systems.assembly import maybe_build_guidance
+
+    t0 = time.perf_counter()
+    dyn_guidance = maybe_build_guidance(yaml_guidance("sugar_dynamic_dg.yaml",
+                                                      pretrained_model_name_or_path="random:0"), device=dev)
+    torch.cuda.synchronize()
+    s1_guidance = StableZero123Guidance(config_from_dict(yaml_guidance("stable-zero123.yaml")["guidance"]),
+                                        modules=dyn_guidance.modules)
+    print(f"[{card}] guidance random:0 built in {time.perf_counter() - t0:.2f} s: "
+          f"{sum(p.numel() for p in dyn_guidance.modules.parameters())} parameters, "
+          f"{dyn_guidance.cfg.dtype}; resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
     # 5. the training main path
-    make_step, video, sample_batch = training_setup(torch, np, viewer, params, static, dparams,
-                                                    dyn_cfg, raster_cfg, dev)
+    make_step, video, sample_batch, (bank_s, bank_peak) = training_setup(
+        torch, np, viewer, params, static, dparams, dyn_cfg, raster_cfg, dyn_guidance, dev)
     print(f"target video: {tuple(video[0].shape)} on {video[0].device}, "
           f"mask coverage {float(video[1].mean()):.4f}")
     check(float(video[1].mean()) > 0.05, "the target video is empty")
@@ -2564,7 +2941,7 @@ def main():
         torch, np, rb, card, make_step, sample_batch, dparams, dev)
 
     # 6. the stage-1 training main path, 7. the export pass
-    s1_launches, s1, s1_geo, s1_params, s1_step = drive_stage1(torch, np, hc, card, dev)
+    s1_launches, s1, s1_geo, s1_params, s1_step = drive_stage1(torch, np, hc, card, s1_guidance, dev)
     export_launches, export_s = drive_export(torch, np, hc, card, s1_geo, s1_params)
 
     # 8. the static refine main path on both backends
@@ -2716,17 +3093,25 @@ def main():
 
     # 12. the README recipe chained: stages 1-6 through the launcher and the simplification tool
     recipe = drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, dev, launch_tmp.name)
-    launch_tmp.cleanup()
     recipe_launches = recipe["total_launches"]
 
-    # 13. result lines
+    # 13. the guidance at full width: card against CPU, a checkpoint, stages 1, 4 and 5 with it on
+    del dyn_guidance, s1_guidance, make_step, one_step, s1_step
+    torch.cuda.empty_cache()
+    guided = drive_guidance(torch, np, rb, tb, hc, card, launcher, recipe,
+                            {"bank_s": bank_s, "bank_peak": bank_peak, "s1_bank_s": s1["bank_s"]},
+                            dev, launch_tmp.name)
+    launch_tmp.cleanup()
+
+    # 14. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
-        # every path's launches, the recipe's (phase 12) included
+        # every path's launches, the recipe's (phase 12) and the guided launcher's (phase 13) included
         n_recipe = recipe_launches.get(name, 0)
+        n_guided = guided["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches + n_recipe, "max_abs_err": err, "ms": ms,
+                "tpu": tpu, "launches": n_launches + n_recipe + n_guided, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "launches_recipe": n_recipe, **extra}
+                "launches_recipe": n_recipe, "launches_guided": n_guided, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

@@ -31,6 +31,10 @@ are read back as Python values.  This module imports no jax.
   params and the ``optax.multi_transform`` Adam moments of every
   ``SuGaRParams`` field).  ``RasterizerConfig`` crosses over through
   :func:`config` as it is;
+- the guidance: :func:`zero123_guidance_params` — the JAX Stable Zero123
+  param tree as the port's ``Zero123Modules`` state dict (the LDM layout);
+  :func:`clip_vision_params` — the JAX CLIP tower as the port's
+  ``VisionTransformer`` state dict;
 - evaluation: :func:`perceptual_params` — the LPIPS tree
   ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
@@ -256,3 +260,187 @@ def perceptual_params(tree, device="cuda") -> dict:
                      "b": _f32(c["b"], device)} for c in stage] for stage in tree["stages"]],
         "lins": [_f32(w, device) for w in tree["lins"]],
     }
+
+
+# --- the Stable Zero123 guidance --------------------------------------------
+# The inverse of the JAX converters (``convert_unet`` / ``convert_vae`` /
+# ``convert_clip_vision``): flax trees → the LDM checkpoint's layout, which is
+# ``Zero123Modules.state_dict()``.
+
+
+def _np32(x):
+    return np.asarray(x, np.float32)
+
+
+def _ldm_conv(sd, key, p):
+    sd[f"{key}.weight"] = _np32(p["kernel"]).transpose(3, 2, 0, 1)  # HWIO → OIHW
+    if "bias" in p:
+        sd[f"{key}.bias"] = _np32(p["bias"])
+
+
+def _ldm_dense(sd, key, p):
+    sd[f"{key}.weight"] = _np32(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{key}.bias"] = _np32(p["bias"])
+
+
+def _ldm_norm(sd, key, p):
+    p = p.get("GroupNorm_0", p.get("LayerNorm_0", p))
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = _np32(p["scale"]), _np32(p["bias"])
+
+
+def _ldm_res_block(sd, key, p):
+    _ldm_norm(sd, f"{key}.in_layers.0", p["norm_in"])
+    _ldm_conv(sd, f"{key}.in_layers.2", p["conv_in"])
+    _ldm_dense(sd, f"{key}.emb_layers.1", p["emb_proj"])
+    _ldm_norm(sd, f"{key}.out_layers.0", p["norm_out"])
+    _ldm_conv(sd, f"{key}.out_layers.3", p["conv_out"])
+    if "skip" in p:
+        _ldm_conv(sd, f"{key}.skip_connection", p["skip"])
+
+
+def _ldm_spatial_transformer(sd, key, p):
+    _ldm_norm(sd, f"{key}.norm", p["norm"])
+    _ldm_conv(sd, f"{key}.proj_in", p["proj_in"])
+    _ldm_conv(sd, f"{key}.proj_out", p["proj_out"])
+    i = 0
+    while f"block_{i}" in p:
+        b, bk = p[f"block_{i}"], f"{key}.transformer_blocks.{i}"
+        for n in ("norm1", "norm2", "norm3"):
+            _ldm_norm(sd, f"{bk}.{n}", b[n])
+        for n in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _ldm_dense(sd, f"{bk}.{n}.{proj}", b[n][proj])
+            _ldm_dense(sd, f"{bk}.{n}.to_out.0", b[n]["to_out"])
+        _ldm_dense(sd, f"{bk}.ff.net.0.proj", b["ff"]["proj_in"])
+        _ldm_dense(sd, f"{bk}.ff.net.2", b["ff"]["proj_out"])
+        i += 1
+
+
+def _ldm_unet(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions=(4, 2, 1)):
+    """``convert_unet``'s walk, writing the LDM keys under ``pre``."""
+    _ldm_dense(sd, f"{pre}time_embed.0", p["time_embed_0"])
+    _ldm_dense(sd, f"{pre}time_embed.2", p["time_embed_2"])
+    _ldm_conv(sd, f"{pre}input_blocks.0.0", p["conv_in"])
+    idx, ds = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            _ldm_res_block(sd, f"{pre}input_blocks.{idx}.0", p[f"down_{level}_{i}_res"])
+            if ds in attention_resolutions:
+                _ldm_spatial_transformer(sd, f"{pre}input_blocks.{idx}.1", p[f"down_{level}_{i}_attn"])
+            idx += 1
+        if level != len(channel_mult) - 1:
+            _ldm_conv(sd, f"{pre}input_blocks.{idx}.0.op", p[f"down_{level}_ds"]["op"])
+            idx += 1
+            ds *= 2
+    _ldm_res_block(sd, f"{pre}middle_block.0", p["mid_res1"])
+    _ldm_spatial_transformer(sd, f"{pre}middle_block.1", p["mid_attn"])
+    _ldm_res_block(sd, f"{pre}middle_block.2", p["mid_res2"])
+    idx = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            _ldm_res_block(sd, f"{pre}output_blocks.{idx}.0", p[f"up_{level}_{i}_res"])
+            sub = 1
+            if ds in attention_resolutions:
+                _ldm_spatial_transformer(sd, f"{pre}output_blocks.{idx}.{sub}", p[f"up_{level}_{i}_attn"])
+                sub += 1
+            if level != 0 and i == num_res_blocks:
+                _ldm_conv(sd, f"{pre}output_blocks.{idx}.{sub}.conv", p[f"up_{level}_us"]["conv"])
+            idx += 1
+        if level != 0:
+            ds //= 2
+    _ldm_norm(sd, f"{pre}out.0", p["norm_out"])
+    _ldm_conv(sd, f"{pre}out.2", p["conv_out"])
+
+
+def _ldm_vae_res(sd, key, p):
+    for n in ("norm1", "norm2"):
+        _ldm_norm(sd, f"{key}.{n}", p[n])
+    for n in ("conv1", "conv2", "nin_shortcut"):
+        if n in p:
+            _ldm_conv(sd, f"{key}.{n}", p[n])
+
+
+def _ldm_vae_mid(sd, key, p):
+    _ldm_vae_res(sd, f"{key}.block_1", p["mid_res1"])
+    a = p["mid_attn"]
+    _ldm_norm(sd, f"{key}.attn_1.norm", a["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        _ldm_conv(sd, f"{key}.attn_1.{n}", a[n])
+    _ldm_vae_res(sd, f"{key}.block_2", p["mid_res2"])
+
+
+def _ldm_vae(sd, pre, p, ch_mult, num_res_blocks):
+    """``convert_vae``'s walk, writing the LDM keys under ``pre``."""
+    enc, dec = p["encoder"], p["decoder"]
+    _ldm_conv(sd, f"{pre}encoder.conv_in", enc["conv_in"])
+    for level in range(len(ch_mult)):
+        for i in range(num_res_blocks):
+            _ldm_vae_res(sd, f"{pre}encoder.down.{level}.block.{i}", enc[f"down_{level}_{i}"])
+        if level != len(ch_mult) - 1:
+            _ldm_conv(sd, f"{pre}encoder.down.{level}.downsample.conv", enc[f"down_{level}_ds"])
+    _ldm_vae_mid(sd, f"{pre}encoder.mid", enc)
+    _ldm_norm(sd, f"{pre}encoder.norm_out", enc["norm_out"])
+    _ldm_conv(sd, f"{pre}encoder.conv_out", enc["conv_out"])
+    _ldm_conv(sd, f"{pre}decoder.conv_in", dec["conv_in"])
+    _ldm_vae_mid(sd, f"{pre}decoder.mid", dec)
+    for level in range(len(ch_mult)):
+        for i in range(num_res_blocks + 1):
+            _ldm_vae_res(sd, f"{pre}decoder.up.{level}.block.{i}", dec[f"up_{level}_{i}"])
+        if level != 0:
+            _ldm_conv(sd, f"{pre}decoder.up.{level}.upsample.conv", dec[f"up_{level}_us"])
+    _ldm_norm(sd, f"{pre}decoder.norm_out", dec["norm_out"])
+    _ldm_conv(sd, f"{pre}decoder.conv_out", dec["conv_out"])
+    _ldm_conv(sd, f"{pre}quant_conv", p["quant_conv"])
+    _ldm_conv(sd, f"{pre}post_quant_conv", p["post_quant_conv"])
+
+
+def clip_vision_params(tree) -> dict:
+    """The JAX CLIP tower ``{"vision": FlaxCLIPVisionModel params,
+    "projection"}`` (``CLIPImageEncoder.init`` / ``convert_clip_vision``) →
+    the port's ``VisionTransformer`` state dict (OpenAI CLIP's ``visual.*``
+    keys without the prefix; q/k/v fused into ``in_proj``), float32 numpy."""
+    sd: dict = {}
+    vision = tree["vision"].get("params", tree["vision"])["vision_model"]
+    emb = vision["embeddings"]
+    sd["conv1.weight"] = _np32(emb["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1)
+    sd["class_embedding"] = _np32(emb["class_embedding"])
+    sd["positional_embedding"] = _np32(emb["position_embedding"]["embedding"])
+    _ldm_norm(sd, "ln_pre", vision["pre_layrnorm"])
+    layers = vision["encoder"]["layers"]
+    for i in range(len(layers)):
+        lp, key = layers[str(i)], f"transformer.resblocks.{i}"
+        att = lp["self_attn"]
+        sd[f"{key}.attn.in_proj_weight"] = np.concatenate(
+            [_np32(att[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")])
+        sd[f"{key}.attn.in_proj_bias"] = np.concatenate(
+            [_np32(att[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
+        _ldm_dense(sd, f"{key}.attn.out_proj", att["out_proj"])
+        _ldm_norm(sd, f"{key}.ln_1", lp["layer_norm1"])
+        _ldm_norm(sd, f"{key}.ln_2", lp["layer_norm2"])
+        _ldm_dense(sd, f"{key}.mlp.c_fc", lp["mlp"]["fc1"])
+        _ldm_dense(sd, f"{key}.mlp.c_proj", lp["mlp"]["fc2"])
+    _ldm_norm(sd, "ln_post", vision["post_layernorm"])
+    sd["proj"] = _np32(tree["projection"])
+    return sd
+
+
+def zero123_guidance_params(jax_params, cfg) -> dict:
+    """The JAX guidance param tree (``Zero123Modules.init_params`` or
+    ``convert_state_dict`` of the JAX package, as numpy) → the port's state
+    dict, keyed as ``Zero123Modules.state_dict()`` (the LDM layout, plus
+    ``clip_proj`` without CLIP), as float32 numpy arrays.  ``cfg``: the
+    port's ``Zero123Config`` (or any object with the same architecture
+    fields)."""
+    sd: dict = {}
+    _ldm_unet(sd, "model.diffusion_model.", jax_params["unet"], tuple(cfg.channel_mult),
+              int(cfg.num_res_blocks))
+    _ldm_vae(sd, "first_stage_model.", jax_params["vae"], tuple(cfg.vae_ch_mult),
+             int(cfg.vae_num_res_blocks))
+    _ldm_dense(sd, "cc_projection", jax_params["cc_projection"])
+    if "clip" in jax_params:
+        sd.update({f"cond_stage_model.model.visual.{k}": v
+                   for k, v in clip_vision_params(jax_params["clip"]).items()})
+    if "clip_proj" in jax_params:
+        sd["clip_proj"] = _np32(jax_params["clip_proj"])
+    return sd

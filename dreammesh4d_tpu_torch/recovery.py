@@ -21,9 +21,9 @@ Differences from the reference, by design: the runs draw from
 ``torch.Generator`` streams, not ``jax.random``, so the columns clear the
 same floors without equalling the reference's numbers; the LPIPS features
 are random from a seeded ``torch.Generator`` (the reference's are random
-from ``jax.random``); the CLIP columns are not computed —
-the CLIP tower comes with the guidance (ROADMAP A3) — and the gate does not
-read them.
+from ``jax.random``); the CLIP columns come from the reference's tiny random
+tower (64 wide, 4 layers, 4 heads, patch 8 at 64²; ``CLIP_TOWER``), whose
+weights are drawn from a ``torch.Generator``; the gate does not read them.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ELEV, AZIM, DIST, FOVY = 5.0, 0.0, 3.8, 20.0  # the stage configs' reference camera
-CLIP_NOTE = "not computed: the CLIP tower comes with the guidance (ROADMAP A3); the gate does not read it"
+# the reference's CPU-tier tower (tests/test_recovery_benchmark.py): fast, random, relative only
+CLIP_TOWER = dict(image_size=64, patch_size=8, width=64, layers=4, heads=4, mlp=128, output_dim=768)
 
 
 def _psnr(a, b) -> float:
@@ -108,13 +109,12 @@ def run_recovery(tmp_path, H: int = 64, W: int = 64, L: int = 16, static_steps: 
                  dynamic_steps: int = 600, num_frames: int = 4, device="cuda",
                  backend: str = "pallas_resident", stats=None) -> dict:
     """Ground-truth video → static refine → dynamic stage → the dict of
-    columns at trained and held-out (view, time), under the reference's keys
-    (the CLIP ones excepted).  ``stats``, a dict, receives seconds per part,
+    columns at trained and held-out (view, time), under the reference's keys.  ``stats``, a dict, receives seconds per part,
     ms per step of each stage and the largest tile count of each stage's
     first render against the capacity."""
     from . import launch
     from .serving import Viewer4D
-    from .utils.metrics import LPIPSMetric, ssim
+    from .utils.metrics import CLIPSimilarityMetric, LPIPSMetric, ssim
 
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
@@ -206,7 +206,9 @@ def run_recovery(tmp_path, H: int = 64, W: int = 64, L: int = 16, static_steps: 
     hv_rest = np.asarray(gt(ts[0], azimuth=15.0)[0], np.float32)
 
     lpips = LPIPSMetric(device=device)
+    clip = CLIPSimilarityMetric(config=CLIP_TOWER, device=device)
     res["lpips_converted"] = lpips.converted
+    res["clip_converted"] = clip.converted
     res["ssim_trained_t"] = float(ssim(as_t(renders), as_t(gts)).mean())
     res["ssim_no_motion_baseline"] = float(ssim(as_t(rests), as_t(gts)).mean())
     res["ssim_heldout_view"] = float(ssim(as_t(hv_render), as_t(hv_gt))[0])
@@ -214,6 +216,9 @@ def run_recovery(tmp_path, H: int = 64, W: int = 64, L: int = 16, static_steps: 
     res["lpips_no_motion_baseline"] = float(lpips(rests, gts).mean())
     res["lpips_heldout_view"] = float(lpips(hv_render, hv_gt)[0])
     res["lpips_heldout_view_baseline"] = float(lpips(hv_rest, hv_gt)[0])
+    res["clip_trained_t"] = float(clip(renders, gts).mean())
+    res["clip_no_motion_baseline"] = float(clip(rests, gts).mean())
+    res["clip_heldout_view"] = float(clip(hv_render, hv_gt)[0])
     stats["eval_s"] = time.perf_counter() - t0
     return res
 
@@ -249,9 +254,9 @@ def main(argv=None) -> dict:
             res = run_recovery(tmp, device=args.device, backend=args.backend, stats=stats)
     stats["total_s"] = time.perf_counter() - t0
     report = {**res, "resolution": 64, "static_steps": 1000, "dynamic_steps": 600,
-              "backend": args.backend, "device": args.device, "clip_columns": CLIP_NOTE,
-              "feature_provenance": "deterministic-random features: LPIPS valid for RELATIVE "
-                                    "margins only",
+              "backend": args.backend, "device": args.device,
+              "feature_provenance": "deterministic-random features: LPIPS and CLIP valid for "
+                                    "RELATIVE margins only",
               "stats": stats}
     if torch.device(args.device).type == "cuda":
         report["card"] = torch.cuda.get_device_name(0)

@@ -2,9 +2,10 @@
 components register under a string name, ``find`` resolves a name to a class,
 and ``"main:sub1,sub2"`` composes classes dynamically.
 
-The port registers the names its two YAML-driven stages resolve:
-``sugar-static-system``, ``sugar-4dgen-system``, ``single-image-datamodule``
-and ``temporal-image-datamodule``.  ``find`` imports the modules that
+The port registers the names its YAML-driven stages resolve:
+``zero123-system``, ``sugar-static-system``, ``sugar-4dgen-system``,
+``single-image-datamodule``, ``temporal-image-datamodule``,
+``stable-zero123-guidance`` and ``temporal-stable-zero123-guidance``.  ``find`` imports the modules that
 register them on first use, so importing the package stays light.
 """
 
@@ -46,4 +47,5 @@ def find(name: str):
 def _import_builtin_modules() -> None:
     # imported for their @register side effects
     from .data import image, temporal_image  # noqa: F401
+    from .models.guidance.zero123 import guidance  # noqa: F401
     from .systems import assembly  # noqa: F401

@@ -16,9 +16,15 @@ draws (the background inversion) come from a ``torch.Generator`` seeded with
 textured ``save/4d_export/frame_XXX.obj`` per timestamp sharing
 ``material0.mtl`` / ``material0.png``.
 
+With ``system.guidance.pretrained_model_name_or_path`` at ``random[:seed]``
+or an existing checkpoint, each stage adds the Stable Zero123 SDS term
+(``loss_sds``, or ``loss_sds_zero123`` in the dynamic stage) to its loss;
+its embedding bank is built once, at construction, and rides every step as
+the step's ``guidance_state``.  ``freq.guidance_eval`` (stages 1 and 5)
+writes ``it{step}-guidance.png`` every that many steps.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the guidance (A3; only ``pretrained_model_name_or_path``
-``""`` / ``none`` runs), the Gaussian stage and more than one device (A7).
+ROADMAP item: the Gaussian stage and more than one device (A7).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from ..models.geometry.dynamic_sugar import (DynamicSuGaRConfig, build_dynamic_s
 from ..models.geometry.implicit_volume import (ImplicitVolumeConfig, export_density_grid,
                                                forward_field, init_implicit_volume)
 from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar, gaussian_attributes
+from ..models.guidance.zero123.checkpoint import load_zero123_checkpoint
+from ..models.guidance.zero123.guidance import config_from_dict
 from ..models.materials import DiffuseWithPointLightMaterial
 from ..models.renderers.nerf_volume_renderer import (NeRFRendererConfig, init_occgrid,
                                                      make_image_renderer, make_occgrid_update)
@@ -53,7 +61,8 @@ from ..ops.cameras import get_ray_directions, get_rays
 from ..ops.gs.rasterize import RasterizerConfig, rasterize
 from ..ops.hashgrid import HashGridConfig, progressive_level_mask
 from ..ops.meshops import build_one_ring, cotangent_weights
-from ..registry import register
+from ..ops.resize import resize_hw
+from ..registry import find, register
 from ..utils.checkpoint import restore_checkpoint
 from ..utils.saving import Saver
 from ..utils.schedule import C_max
@@ -119,14 +128,17 @@ def build_raster_config(height, width, fovy_deg: float, system_cfg: dict) -> Ras
     )
 
 
-def maybe_build_guidance(system_cfg: dict):
-    """The guidance of ``system.guidance``, or None when it is off.
+def maybe_build_guidance(system_cfg: dict, device="cuda"):
+    """The guidance of ``system.guidance`` (a ``StableZero123Guidance`` of
+    ``system.guidance_type``, on ``device``), or None when it is off.
 
     ``pretrained_model_name_or_path``: ``""`` / ``none`` — off, None; a
     missing path — ``FileNotFoundError``, unless ``allow_missing: true``,
     which warns and returns None (a typo must not silently train
-    reconstruction-only); ``random[:seed]`` or an existing checkpoint — the
-    guidance is not ported yet (ROADMAP A3), ``NotImplementedError``."""
+    reconstruction-only); ``random[:seed]`` — random weights from a
+    ``torch.Generator`` seeded with ``seed`` (0 without one), at the
+    configured widths; an existing path — a Stable Zero123 ``.ckpt`` in the
+    LDM layout, loaded by key name."""
     gcfg = dict(system_cfg.get("guidance", {}))
     path = str(gcfg.get("pretrained_model_name_or_path", "") or "")
     if not path or path.lower() == "none":
@@ -142,9 +154,48 @@ def maybe_build_guidance(system_cfg: dict):
             "system.guidance.pretrained_model_name_or_path to a real checkpoint, "
             "'random[:seed]' for an SDS smoke run, or 'none' / "
             "system.guidance.allow_missing=true to train reconstruction-only.")
-    raise NotImplementedError(
-        f"system.guidance.pretrained_model_name_or_path={path!r}: the Zero123 guidance is not "
-        "ported to PyTorch yet (ROADMAP A3); set it to 'none' to train reconstruction-only")
+    cls = find(str(system_cfg.get("guidance_type") or "stable-zero123-guidance"))
+    guidance = cls(config_from_dict(gcfg), device=device)
+    if is_random:
+        seed = int(path.partition(":")[2] or 0)
+        guidance.modules.init_params(torch.Generator(device=device).manual_seed(seed))
+    else:
+        report = load_zero123_checkpoint(path, guidance.modules)
+        if report["unmapped"]:
+            log.warning("Zero123 checkpoint %s: %d keys not used by the guidance, e.g. %s", path,
+                        len(report["unmapped"]), report["unmapped"][:5])
+    return guidance
+
+
+def sds_guidance_fn(guidance, temporal: bool = False):
+    """The train steps' ``guidance_fn(bank, generator, rgb, batch)``: the SDS
+    loss of the random-view renders, with the step's draws; ``temporal``
+    indexes the bank by ``batch["frame_indices"]``."""
+
+    def guidance_fn(bank, generator, rgb, batch):
+        return guidance.sds_loss(bank, rgb, batch["elevation"], batch["azimuth"],
+                                 batch["camera_distances"],
+                                 batch["frame_indices"] if temporal else None, batch["step"],
+                                 generator)["loss_sds"]
+
+    return guidance_fn
+
+
+def guidance_eval_snapshot(saver, guidance, bank, generator, rgb, elevation, azimuth,
+                           camera_distances, step, frame_indices=None, max_views: int = 2) -> None:
+    """``freq.guidance_eval``: for up to ``max_views`` views, one grid row of
+    [render | noised | one-step x0 | DDIM denoise] as ``it{step}-guidance.png``."""
+    B = min(int(rgb.shape[0]), max_views)
+    out = guidance.guidance_eval(bank, rgb[:B], elevation[:B], azimuth[:B], camera_distances[:B],
+                                 None if frame_indices is None else frame_indices[:B],
+                                 generator=generator)
+    S = out["img_noisy"].shape[1]
+    render = resize_hw(rgb[:B].float(), S, S, "bilinear")
+    layers = []
+    for i in range(B):
+        for img in (render[i], out["img_noisy"][i], out["img_1step"][i], out["img_final"][i]):
+            layers.append({"type": "rgb", "img": torch.clamp(img, 0, 1).cpu().numpy()})
+    saver.save_image_grid(f"it{step}-guidance.png", layers)
 
 
 def check_single_device(trainer_cfg: dict) -> None:
@@ -268,7 +319,11 @@ class SugarStaticExperiment:
             rotation_lr=geo.get("rotation_lr", 0.001),
             spatial_lr_scale=float(geo.get("spatial_lr_scale", 1.0)))
         self.losses = _loss_config(SugarStaticLosses, system)
-        maybe_build_guidance(system)
+        self.guidance = maybe_build_guidance(system, device=dev)
+        self.bank = guidance_fn = None
+        if self.guidance is not None:
+            self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
+            guidance_fn = sds_guidance_fn(self.guidance)
         d = self.data.cfg
         self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
                                               d.default_fovy_deg, system)
@@ -277,7 +332,7 @@ class SugarStaticExperiment:
         def build_step(rc_h, rc_w, ref_h, ref_w):
             return make_static_train_step(
                 self.static, build_raster_config(rc_h, rc_w, d.default_fovy_deg, system),
-                self.losses, None, invert_bg_prob=invert_bg_prob,
+                self.losses, guidance_fn, invert_bg_prob=invert_bg_prob,
                 ref_raster_cfg=build_raster_config(ref_h, ref_w, d.default_fovy_deg, system),
                 device=dev)
 
@@ -292,6 +347,8 @@ class SugarStaticExperiment:
         """The step's batch: what the train step reads of ``train_batch``."""
         batch = self.data.train_batch(step)
         keep = ["ref_cameras", "ref_rgb", "ref_mask", "rand_cameras"]
+        if self.guidance is not None:  # the SDS conditioning reads the view poses
+            keep += ["elevation", "azimuth", "camera_distances"]
         lw = self.losses
         if C_max(lw.lambda_depth) > 0 or C_max(lw.lambda_depth_rel) > 0:
             keep.append("ref_depth")
@@ -304,7 +361,7 @@ class SugarStaticExperiment:
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.train_batch(step)
-        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator)
+        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator, self.bank)
         return metrics
 
     def validate(self, step: int, test: bool = False) -> None:
@@ -369,8 +426,10 @@ class Sugar4DGenExperiment:
     initialisation before the deformation graph is built, so that the graph
     and its skinning weights come from the refined points.  Adam takes
     ``optimizer.args.lr`` with betas (0.9, 0.99) and eps 1e-8; the YAML's
-    ``eps`` is not read, as in the JAX package.  ``guidance_render_size``
-    matters only with the guidance and is ignored while it is off."""
+    ``eps`` is not read, as in the JAX package.  With the guidance, the
+    embedding bank comes from every video frame at the last milestone's size,
+    and the random views render at ``guidance.guidance_render_size`` (0:
+    at the data's size); without it that size is ignored."""
 
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -397,7 +456,15 @@ class Sugar4DGenExperiment:
 
         self.lr = float(system.get("optimizer", {}).get("args", {}).get("lr", 1.6e-3))
         self.losses = _loss_config(Sugar4DGenLosses, system)
-        maybe_build_guidance(system)
+        self.guidance = maybe_build_guidance(system, device=dev)
+        self.bank = guidance_fn = None
+        grs = 0
+        if self.guidance is not None:
+            frames_rgb, _ = self.data.frames_at(int(self.data.heights[-1]), int(self.data.widths[-1]))
+            self.bank = self.guidance.prepare_embeddings(frames_rgb)
+            guidance_fn = sds_guidance_fn(self.guidance, temporal=True)
+            grs = int(dict(system.get("guidance", {})).get("guidance_render_size", 0) or 0)
+        self.guidance_eval_every = int(dict(system.get("freq", {})).get("guidance_eval", 0))
         d = self.data.cfg
         self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
                                               d.default_fovy_deg, system)
@@ -415,11 +482,15 @@ class Sugar4DGenExperiment:
         arap_start = int(dict(system.get("freq", {})).get("milestone_arap_reg", 0))
 
         def build_step(rc_h, rc_w, ref_h, ref_w):
+            rand_rc = None
+            if grs and grs != rc_h:
+                rand_rc = build_raster_config(grs, grs, d.default_fovy_deg, system)
             return make_dynamic_train_step(
                 sugar_params, self.static, deform_cfg,
-                build_raster_config(rc_h, rc_w, d.default_fovy_deg, system), lw, arap_w, None,
-                invert_bg_prob=invert_bg, arap_start_step=arap_start,
+                build_raster_config(rc_h, rc_w, d.default_fovy_deg, system), lw, arap_w,
+                guidance_fn, invert_bg_prob=invert_bg, arap_start_step=arap_start,
                 ref_raster_cfg=build_raster_config(ref_h, ref_w, d.default_fovy_deg, system),
+                rand_raster_cfg=rand_rc,
                 video_frames=self.data.frames_at(ref_h, ref_w),
                 video_depths=self.data.load_depths(ref_h, ref_w) if need_depth else None,
                 video_normals=self.data.load_normals(ref_h, ref_w) if need_normal else None,
@@ -439,12 +510,25 @@ class Sugar4DGenExperiment:
         batch = self.data.train_batch(step)
         batch["inter_timestamps"] = self.data.inter_frame_timestamps(self.num_inter_frames,
                                                                      self.length_inter_frames)
-        return {k: batch[k] for k in ("timestamps", "frame_indices", "ref_cameras",
-                                      "rand_cameras", "inter_timestamps")}
+        keep = ["timestamps", "frame_indices", "ref_cameras", "rand_cameras", "inter_timestamps"]
+        if self.guidance is not None:  # the SDS conditioning reads the view poses
+            keep += ["elevation", "azimuth", "camera_distances"]
+        return {k: batch[k] for k in keep}
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.train_batch(step)
-        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator)
+        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator, self.bank)
+        if (self.guidance_eval_every > 0 and self.guidance is not None
+                and (step + 1) % self.guidance_eval_every == 0):
+            V = 2  # render only the views the snapshot reads
+            cams = type(batch["rand_cameras"])(*(x[:V] for x in batch["rand_cameras"]))
+            with torch.no_grad():
+                out = self._render_eval(self.state.deform_params, cams, batch["timestamps"][:V],
+                                        batch["frame_indices"][:V])
+            guidance_eval_snapshot(self.saver, self.guidance, self.bank, self.generator,
+                                   out["comp_rgb"], batch["elevation"], batch["azimuth"],
+                                   batch["camera_distances"], step + 1,
+                                   frame_indices=batch["frame_indices"])
         return metrics
 
     def render(self, cameras, timestamps, frame_indices=None) -> Dict[str, np.ndarray]:
@@ -584,9 +668,14 @@ class Zero123Experiment:
         self.adam = dict(lr=float(args.get("lr", 0.01)), betas=(float(betas[0]), float(betas[1])),
                          eps=float(args.get("eps", 1e-8)))
         self.losses = _loss_config(Zero123Losses, system)
-        maybe_build_guidance(system)
+        self.guidance = maybe_build_guidance(system, device=dev)
+        self.bank = guidance_fn = None
+        if self.guidance is not None:
+            self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
+            guidance_fn = sds_guidance_fn(self.guidance)
+        self.guidance_eval_every = int(dict(system.get("freq", {})).get("guidance_eval", 0))
         self._train_step = make_zero123_train_step(self.geo_cfg, self.rcfg, self.losses,
-                                                    self.material, None, device=dev)
+                                                    self.material, guidance_fn, device=dev)
         self._image_renderer = make_image_renderer(self.geo_cfg, self.rcfg, self.material)
         params = init_implicit_volume(self.geo_cfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)),
                                       device=dev)
@@ -624,8 +713,18 @@ class Zero123Experiment:
         if self._occ_update is not None and step % self.rcfg.grid_update_every == 0:
             self.occ_state = self._occ_update(self.occ_state, self.state.geo_params, self.generator,
                                               torch.as_tensor(lm, device=self.device))
-        self.state, metrics = self._train_step(self.state, batch, self.generator, lm, ambient, None,
-                                               self.occ_state)
+        self.state, metrics = self._train_step(self.state, batch, self.generator, lm, ambient,
+                                               self.bank, self.occ_state)
+        if (self.guidance_eval_every > 0 and self.guidance is not None
+                and (step + 1) % self.guidance_eval_every == 0):
+            # the first random view again (the step's own render is inside its loss)
+            out = self._image_renderer(self.state.geo_params, batch["rand_rays_o"][0],
+                                       batch["rand_rays_d"][0], batch["light_positions"][0],
+                                       torch.ones(3, device=self.device), level_mask=lm,
+                                       ambient_ratio=1.0)
+            guidance_eval_snapshot(self.saver, self.guidance, self.bank, self.generator,
+                                   out["comp_rgb"][None], batch["elevation"], batch["azimuth"],
+                                   batch["camera_distances"], step + 1)
         return metrics
 
     def validate(self, step: int, test: bool = False) -> None:

@@ -1,9 +1,7 @@
-"""Evaluation metrics: PSNR, SSIM and LPIPS (counterpart of
-``dreammesh4d_tpu/utils/metrics.py``: ``psnr`` :23, ``ssim`` :48,
-``LPIPSMetric`` :69).  Images are (..., H, W, C) in [0, 1], on any device.
-
-The CLIP-similarity metric needs the Zero123 CLIP tower, which comes with
-the guidance (ROADMAP A3): ``CLIPSimilarityMetric`` raises until then.
+"""Evaluation metrics: PSNR, SSIM, LPIPS and CLIP similarity (counterpart
+of ``dreammesh4d_tpu/utils/metrics.py``: ``psnr`` :23, ``ssim`` :48,
+``LPIPSMetric`` :69, ``CLIPSimilarityMetric`` :97).  Images are
+(..., H, W, C) in [0, 1], on any device.
 """
 
 from __future__ import annotations
@@ -93,9 +91,42 @@ class LPIPSMetric:
 
 
 class CLIPSimilarityMetric:
-    """Cosine similarity of CLIP image embeddings: needs the Zero123 CLIP
-    tower, which is not ported yet."""
+    """Cosine similarity of CLIP image embeddings (the paper's CLIP metric),
+    on the port's CLIP tower (``models.guidance.zero123.clip``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("CLIP similarity needs the Zero123 CLIP tower, which comes with "
-                                  "the guidance (ROADMAP A3)")
+    ``params``: a state dict of the tower in OpenAI CLIP's ``visual.*``
+    layout without the prefix (the ``cond_stage_model.model.visual.*``
+    entries of a Stable Zero123 checkpoint, for one); ``converted`` is then
+    True.  Without it the weights are random from a ``torch.Generator``
+    seeded with ``seed`` and ``converted`` is False: relative only, as the
+    random LPIPS features are.  ``config``: the tower's widths
+    (``VisionTransformer``'s keyword arguments; default ViT-L/14)."""
+
+    def __init__(self, params: Optional[Dict[str, Any]] = None, config: Optional[dict] = None,
+                 seed: int = 0, device="cuda"):
+        from ..models.guidance.zero123.clip import VisionTransformer
+        from ..models.guidance.zero123.unet import init_weights
+
+        with torch.device("meta"):
+            tower = VisionTransformer(**(config or {}))
+        self.tower = tower.to_empty(device=torch.device(device)).requires_grad_(False)
+        if params is not None:
+            self.tower.load_state_dict({k: v if torch.is_tensor(v) else torch.as_tensor(np.array(v))
+                                        for k, v in params.items()})
+        else:
+            init_weights(self.tower, torch.Generator().manual_seed(seed))
+        self.converted = params is not None
+        self.device = torch.device(device)
+
+    def __call__(self, pred, target) -> torch.Tensor:
+        """(B, H, W, 3) or (H, W, 3) in [0, 1] → (B,) cosine similarities."""
+        pred, target = (x.to(self.device, torch.float32) if torch.is_tensor(x) else
+                        torch.as_tensor(np.array(x, np.float32), device=self.device)
+                        for x in (pred, target))
+        if pred.ndim == 3:
+            pred, target = pred[None], target[None]
+        with torch.no_grad():
+            a, b = self.tower.embed(pred), self.tower.embed(target)
+        a = a / torch.linalg.norm(a, dim=-1, keepdim=True)
+        b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
+        return (a * b).sum(-1)

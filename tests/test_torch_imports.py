@@ -45,7 +45,10 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "launch", "serving", "ops.mesh_raster", "utils.procedural", "utils.perceptual",
                "utils.metrics", "recovery", "export.mesh_io", "export.gaussian_io",
                "export.uv_unwrap", "export.texture_bake", "host_build", "export.isosurface",
-               "export.decimate", "scripts.mesh_simplification", "scripts.full_pipeline")
+               "export.decimate", "scripts.mesh_simplification", "scripts.full_pipeline",
+               "ops.resize", "models.guidance.zero123.scheduler", "models.guidance.zero123.unet",
+               "models.guidance.zero123.vae", "models.guidance.zero123.clip",
+               "models.guidance.zero123.guidance", "models.guidance.zero123.checkpoint")
 
 
 def test_port_imports_no_jax():
@@ -54,7 +57,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
-    assert int(n_modules) >= 54
+    assert int(n_modules) >= 63
     for name in NEW_MODULES:
         assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad

@@ -28,9 +28,9 @@ float32).
 from the checkpoint's parameters (the JAX comparison of both files is in
 ``test_torch_export.py``).
 
-And what the port refuses: the guidance paths it cannot serve yet (ROADMAP
-A3), the Gaussian stage and more than one device (A7); ``zero123-system``
-builds since it runs from its YAML.
+The guidance paths (off, missing, ``allow_missing``, random weights and a
+checkpoint), and what the port refuses: the Gaussian stage and more than
+one device (A7); ``zero123-system`` builds since it runs from its YAML.
 """
 
 import os
@@ -53,6 +53,7 @@ from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.config import load_config
 from dreammesh4d_tpu_torch.data.png import write_png
 from dreammesh4d_tpu_torch.models.geometry.sugar import SuGaRParams
+from dreammesh4d_tpu_torch.models.guidance.zero123.guidance import StableZero123Guidance
 from dreammesh4d_tpu_torch.systems import assembly
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -207,8 +208,9 @@ def test_one_step_matches_jax(experiments):
 
 def test_guidance_paths(tmp_path, caplog):
     """``pretrained_model_name_or_path``: ``""`` / ``none`` off; a missing
-    path raises, or warns and is off with ``allow_missing``; ``random[:seed]``
-    and an existing checkpoint wait for the guidance (ROADMAP A3)."""
+    path raises, or warns and is off with ``allow_missing``; ``random``,
+    ``random:3`` and an existing checkpoint (a tiny one in the LDM layout)
+    build the guidance (at tiny widths here)."""
     for path in ("", "none", "None"):
         assert assembly.maybe_build_guidance({"guidance": {"pretrained_model_name_or_path": path}}) is None
     missing = {"pretrained_model_name_or_path": str(tmp_path / "zero123.ckpt")}
@@ -216,10 +218,19 @@ def test_guidance_paths(tmp_path, caplog):
         assembly.maybe_build_guidance({"guidance": missing})
     assert assembly.maybe_build_guidance({"guidance": {**missing, "allow_missing": True}}) is None
     assert "allow_missing" in caplog.text
-    (tmp_path / "real.ckpt").write_bytes(b"")
+    tiny = {"model_channels": 8, "channel_mult": [1], "num_res_blocks": 1, "num_heads": 2,
+            "context_dim": 8, "vae_ch": 8, "vae_ch_mult": [1], "vae_num_res_blocks": 1,
+            "image_size": 8, "use_clip": False}
+    random3 = assembly.maybe_build_guidance(
+        {"guidance": {**tiny, "pretrained_model_name_or_path": "random:3"}}, device="cpu")
+    sd = {k: v for k, v in random3.modules.state_dict().items() if k != "clip_proj"}
+    torch.save({"state_dict": sd}, str(tmp_path / "real.ckpt"))
     for path in ("random", "random:3", str(tmp_path / "real.ckpt")):
-        with pytest.raises(NotImplementedError, match="A3"):
-            assembly.maybe_build_guidance({"guidance": {"pretrained_model_name_or_path": path}})
+        guidance = assembly.maybe_build_guidance(
+            {"guidance": {**tiny, "pretrained_model_name_or_path": path}}, device="cpu")
+        assert isinstance(guidance, StableZero123Guidance)
+        w = guidance.modules.state_dict()["model.diffusion_model.input_blocks.0.0.weight"]
+        assert torch.equal(w, sd["model.diffusion_model.input_blocks.0.0.weight"]) == (path != "random")
 
 
 def test_unported_systems_and_devices_raise(dotlist, tmp_path):

@@ -161,8 +161,45 @@ def test_lpips_matches_jax():
     rand = metrics.LPIPSMetric(seed=0, device="cpu")
     assert not rand.converted
     np.testing.assert_array_equal(rand(x, y).numpy(), metrics.LPIPSMetric(seed=0, device="cpu")(x, y).numpy())
-    with pytest.raises(NotImplementedError, match="A3"):
-        metrics.CLIPSimilarityMetric()
+
+
+def test_clip_similarity_matches_jax():
+    """``CLIPSimilarityMetric`` at the recovery recipe's tiny tower: the
+    port's seeded random weights carried to the JAX metric through its own
+    ``convert_clip_vision`` and back through ``clip_vision_params`` (exact);
+    the similarities ≤ 1e-5 of the JAX metric's and the embeddings ≤ 1e-4 of
+    their max (measured 3.2e-7); the random tower is seeded, relative only,
+    and its self-similarity is 1."""
+    from transformers import CLIPVisionConfig
+
+    from dreammesh4d_tpu.models.guidance.zero123.convert import convert_clip_vision
+    from dreammesh4d_tpu.utils.metrics import CLIPSimilarityMetric as JCLIP
+
+    t = recovery.CLIP_TOWER
+    rand = metrics.CLIPSimilarityMetric(config=t, seed=0, device="cpu")
+    assert not rand.converted
+    sd = {k: v.numpy() for k, v in rand.tower.state_dict().items()}
+    jparams = convert_clip_vision({f"visual.{k}": v for k, v in sd.items()}, None)
+    jm = JCLIP(params=jparams, config=CLIPVisionConfig(
+        hidden_size=t["width"], intermediate_size=t["mlp"], num_hidden_layers=t["layers"],
+        num_attention_heads=t["heads"], image_size=t["image_size"], patch_size=t["patch_size"]))
+    back = convert.clip_vision_params(jparams)
+    assert set(back) == set(sd) and all(np.array_equal(back[k], sd[k]) for k in sd)
+    port = metrics.CLIPSimilarityMetric(params=back, config=t, device="cpu")
+    assert port.converted and jm.converted
+    rng = np.random.default_rng(3)
+    x = rng.random((2, 40, 40, 3), dtype=np.float32)
+    y = np.clip(x + 0.3 * rng.normal(size=x.shape), 0, 1).astype(np.float32)
+    got, want = port(x, y).numpy(), np.asarray(jm(x, y))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # the similarities sit near 1 with random weights: the embeddings themselves too
+    emb, jemb = port.tower.embed(torch.as_tensor(x)).numpy(), np.asarray(jm._embed(jm.params, x))
+    err = np.abs(emb - jemb).max() / np.abs(jemb).max()
+    print(f"CLIP similarity: port {got} vs JAX {want}; embeddings max |d| / max {err:.3g}")
+    assert err <= 1e-4
+    np.testing.assert_array_equal(rand(x, y).numpy(),
+                                  metrics.CLIPSimilarityMetric(config=t, seed=0, device="cpu")(x, y).numpy())
+    np.testing.assert_allclose(rand(x, x).numpy(), 1.0, rtol=1e-6)
 
 
 def test_load_torch_weights_matches_jax():
@@ -230,22 +267,22 @@ def test_writers_match_jax(tmp_path):
 
 def _jax_dict_keys():
     """The JAX recovery dict's keys as ``RECOVERY.json`` records them, less
-    the CLIP columns and the keys the benchmark script adds."""
+    the keys the benchmark script adds."""
     with open(os.path.join(REPO, "RECOVERY.json")) as f:
         keys = set(json.load(f))
-    return {k for k in keys if not k.startswith("clip_")} - {
+    return keys - {
         "resolution", "static_steps", "dynamic_steps", "feature_provenance"}
 
 
 def test_run_recovery_cut(tmp_path):
     """The port's recipe end to end at 32², 4 frames, 3 + 3 steps on
-    ``xla``: every non-CLIP column of the JAX dict, finite."""
+    ``xla``: every column of the JAX dict, finite."""
     stats = {}
     res = recovery.run_recovery(tmp_path, H=32, W=32, L=4, static_steps=3, dynamic_steps=3,
                                 device="cpu", backend="xla", stats=stats)
     assert set(res) == _jax_dict_keys()
-    assert all(np.isfinite(v) for k, v in res.items() if k != "lpips_converted")
-    assert res["lpips_converted"] is False
+    assert all(np.isfinite(v) for k, v in res.items() if not k.endswith("_converted"))
+    assert res["lpips_converted"] is False and res["clip_converted"] is False
     assert 0 < stats["static_max_tile_count"] and 0 < stats["dynamic_max_tile_count"]
     assert stats["static_ms_per_step"] > 0 and stats["dynamic_ms_per_step"] > 0
     if not torch.cuda.is_available():
