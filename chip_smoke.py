@@ -174,8 +174,23 @@ Phases, each of which fails the run on a failed check:
     Gaussian step (the dynamic random views reach SDS at
     ``guidance_render_size``); ms/step beside the guidance-off steps of
     phases 9 and 12, the guidance's share, the banks' seconds, peak memory;
-14. a ``{"kernels": [...]}`` line, the card's name and power limit, and as the
-    last line ``{"ok": true, "device": {...}}``.
+14. the Gaussian stage (``drive_gaussian_stage``): configs/sugar_static_refine.yaml
+    with ``system.stage=gaussian`` through the launcher at the YAML's 512²
+    and 1 + 4 views, capacity 200,000; (a) the YAML's random ball of 5,000
+    with ``system.freq`` moved so that a densify and prune (step 2), the
+    opacity reset (after step 3) and the neighbour refresh (every 2 steps)
+    fall inside 4 steps, ``resume=LAST`` to 6, ``--export resume=LAST``
+    (``gaussians.ply`` of the alive slots), and 2 steps with the guidance at
+    ``random:0``; (b) ``init_num_pts=100000``, 2 steps, B1 and B2 on one view
+    of it held to their plain versions and timed.  Checks 5 + 5 B1/B2 launches
+    a step, ``n_alive`` changing at the densify, the SDS term with the
+    guidance, the resumed start and Adam count, the file's rows, no pair of a
+    dead slot in any tile; prints ms/step, the seconds of ``refresh_knn`` and
+    ``densify_and_prune``, peak memory and the fullest tile against the
+    capacity;
+15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``
+    too), the card's name and power limit, and as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -245,6 +260,14 @@ SDS_CPU_GRAD_TOL = 1e-3  # float32 card vs CPU: d loss / d rgb and the bank, of 
 SDS_CKPT_GRAD_TOL = 1e-5  # the checkpoint's d loss / d rgb vs its source modules', of its max |value|
 SDS_BF16_TOL = 5e-2  # bfloat16 vs float32 on the card: loss_sds and grad_norm, relative
 SDS_BF16_GRAD_TOL = 1e-1  # bfloat16 vs float32 on the card: d loss / d rgb, ||d|| / ||float32||
+# the Gaussian stage (phase 14): configs/sugar_static_refine.yaml with system.stage=gaussian
+GS_STEPS = 4  # run (a): a densify + prune at step 2, the opacity reset after step 3
+GS_RESUMED_STEPS = 6  # run (a) resumed from LAST: another densify at step 4
+GS_GUIDED_STEPS = 2  # run (a) again with the guidance at random:0
+GS_FREQ = ["system.freq.densify_from=2", "system.freq.densify=2", "system.freq.densify_until=100",
+           "system.freq.opacity_reset=3", "system.freq.reset_neighbors=2", "system.freq.start_sugar_reg=1"]
+GS_BIG_INIT = 100_000  # run (b): init_num_pts, B1/B2 at ~100k alive
+GS_BIG_STEPS = 2
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bfloat16 tensor-core peak, H100 SXM data sheet, 700 W
@@ -2645,6 +2668,206 @@ def unet_macs(unet, x, t, ctx):
     return total[0]
 
 
+def resident_fwd_bound(args, stats):
+    """The least time the card could take for one B1 launch on these inputs:
+    rows, pairs, starts, counts read once and the (T, C + 1, tile²) blocks
+    written once, over 3.35 TB/s; per evaluated (pair, pixel) 19 FP32
+    operations of geometry, exp, clamp and tests, per composited one 3 + 2C
+    more (weight, C FMAs, transmittance), over 67 TFLOP/s.  Returns (ms,
+    bound_by, bytes, operations)."""
+    rows, pairs, starts, counts = args[:4]
+    C, P = args[-1], args[5] ** 2
+    n_bytes = 4 * (rows.numel() + pairs.numel() + starts.numel() + counts.numel()
+                   + starts.numel() * (C + 1) * P)
+    n_ops = stats["pairs_read"] * P * 19 + stats["live_pixels"] * (3 + 2 * C)
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", n_bytes, n_ops
+
+
+def captured_pair_inputs(torch, rb, render, alive):
+    """B1's inputs as the Gaussian stage hands them over: runs ``render()``
+    once under ``no_grad`` with recorders on ``resident_blend.blend_pairs_cuda``
+    and the rasterizer's ``bin_gaussians_pairs``, and returns the first
+    view's (rows, pairs, starts, counts, tiles_x, tile, cap, group, C) and its
+    tile report: the fullest tile's pairs against the capacity, the pairs
+    in all, and the pairs of dead slots (``alive`` False: opacity 0, which
+    the binning's cull must drop)."""
+    rz = importlib.import_module("dreammesh4d_tpu_torch.ops.gs.rasterize")
+    blends, binnings = [], []
+    real_blend, real_bin = rb.blend_pairs_cuda, rz.bin_gaussians_pairs
+
+    def record_blend(*args, **kw):
+        blends.append(args)
+        return real_blend(*args, **kw)
+
+    def record_bin(*args, **kw):
+        out = real_bin(*args, **kw)
+        binnings.append(out)
+        return out
+
+    rb.blend_pairs_cuda, rz.bin_gaussians_pairs = record_blend, record_bin
+    try:
+        with torch.no_grad():
+            render()
+    finally:
+        rb.blend_pairs_cuda, rz.bin_gaussians_pairs = real_blend, real_bin
+    check(len(blends) >= 1 and len(binnings) == len(blends), "the render did not reach B1 through the pairs")
+    pa, args = binnings[0], blends[0]
+    N = alive.shape[0]
+    ids = pa.sorted_gauss.long()
+    valid = ids < N
+    report = {"max_tile_pairs": int(pa.counts.max()), "tile_capacity": int(args[6]),
+              "tiles_over_capacity": int((pa.counts > args[6]).sum()), "pairs": int(valid.sum()),
+              "dead_slot_pairs": int((~alive[ids[valid]]).sum()), "alive": int(alive.sum()), "slots": N}
+    return args, report
+
+
+def drive_gaussian_stage(torch, np, rb, card, launcher, device, tmp):
+    """The Gaussian stage main path (phase 14): configs/sugar_static_refine.yaml
+    with ``system.stage=gaussian`` through ``dreammesh4d_tpu_torch.launch.main``
+    at the YAML's 512² and 1 + 4 views, capacity 200,000 (``max_num``'s
+    default), the reference image phase 9's frame 0.
+
+    (a) The YAML's random ball of 5,000 Gaussians with the intervals of
+    ``GS_FREQ`` (a densify and prune at step 2, the opacity reset after step
+    3, the neighbour table every 2 steps, the SuGaR terms from step 1): train
+    GS_STEPS steps, guidance off, then ``resume=LAST`` to GS_RESUMED_STEPS,
+    then ``--export resume=LAST`` (``gaussians.ply`` of the alive slots); the
+    same start with the guidance at ``random:0`` for GS_GUIDED_STEPS steps.
+    (b) ``init_num_pts=GS_BIG_INIT``, GS_BIG_STEPS steps; B1 and B2 on one
+    view of its state held to their plain versions (``check_forward`` /
+    ``check_backward``'s bands) and timed.  Checks the 5 + 5 B1/B2 launches
+    of every step, ``n_alive`` changing at the densify (``gauss_num``), the
+    SDS term with the guidance, the resumed start, the file's row count, and
+    that no pair of a dead slot reaches a tile; prints ms/step, the seconds
+    of ``refresh_knn`` and ``densify_and_prune``, peak memory and the fullest
+    tile's pairs against the capacity."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.config import load_config
+    from dreammesh4d_tpu_torch.export.gaussian_io import load_gaussians_ply
+    from dreammesh4d_tpu_torch.systems import assembly, gaussian_stage
+    from dreammesh4d_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    def counts():
+        return dict(rb.launch_counts)
+
+    yaml = os.path.join(REPO, "configs", "sugar_static_refine.yaml")
+    out = os.path.join(tmp, "gaussian_out")
+    common = ["system.stage=gaussian", "system.guidance.pretrained_model_name_or_path=none",
+              f"data.image_path={launcher['frames_dir']}/000_rgba.png", f"exp_root_dir={out}",
+              "use_timestamp=false", "checkpoint.every_n_train_steps=2", "trainer.val_check_interval=1000"]
+    run_a = common + GS_FREQ + ["tag=a"]
+    trial_a = os.path.join(out, "sugar-refine", "a")
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    spans.time(assembly, "make_reg_state", "refresh_knn")
+    spans.time(gaussian_stage, "densify_and_prune", "densify_and_prune")
+    spans.train_steps(assembly.GaussianStageExperiment, "gaussian")
+    res, peaks = {}, {}
+    rb.reset_launch_counts()
+    try:
+        for label, verb, extra in (
+                ("a", "train", [f"trainer.max_steps={GS_STEPS}"]),
+                ("a resumed", "train", [f"trainer.max_steps={GS_RESUMED_STEPS}", "resume=LAST"]),
+                ("a export", "export", [f"trainer.max_steps={GS_RESUMED_STEPS}", "resume=LAST"]),
+                ("a guided", "train", [f"trainer.max_steps={GS_GUIDED_STEPS}", "tag=a_guided",
+                                       "system.guidance.pretrained_model_name_or_path=random:0"]),
+                ("b", "train", [f"trainer.max_steps={GS_BIG_STEPS}", "tag=b",
+                                f"system.geometry.init_num_pts={GS_BIG_INIT}"])):
+            torch.cuda.reset_peak_memory_stats()
+            base = common + ["tag=b"] if label == "b" else run_a
+            launch.main(launch.make_args(yaml, verb), base + extra)
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        spans.close()
+    res["launches"] = launches = counts()
+    print(f"Gaussian stage launches (steps, test passes, none in the export): {json.dumps(launches)}")
+    exps = dict(zip(("a", "a resumed", "a export", "a guided", "b"), spans.results["setup"]))
+    views = 1 + exps["a"].data.cfg.random_camera.batch_size
+    want = {"resident_fwd": views, "resident_bwd_accum": views}
+    rows = spans.steps
+    check([r[1] for r in rows] == list(range(GS_STEPS)) + list(range(GS_STEPS, GS_RESUMED_STEPS))
+          + list(range(GS_GUIDED_STEPS)) + list(range(GS_BIG_STEPS)), "Gaussian stage: steps taken")
+    for _, step, _, _, launched, metrics in rows:
+        got = {k: v for k, v in launched.items() if v}
+        check(got == want, f"Gaussian stage step {step}: launches {got} != {want}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"Gaussian stage step {step}: non-finite metric")
+    check(launches["resident_bwd_pairs"] == 0, "the Gaussian stage launched B3")
+    runs = {"a": rows[:GS_STEPS], "a resumed": rows[GS_STEPS:GS_RESUMED_STEPS],
+            "a guided": rows[GS_RESUMED_STEPS:GS_RESUMED_STEPS + GS_GUIDED_STEPS],
+            "b": rows[GS_RESUMED_STEPS + GS_GUIDED_STEPS:]}
+    resumed = runs["a resumed"][0]
+    check(resumed[1] == resumed[2] == GS_STEPS, "the resumed Gaussian run did not start at the saved step")
+    init_alive = exps["a"].gcfg.init_num
+    densified = [r for r in runs["a"] + runs["a resumed"] if "gauss_num" in r[5]]
+    check([r[1] for r in densified] == [2, 4], f"densify at steps {[r[1] for r in densified]}, not [2, 4]")
+    check(int(densified[0][5]["gauss_num"]) != init_alive, "the densify at step 2 left n_alive unchanged")
+    check(all("loss_sds" in r[5] for r in runs["a guided"]) and not any("loss_sds" in r[5] for r in runs["a"]),
+          "the SDS term is not in the guided steps' metrics only")
+    cfg_a = load_config(yaml, cli_args=run_a + [f"trainer.max_steps={GS_RESUMED_STEPS}"], makedirs=False)
+    exp = assembly.build_experiment(cfg_a, device=device)
+    saved = restore_checkpoint(os.path.join(trial_a, "ckpts", f"step_{GS_RESUMED_STEPS:08d}"), device)
+    exp.load_state(saved)
+    n_alive = int(exp.state.gaussians.alive.sum())
+    check(float(exp.state.opt_state.state[exp.state.gaussians.xyz]["step"]) == GS_RESUMED_STEPS,
+          "the resumed run's Adam count is not the step count")
+    ply = load_gaussians_ply(os.path.join(trial_a, "save", "gaussians.ply"))
+    check(ply["xyz"].shape[0] == n_alive, f"gaussians.ply holds {ply['xyz'].shape[0]} rows, not {n_alive} alive")
+    alive_np = exp.state.gaussians.alive.cpu().numpy()
+    check(np.array_equal(ply["xyz"], exp.state.gaussians.xyz.detach().cpu().numpy()[alive_np]),
+          "gaussians.ply's centres are not the alive slots'")
+    _, report_a = captured_pair_inputs(torch, rb, lambda: exp.validate(GS_RESUMED_STEPS),
+                                       exp.state.gaussians.alive)
+    print(f"Gaussian stage (a) after {GS_RESUMED_STEPS} steps: n_alive {init_alive} -> "
+          f"{', '.join(str(int(r[5]['gauss_num'])) for r in densified)} at steps "
+          f"{[r[1] for r in densified]}; one view's binning {json.dumps(report_a)}")
+    check(report_a["dead_slot_pairs"] == 0, "a dead slot (opacity 0) reached a tile")
+
+    # (b) B1/B2 at ~100k alive against their plain versions
+    big = exps["b"]
+    args, report_b = captured_pair_inputs(torch, rb, lambda: big.validate(GS_BIG_STEPS), big.state.gaussians.alive)
+    print(f"Gaussian stage (b), {report_b['alive']} alive of {report_b['slots']}: one view's binning "
+          f"{json.dumps(report_b)}")
+    check(report_b["dead_slot_pairs"] == 0, "(b): a dead slot reached a tile")
+    b1_err, _, _ = check_forward(torch, rb, {"gaussian_100k": args})
+    bwd_err, bwd_work, _ = check_backward(torch, rb, {"gaussian_100k": args})
+    res["b1_err"], res["bwd_err"] = b1_err, bwd_err
+    out_b = rb.blend_pairs_cuda(*args)
+    cot = torch.randn(out_b.shape, generator=torch.Generator(device=device).manual_seed(5), device=device)
+    seg, shape = args[:4], args[4:]
+    res["b1_device_ms"] = device_ms(torch, lambda: rb.blend_pairs_cuda(*args), "resident_fwd_kernel")
+    res["b2_device_ms"] = device_ms(torch, lambda: rb.blend_pairs_bwd_cuda(*seg, out_b, cot, *shape),
+                                    "resident_bwd_kernel")
+    res["b1_plain_ms"] = time_ms(torch, lambda: rb.blend_pairs_plain(*args), n=5)
+    res["b2_plain_ms"] = time_ms(torch, lambda: rb.blend_pairs_bwd_plain(*seg, out_b, cot, *shape), n=5)
+    b1_stats = {}
+    rb.blend_pairs_plain(*args, stats=b1_stats)
+    b1_bound = resident_fwd_bound(args, b1_stats)
+    b2_bound = kernel_bounds(args, bwd_work["gaussian_100k"], args[0].shape[0], False)
+    res["report_a"], res["report_b"] = report_a, report_b
+    print(f"[{card}] B1 at {report_b['alive']} alive (C={args[-1]}): {res['b1_device_ms']:.4f} ms device time "
+          f"(plain {res['b1_plain_ms']:.3f} ms; bound {b1_bound[0]:.4f} ms by {b1_bound[1]}); B2 "
+          f"{res['b2_device_ms']:.4f} ms (plain {res['b2_plain_ms']:.3f} ms; bound {b2_bound[0]:.4f} ms by "
+          f"{b2_bound[1]})")
+
+    sec = spans.seconds
+    for label, rws in runs.items():
+        ms = [r[3] for r in rws]
+        res[f"{label}_ms"] = statistics.median(ms[1:] or ms)
+        print(f"[{card}] Gaussian stage {label} train_step ({json.dumps(want)} per step; the densify, "
+              f"neighbour refresh and opacity reset inside the steps that run them): "
+              f"{res[f'{label}_ms']:.2f} ms/step (median without the run's first step; all: "
+              f"{', '.join(f'{x:.1f}' for x in ms)}); loss_total {rws[0][5]['loss_total']:.6g} -> "
+              f"{rws[-1][5]['loss_total']:.6g}")
+    res["knn_s"], res["densify_s"] = sec["refresh_knn"], sec["densify_and_prune"]
+    print(f"[{card}] Gaussian stage seconds: refresh_knn at C = {exps['a'].gcfg.capacity} "
+          f"{fmt_s(sec['refresh_knn'])}; densify_and_prune {fmt_s(sec['densify_and_prune'])}; setup "
+          f"(build_experiment) {fmt_s(sec['setup'])}; peak memory {json.dumps({k: round(v, 3) for k, v in peaks.items()})} GiB")
+    res["peaks"] = peaks
+    return res
+
+
 def fmt_s(xs):
     return ", ".join(f"{x:.3f}" for x in xs)
 
@@ -2966,15 +3189,7 @@ def main():
     plain_ms = time_ms(torch, lambda: rb.blend_pairs_plain(*args))
     render_ms = time_ms(torch, lambda: viewer.render(5.0, 0.0, 3.8, t=0.25))
     play_ms = time_ms(torch, lambda: viewer.play(5.0, 0.0, 3.8, n_frames=VIDEO_LEN))
-    rows, pairs, starts, counts = args[:4]
-    C, P = args[-1], args[5] ** 2
-    n_bytes = 4 * (rows.numel() + pairs.numel() + starts.numel() + counts.numel()
-                   + starts.numel() * (C + 1) * P)
-    # per evaluated (pair, pixel): 19 FP32 ops of geometry, exp, clamp and
-    # tests; per composited one: 3 + 2C more (weight, C FMAs, transmittance)
-    n_ops = main_stats["pairs_read"] * P * 19 + main_stats["live_pixels"] * (3 + 2 * C)
-    bound_ms = max(n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS) * 1e3
-    bound_by = "bytes" if n_bytes / H100_BYTES_PER_S > n_ops / H100_F32_FLOPS else "operations"
+    bound_ms, bound_by, n_bytes, n_ops = resident_fwd_bound(args, main_stats)
     # the kernels' own counts of the rows their cull kept (phase 3)
     kept = {"resident_fwd": b1_kept, "resident_bwd": bwd_kept[4]["main_view"]}
     print(f"[{card}] B1 resident_fwd: {b1_ms:.4f} ms one launch per event pair, {b1_more['ms_r10']:.4f} ms "
@@ -3101,17 +3316,24 @@ def main():
     guided = drive_guidance(torch, np, rb, tb, hc, card, launcher, recipe,
                             {"bank_s": bank_s, "bank_peak": bank_peak, "s1_bank_s": s1["bank_s"]},
                             dev, launch_tmp.name)
+
+    # 14. the Gaussian stage through the launcher at capacity 200,000
+    torch.cuda.empty_cache()
+    gaussian = drive_gaussian_stage(torch, np, rb, card, launcher, dev, launch_tmp.name)
     launch_tmp.cleanup()
 
-    # 14. result lines
+    # 15. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
-        # every path's launches, the recipe's (phase 12) and the guided launcher's (phase 13) included
+        # every path's launches: the recipe's (phase 12), the guided launcher's
+        # (phase 13) and the Gaussian stage's (phase 14) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
+        n_gaussian = gaussian["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches + n_recipe + n_guided, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "launches_recipe": n_recipe, "launches_guided": n_guided, **extra}
+                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "launches_recipe": n_recipe, "launches_guided": n_guided, "launches_gaussian": n_gaussian,
+                **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"
@@ -3130,7 +3352,8 @@ def main():
               launches_launcher=launcher["launches"]["resident_fwd"],
               launches_recovery=recov["recovery_launches"]["resident_fwd"],
               launches_export=recov["export_launches"]["resident_fwd"], cull_kept=kept["resident_fwd"],
-              **b1_more),
+              device_ms_gaussian_100k=gaussian["b1_device_ms"], plain_ms_gaussian_100k=gaussian["b1_plain_ms"],
+              max_abs_err_gaussian_100k=gaussian["b1_err"], **b1_more),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
               "ops/gs/pallas_resident.py::_bwd_kernel_accum",
               train_launches["resident_bwd_accum"] + launcher["launches"]["resident_bwd_accum"]
@@ -3141,7 +3364,9 @@ def main():
               launches_launcher=launcher["launches"]["resident_bwd_accum"],
               launches_recovery=recov["recovery_launches"]["resident_bwd_accum"], cull_kept=kept["resident_bwd"],
               **bwd_more["resident_bwd_accum", 4],
-              device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"]),
+              device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"],
+              device_ms_gaussian_100k=gaussian["b2_device_ms"], plain_ms_gaussian_100k=gaussian["b2_plain_ms"],
+              max_abs_err_gaussian_100k=gaussian["bwd_err"]["resident_bwd_accum"][1]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",
               "ops/gs/pallas_resident.py::_bwd_kernel", pair_launches["resident_bwd_pairs"],
               bwd_err["resident_bwd_pairs"][1], *b3, max_rel_err=bwd_err["resident_bwd_pairs"][0],

@@ -31,6 +31,11 @@ are read back as Python values.  This module imports no jax.
   params and the ``optax.multi_transform`` Adam moments of every
   ``SuGaRParams`` field).  ``RasterizerConfig`` crosses over through
   :func:`config` as it is;
+- the Gaussian stage: :func:`gaussian_state_params` — a ``GaussianState``
+  (``alive`` as bool); :func:`gaussian_train_state` — a
+  ``GaussianTrainState`` with its per-field Adam (``mu`` / ``nu`` /
+  ``count`` become each field's ``exp_avg`` / ``exp_avg_sq`` / ``step``),
+  the densification statistics and the step;
 - the guidance: :func:`zero123_guidance_params` — the JAX Stable Zero123
   param tree as the port's ``Zero123Modules`` state dict (the LDM layout);
   :func:`clip_vision_params` — the JAX CLIP tower as the port's
@@ -48,12 +53,14 @@ import torch
 
 from .models.geometry.deformation import DeformationConfig
 from .models.geometry.dynamic_sugar import DynamicStatic, DynamicSuGaRConfig
+from .models.geometry.gaussian import DensifyStats, GaussianState
 from .models.geometry.implicit_volume import ImplicitVolumeConfig
 from .models.geometry.sugar import SuGaRConfig, SuGaRParams, SuGaRStatic
 from .models.renderers.nerf_volume_renderer import NeRFRendererConfig, OccGridState
 from .models.renderers.sugar_rasterizer import CameraBatch
 from .ops.gs.rasterize import RasterizerConfig
 from .ops.hashgrid import HashGridConfig
+from .systems.gaussian_stage import GaussianParams, GaussianTrainState, init_gaussian_train_state
 from .systems.sugar_4dgen import DynTrainState, Sugar4DGenLosses, init_dyn_state
 from .systems.sugar_static import StaticTrainState, SugarStaticLosses, init_static_state
 from .systems.zero123_system import NeRFTrainState, Zero123Losses, init_nerf_state
@@ -248,6 +255,35 @@ def static_train_state(src, optimizer=None, device="cuda") -> StaticTrainState:
                       _f32(_get(_get(adam, "mu"), field), device),
                       _f32(_get(_get(adam, "nu"), field), device))
     return state
+
+
+# --- the Gaussian stage ----------------------------------------------------
+
+
+def gaussian_state_params(src, device="cuda") -> GaussianState:
+    return GaussianState(*(_f32(_get(src, k), device) for k in GaussianParams._fields),
+                         alive=torch.as_tensor(np.array(_get(src, "alive"), bool), device=device))
+
+
+def gaussian_train_state(src, optimizer=None, device="cuda") -> GaussianTrainState:
+    """``src``: the JAX ``GaussianTrainState`` (or a dict) with
+    ``gaussians``, ``opt_state`` (``GaussianAdamState``: ``mu`` / ``nu``
+    mirroring ``GaussianParams``, one ``count``), ``stats`` and ``step`` as
+    numpy; ``optimizer`` the keyword arguments of ``gaussian_optimizer``
+    (the schedules are not part of the JAX state).  A count of 0 leaves Adam
+    without state, as a fresh optimizer has."""
+    state = init_gaussian_train_state(gaussian_state_params(_get(src, "gaussians"), "cpu"), optimizer,
+                                      step=int(_item(_get(src, "step"))), device=device)
+    adam = _get(src, "opt_state")
+    if int(_item(_get(adam, "count"))):
+        for field in GaussianParams._fields:
+            _set_adam(state.opt_state, getattr(state.gaussians, field), _get(adam, "count"),
+                      _f32(_get(_get(adam, "mu"), field), device),
+                      _f32(_get(_get(adam, "nu"), field), device))
+    stats = _get(src, "stats")
+    return state._replace(stats=DensifyStats(
+        _f32(_get(stats, "grad_accum"), device), _f32(_get(stats, "denom"), device),
+        torch.as_tensor(np.array(_get(stats, "max_radii"), np.int32), device=device)))
 
 
 def perceptual_params(tree, device="cuda") -> dict:

@@ -3,6 +3,7 @@ entry points, each stage reading the file the stage before it wrote
 (counterpart of the repository's ``scripts/bench_full_pipeline.py``):
 
     python3 -m dreammesh4d_tpu_torch.scripts.full_pipeline [--tiny] [--out DIR] [--device cuda]
+        [--guidance none|random[:seed]|<ckpt>]
 
 1. static NeRF (``configs/stable-zero123.yaml --train``): 600 steps,
    reference 128/256/512², random views 8/4/2 at 64/128/256²;
@@ -17,13 +18,18 @@ entry points, each stage reading the file the stage before it wrote
 6. the 4D export (``--export resume=LAST``): 32 frame OBJs sharing one
    1024² texture.
 
-The guidance is off (``pretrained_model_name_or_path=none``; it is not
-ported yet).  The inputs are procedural: the animated icosphere(4) of the
+The guidance of stages 1, 4 and 5 is the reference's: Stable Zero123 at
+random weights (``random:0``, ``system.guidance.use_clip=false``) at full
+size, off under ``--tiny``; ``--guidance`` sets
+``pretrained_model_name_or_path`` instead: ``none``, ``random[:seed]``
+(with ``use_clip=false``, as the reference runs random weights) or a Stable
+Zero123 checkpoint.  The inputs are procedural: the animated icosphere(4) of the
 recovery benchmark rendered by the port's mesh rasterizer at the stages'
 reference camera, 32 RGBA frames at 512², frame 0 the reference image.
 ``--tiny`` runs the chain at toy sizes and steps (a smoke check, no timing
 value).  Writes ``<out>/pipeline.json``: seconds of every stage, ms per
-train step (stage 1 per resolution milestone), total minutes, the card.
+train step (stage 1 per resolution milestone), total minutes, the card and
+the guidance that ran.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 STEPS = {"static": 600, "refine": 2000, "dynamic": 2000}
 # tests/test_full_pipeline.py's, stage 1 cut from 25 (the toy stage 1 costs ~1.5 s a step on a CPU)
 TINY_STEPS = {"static": 6, "refine": 3, "dynamic": 10}
-GUIDANCE_OFF = ["system.guidance.pretrained_model_name_or_path=none"]
+GUIDANCE = "random:0"  # at full size; off under --tiny (scripts/bench_full_pipeline.py:159-163)
 MC_EXPORT = ["system.exporter_type=mesh-exporter", "system.exporter.fmt=obj",
              "system.geometry.isosurface_method=mc-cpu", "system.geometry.isosurface_resolution=256"]
 
@@ -115,9 +121,20 @@ class StepTimes:
                 for hw, ms in by_size.items()}
 
 
-def run(out_root: str, tiny: bool = False, device: str = "cuda") -> dict:
+def guidance_dotlist(guidance: str) -> list:
+    """The dotlist of ``--guidance``: random weights without the CLIP tower,
+    as the reference's recipe runs them; a checkpoint as it is."""
+    dotlist = [f"system.guidance.pretrained_model_name_or_path={guidance}"]
+    if guidance == "random" or guidance.startswith("random:"):
+        dotlist.append("system.guidance.use_clip=false")
+    return dotlist
+
+
+def run(out_root: str, tiny: bool = False, device: str = "cuda", guidance=None) -> dict:
     """The six stages under ``out_root``; returns the result dict (also
-    written as ``out_root/pipeline.json``)."""
+    written as ``out_root/pipeline.json``).  ``guidance``: the
+    ``pretrained_model_name_or_path`` of stages 1, 4 and 5 (default
+    ``random:0``, ``none`` with ``tiny``)."""
     from .. import launch
     from ..systems import assembly
     from . import mesh_simplification
@@ -126,6 +143,7 @@ def run(out_root: str, tiny: bool = False, device: str = "cuda") -> dict:
         raise RuntimeError("no CUDA device: the recipe runs on the card; pass --device cpu to run "
                            "the plain PyTorch versions on the CPU")
     steps = TINY_STEPS if tiny else STEPS
+    guidance = guidance or ("none" if tiny else GUIDANCE)
     L, H = (8, 48) if tiny else (32, 512)
     os.makedirs(out_root, exist_ok=True)
     trials = os.path.join(out_root, "outputs")
@@ -147,7 +165,7 @@ def run(out_root: str, tiny: bool = False, device: str = "cuda") -> dict:
 
     paths = {}
     timed("assets", lambda: paths.update(zip(("image", "frames"), make_assets(out_root, L, H, device))))
-    common = GUIDANCE_OFF + [f"exp_root_dir={trials}", "use_timestamp=false",
+    common = guidance_dotlist(guidance) + [f"exp_root_dir={trials}", "use_timestamp=false",
                              "trainer.val_check_interval=100000"]
     # --tiny: the sizes of tests/test_full_pipeline.py
     gauss_tiny = ["data.height=32", "data.width=32", "data.random_camera.height=32",
@@ -220,7 +238,7 @@ def run(out_root: str, tiny: bool = False, device: str = "cuda") -> dict:
                     f"@{H} -> dynamic{steps['dynamic']}@{H}x{L}f -> 4D export",
         "tiny": tiny, "device": str(device),
         "card": card_line() if torch.device(device).type == "cuda" else None,
-        "guidance": "none", "stages": stages, "total_seconds": total, "total_minutes": total / 60,
+        "guidance": guidance, "stages": stages, "total_seconds": total, "total_minutes": total / 60,
         "files": {"model_obj": nerf_obj, "bind_mesh": paths["bind"], "refine_ckpt": refine_ckpt,
                   "frames": objs},
         "notes": "wall clock of each stage; a train stage includes its setup and its test pass; "
@@ -238,9 +256,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--out", help="output directory (default: a new temporary directory)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain PyTorch versions)")
+    parser.add_argument("--guidance", help="pretrained_model_name_or_path of stages 1, 4 and 5: none, "
+                        "random[:seed] or a checkpoint (default random:0, none with --tiny)")
     args = parser.parse_args(argv)
     out = args.out or tempfile.mkdtemp(prefix="pipeline_")
-    result = run(out, tiny=args.tiny, device=args.device)
+    result = run(out, tiny=args.tiny, device=args.device, guidance=args.guidance)
     print(json.dumps({k: v for k, v in result.items() if k != "files"}, indent=2))
     return result
 

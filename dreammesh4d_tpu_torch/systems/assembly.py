@@ -1,6 +1,7 @@
 """Experiment assembly: config -> runnable stage experiments (counterpart of
 ``dreammesh4d_tpu/systems/assembly.py`` for the stages the port runs from
-their YAML: the static NeRF, the static SuGaR refine and the dynamic stage).
+their YAML: the static NeRF, the static SuGaR refine, its Gaussian stage
+and the dynamic stage).
 
 For each ``system_type`` it builds the data module, the geometry, the
 optimizer and the train step, and exposes the trainer-facing callbacks
@@ -12,7 +13,8 @@ draws (the background inversion) come from a ``torch.Generator`` seeded with
 
 ``export()`` writes the JAX package's file set: the NeRF stage
 ``save/model.obj`` with vertex colours, the static stage
-``save/refined_mesh.obj`` and ``save/gaussians.ply``, the dynamic stage one
+``save/refined_mesh.obj`` and ``save/gaussians.ply``, the Gaussian stage
+``save/gaussians.ply`` of its alive slots, the dynamic stage one
 textured ``save/4d_export/frame_XXX.obj`` per timestamp sharing
 ``material0.mtl`` / ``material0.png``.
 
@@ -24,7 +26,7 @@ the step's ``guidance_state``.  ``freq.guidance_eval`` (stages 1 and 5)
 writes ``it{step}-guidance.png`` every that many steps.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the Gaussian stage and more than one device (A7).
+ROADMAP item: more than one device (A7).
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from ..export.texture_bake import bake_texture, export_textured_mesh
 from ..models.geometry.deformation import DeformationConfig, init_deformation
 from ..models.geometry.dynamic_sugar import (DynamicSuGaRConfig, build_dynamic_static,
                                              init_discrete_params, timed_all)
+from ..models.geometry.gaussian import (GaussianConfig, GaussianState, from_mesh_vertices,
+                                        init_random_sphere, renderable)
 from ..models.geometry.implicit_volume import (ImplicitVolumeConfig, export_density_grid,
                                                forward_field, init_implicit_volume)
 from ..models.geometry.sugar import SuGaRConfig, SuGaRParams, create_sugar, gaussian_attributes
@@ -57,7 +61,7 @@ from ..models.guidance.zero123.guidance import config_from_dict
 from ..models.materials import DiffuseWithPointLightMaterial
 from ..models.renderers.nerf_volume_renderer import (NeRFRendererConfig, init_occgrid,
                                                      make_image_renderer, make_occgrid_update)
-from ..ops.cameras import get_ray_directions, get_rays
+from ..ops.cameras import GSCameraInfo, get_ray_directions, get_rays
 from ..ops.gs.rasterize import RasterizerConfig, rasterize
 from ..ops.hashgrid import HashGridConfig, progressive_level_mask
 from ..ops.meshops import build_one_ring, cotangent_weights
@@ -67,6 +71,8 @@ from ..utils.checkpoint import restore_checkpoint
 from ..utils.saving import Saver
 from ..utils.schedule import C_max
 from ..utils.tree import tree_map
+from .gaussian_stage import (GaussianStageLosses, init_gaussian_train_state, make_gaussian_train_step,
+                             make_reg_state, reset_state_opacity)
 from .sugar_4dgen import (Sugar4DGenLosses, init_dyn_state, make_dynamic_render_eval,
                           make_dynamic_train_step)
 from .sugar_static import (SugarStaticLosses, init_static_state, make_render_eval,
@@ -283,6 +289,136 @@ def _step_for_current(exp):
     if key not in exp._steps:
         exp._steps[key] = exp._build_step(*key)
     return exp._steps[key]
+
+
+# ---------------------------------------------------------------------------
+# the Gaussian stage of sugar-static (vanilla 3DGS with density control)
+# ---------------------------------------------------------------------------
+
+
+class GaussianStageExperiment:
+    """``system.stage: gaussian`` of sugar-static-system: vanilla 3DGS with
+    adaptive density control and the SuGaR regulariser.
+
+    The geometry keys of the YAML (``max_num``, ``init_num_pts``,
+    ``percent_dense``, ``densify_grad_threshold``, ``min_opac_prune``, the
+    learning rates) set :class:`GaussianConfig` and ``gaussian_optimizer``;
+    the Gaussians start from the points of ``geometry_convert_from`` /
+    ``init_from`` where that file exists, else from the random ball (drawn
+    by a ``torch.Generator`` seeded with ``cfg.seed``).  ``system.freq``:
+    ``densify`` / ``densify_from`` / ``densify_until`` (the density control
+    after a step), ``opacity_reset``, ``reset_neighbors`` (the regulariser's
+    neighbour table) and ``start_sugar_reg``.  The reference and random views
+    render at the random views' size, as in the JAX package."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = dev = torch.device(device)
+        system = cfg.system
+        check_single_device(cfg.trainer)
+        self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
+        self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
+
+        geo = dict(system.get("geometry", {}))
+        self.gcfg = GaussianConfig(
+            capacity=int(geo.get("max_num", 200_000)), init_num=int(geo.get("init_num_pts", 5000)),
+            sh_degree=int(geo.get("sh_degree", 3)), spatial_extent=float(geo.get("spatial_extent", 3.8)),
+            percent_dense=float(geo.get("percent_dense", 0.01)),
+            densify_grad_threshold=float(geo.get("densify_grad_threshold", 0.0002)),
+            min_opacity=float(geo.get("min_opac_prune", 0.005)))
+        init_path = geo.get("geometry_convert_from") or geo.get("init_from")
+        if init_path and os.path.exists(str(init_path)):
+            mesh = load_mesh(str(init_path))
+            gaussians = from_mesh_vertices(self.gcfg, mesh.v_pos, mesh.v_rgb, device=dev)
+        else:
+            gaussians = init_random_sphere(self.gcfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)),
+                                           device=dev)
+        self.optimizer_kwargs = dict(
+            position_lr=geo.get("position_lr", 0.00016), feature_lr=geo.get("feature_lr", 0.0025),
+            opacity_lr=geo.get("opacity_lr", 0.05), scaling_lr=geo.get("scaling_lr", 0.005),
+            rotation_lr=geo.get("rotation_lr", 0.001),
+            spatial_lr_scale=float(geo.get("spatial_lr_scale", 1.0)))
+        losses = _loss_config(GaussianStageLosses, system)
+        d = self.data.cfg
+        self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
+                                              d.default_fovy_deg, system)
+        freq = dict(system.get("freq", {}))
+        self.densify_every = int(freq.get("densify", 100))
+        self.densify_from = int(freq.get("densify_from", 500))
+        self.densify_until = int(freq.get("densify_until", 7000))
+        self.opacity_reset_every = int(freq.get("opacity_reset", 3000))
+        self.reset_neighbors_every = int(freq.get("reset_neighbors", 50))
+
+        self.guidance = maybe_build_guidance(system, device=dev)
+        self.bank = guidance_fn = None
+        if self.guidance is not None:
+            self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
+            guidance_fn = sds_guidance_fn(self.guidance)
+        self._train_step, self._density_step = make_gaussian_train_step(
+            self.gcfg, self.raster_cfg, losses, guidance_fn,
+            invert_bg_prob=float(system.get("renderer", {}).get("invert_bg_prob", 1.0)),
+            sugar_reg_start=int(freq.get("start_sugar_reg", 3000)), device=dev)
+        self.state = init_gaussian_train_state(gaussians, self.optimizer_kwargs, device=dev)
+        self.reg_state = make_reg_state(self.state)
+        self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        """One step, then the density control (its ``gauss_num`` joins the
+        metrics), the neighbour refresh and the opacity reset where their
+        intervals fall."""
+        batch = self.data.train_batch(step)
+        keep = ["ref_cameras", "ref_rgb", "ref_mask", "rand_cameras"]
+        if self.guidance is not None:  # the SDS conditioning reads the view poses
+            keep += ["elevation", "azimuth", "camera_distances"]
+        self.state, metrics = self._train_step(self.state, {k: batch[k] for k in keep}, self.reg_state,
+                                               self.generator, self.bank)
+        if self.densify_from <= step < self.densify_until and step % self.densify_every == 0 and step > 0:
+            self.state, info = self._density_step(self.state, self.generator)
+            metrics = {**metrics, "gauss_num": info["n_alive"]}
+        if step % self.reset_neighbors_every == 0:
+            self.reg_state = make_reg_state(self.state)
+        if self.opacity_reset_every > 0 and step > 0 and step % self.opacity_reset_every == 0:
+            self.state = reset_state_opacity(self.state)
+        return metrics
+
+    def validate(self, step: int, test: bool = False) -> None:
+        """4 orbit views on white as one image grid, ``it{step}-gaussian.png``
+        (also for ``test``, as in the JAX package)."""
+        cams = self.data.random_sampler.orbit(n_views=4)["rand_cameras"]
+        white = torch.ones(3, device=self.device)
+        frames = []
+        with torch.no_grad():
+            means, quats, scales, opac, sh = renderable(self.state.gaussians)
+            for wv, fp, cc in zip(*cams):
+                out = rasterize(means, opac, GSCameraInfo(wv, fp, cc), self.raster_cfg, white, sh=sh,
+                                sh_degree=self.gcfg.sh_degree, scales=scales, quats=quats,
+                                device=self.device)
+                frames.append(torch.clamp(out.rgb, 0, 1).cpu().numpy())
+        self.saver.save_image_grid(f"it{step}-gaussian.png", [{"type": "rgb", "img": f} for f in frames])
+
+    def export(self) -> None:
+        """``save/gaussians.ply`` (3DGS layout) of the alive slots."""
+        g = GaussianState(*(x.detach().cpu().numpy() for x in self.state.gaussians))
+        alive = g.alive
+        sh = np.concatenate([g.sh_dc, g.sh_rest], 1)
+        save_gaussians_ply(self.saver.path("gaussians.ply"), g.xyz[alive], sh[alive],
+                           g.opacity_logits[alive], g.log_scales[alive], g.quats[alive])
+
+    # checkpoint protocol: every slot, the moments, the statistics and the
+    # step; the neighbour table is rebuilt on load
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"gaussians": {f: getattr(s.gaussians, f).detach() for f in GaussianState._fields},
+                "opt_state": _optimizer_state(s.opt_state), "stats": s.stats._asdict(), "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        gaussians = GaussianState(**{f: saved["gaussians"][f] for f in GaussianState._fields})
+        state = init_gaussian_train_state(gaussians, self.optimizer_kwargs, step=int(saved["step"]),
+                                          device=self.device)
+        _load_optimizer_state(state.opt_state, saved["opt_state"])
+        stats = type(state.stats)(**{k: v.to(self.device) for k, v in saved["stats"].items()})
+        self.state = state._replace(stats=stats)
+        self.reg_state = make_reg_state(self.state)
 
 
 # ---------------------------------------------------------------------------
@@ -779,10 +915,12 @@ EXPERIMENTS = {"sugar-static-system": SugarStaticExperiment,
 
 
 def build_experiment(cfg, device="cuda"):
-    """The experiment of ``cfg.system_type`` on ``device``."""
-    if cfg.system_type == "sugar-static-system" and str(cfg.system.get("stage", "sugar")) == "gaussian":
-        raise NotImplementedError("the Gaussian stage (system.stage: gaussian) is not ported to "
-                                  "PyTorch yet (ROADMAP A7)")
+    """The experiment of ``cfg.system_type`` on ``device``; sugar-static-system
+    dispatches on ``system.stage``: ``gaussian`` runs :class:`GaussianStageExperiment`,
+    ``sugar`` (the default) the bound refine."""
     if cfg.system_type not in EXPERIMENTS:
         raise KeyError(f"Unknown system_type {cfg.system_type!r}; known: {sorted(EXPERIMENTS)}")
-    return EXPERIMENTS[cfg.system_type](cfg, device=device)
+    cls = EXPERIMENTS[cfg.system_type]
+    if cfg.system_type == "sugar-static-system" and str(cfg.system.get("stage", "sugar")) == "gaussian":
+        cls = GaussianStageExperiment
+    return cls(cfg, device=device)

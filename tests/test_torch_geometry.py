@@ -36,6 +36,17 @@ from dreammesh4d_tpu_torch.ops import quaternion as tq
 from dreammesh4d_tpu_torch.ops import sh as tsh
 from dreammesh4d_tpu_torch.utils.procedural import make_icosphere as t_icosphere
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 DEV = "cpu"
 SMALL_DEFORM = dict(net_width=16, grid_channels=4, base_resolution=(8, 8, 8, 5), multires=(1, 2))
@@ -196,7 +207,8 @@ def perturbed_deformation(cfg, seed=0, head_scale=1e-2):
     """JAX ``init_deformation`` with every zero-init head filled at
     ``head_scale`` and the time planes moved off 1, from a seeded numpy RNG
     (a fresh field deforms by exactly nothing and ignores time)."""
-    params = jax.tree.map(np.asarray, jdef.init_deformation(cfg, jax.random.PRNGKey(seed)))
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: jdef.init_deformation(cfg, k))(
+        jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
     for name in ("head_dx", "head_dstrain", "head_drot", "head_dopacity"):
         for layer in ("res", "out"):
@@ -241,7 +253,9 @@ def test_skinning_and_timed_gs(skinning):
     jp, jst, cfg = _dynamic_scene(skinning)
     params = perturbed_deformation(cfg.deformation, head_scale=0.1)
     ts = np.float32([0.1, 0.6])
-    jnode = jdyn.timed_node_attrs(jax.tree.map(jnp.asarray, params), cfg.deformation, jst, jnp.asarray(ts))
+    # the JAX side jitted: eagerly every op compiles on first use
+    jnode = jax.jit(lambda p, t: jdyn.timed_node_attrs(p, cfg.deformation, jst, t))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(ts))
     tst = convert.dynamic_static(jax.tree.map(np.asarray, jst), DEV)
     tp = convert.sugar_params(jax.tree.map(np.asarray, jp), DEV)
     tnode = tdyn.timed_node_attrs(convert.deformation_params(params, DEV),
@@ -250,12 +264,12 @@ def test_skinning_and_timed_gs(skinning):
         _close(a, b)
     # skin the SAME node attributes on both sides
     node = tdyn.NodeAttrs(*(_t(np.asarray(x)) for x in jnode))
-    jvert = jdyn.skin_vertices(jst, jp.points, jnode)
+    jvert = jax.jit(lambda pts, n: jdyn.skin_vertices(jst, pts, n))(jp.points, jnode)
     tvert = tdyn.skin_vertices(tst, tp.points, node)
     for a, b in zip(tvert, jvert):
         if b is not None:
             _close(a, b)
-    jgs = jdyn.timed_gs_attrs(jp, jst, jvert)
+    jgs = jax.jit(lambda p, v: jdyn.timed_gs_attrs(p, jst, v))(jp, jvert)
     tgs = tdyn.timed_gs_attrs(tp, tst, tdyn.VertexAttrs(*(None if x is None else _t(np.asarray(x))
                                                           for x in jvert)))
     for a, b in zip(tgs, jgs):
@@ -273,7 +287,8 @@ def test_timed_all_other_modes(use_graph, mode):
     else:
         params = perturbed_deformation(cfg.deformation, head_scale=0.1)
     ts = np.float32([0.0, 0.4, 1.0])
-    jgs, jvert = jdyn.timed_all(jp, jax.tree.map(jnp.asarray, params), cfg.deformation, jst, jnp.asarray(ts))
+    jgs, jvert = jax.jit(lambda p, t: jdyn.timed_all(jp, p, cfg.deformation, jst, t))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(ts))
     tgs, tvert = tdyn.timed_all(convert.sugar_params(jax.tree.map(np.asarray, jp), DEV),
                                 convert.deformation_params(params, DEV), convert.config(cfg.deformation),
                                 convert.dynamic_static(jax.tree.map(np.asarray, jst), DEV), _t(ts))

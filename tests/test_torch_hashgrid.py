@@ -24,6 +24,17 @@ from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.ops import hashgrid as thg
 from dreammesh4d_tpu_torch.ops import hashgrid_cell as tcell
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JCFG = jhg.HashGridConfig(n_levels=4, n_features_per_level=2, log2_hashmap_size=8,
                           base_resolution=4, per_level_scale=2.0, layout="cell")
 CFG = convert.hashgrid_config(JCFG)
@@ -45,8 +56,8 @@ def jax_cell(data):
     """The JAX side, each function traced once: XLA twin and interpret-mode
     kernel outputs, and the kernel's table gradient for both cotangents."""
     tables, x, g_feats, g_dfeats = (jnp.asarray(a) for a in data)
-    twin = jhg.hashgrid_encode_cell({"tables": tables}, JCFG, x, with_grad=True)
-    kernel = j_encode_cell({"tables": tables}, JCFG, x, interpret=True)
+    twin = jax.jit(lambda t: jhg.hashgrid_encode_cell({"tables": t}, JCFG, x, with_grad=True))(tables)
+    kernel = jax.jit(lambda t: j_encode_cell({"tables": t}, JCFG, x, interpret=True))(tables)
 
     def loss(t, wf, wd):
         f, d = j_encode_cell({"tables": t}, JCFG, x, interpret=True)
@@ -144,8 +155,8 @@ def test_query_point_gradient_contract(data):
     true one."""
     tables, x, g_feats, _ = data
     jt, jx, jg = jnp.asarray(tables), jnp.asarray(x[:32]), jnp.asarray(g_feats[:32])
-    g_kernel = jax.grad(lambda p: (j_encode_cell({"tables": jt}, JCFG, p, interpret=True)[0] * jg).sum())(jx)
-    g_twin = jax.grad(lambda p: (jhg.hashgrid_encode_cell({"tables": jt}, JCFG, p) * jg).sum())(jx)
+    g_kernel = jax.jit(jax.grad(lambda p: (j_encode_cell({"tables": jt}, JCFG, p, interpret=True)[0] * jg).sum()))(jx)
+    g_twin = jax.jit(jax.grad(lambda p: (jhg.hashgrid_encode_cell({"tables": jt}, JCFG, p) * jg).sum()))(jx)
     assert np.abs(np.asarray(g_kernel)).max() == 0.0
     assert np.abs(np.asarray(g_twin)).max() > 0.1
 
@@ -165,8 +176,8 @@ def test_duplicate_cell_gradient_accumulation(data):
     tables = data[0]
     x = np.tile(np.float32([[0.31, 0.52, 0.73]]), (257, 1))
     jt = jnp.asarray(tables)
-    ref = np.asarray(jax.grad(lambda t: j_encode_cell({"tables": t}, JCFG, jnp.asarray(x),
-                                                      interpret=True)[0].sum())(jt))
+    ref = np.asarray(jax.jit(jax.grad(lambda t: j_encode_cell({"tables": t}, JCFG, jnp.asarray(x),
+                                                              interpret=True)[0].sum()))(jt))
     t = torch.tensor(tables, requires_grad=True)
     tcell.encode_cell_with_grad({"tables": t}, CFG, torch.tensor(x))[0].sum().backward()
     np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-4, atol=1e-4)
@@ -220,8 +231,8 @@ def test_corner_layout_and_frequency_encode():
     assert got.shape == (5, 40, 8)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
     w = rng.normal(size=(5, 40, 8)).astype(np.float32)
-    g_ref = jax.grad(lambda p: (jhg.hashgrid_encode({"tables": jnp.asarray(tables)}, jcfg, p)
-                                * jnp.asarray(w)).sum())(jnp.asarray(x))
+    g_ref = jax.jit(jax.grad(lambda p: (jhg.hashgrid_encode({"tables": jnp.asarray(tables)}, jcfg, p)
+                                        * jnp.asarray(w)).sum()))(jnp.asarray(x))
     (thg.hashgrid_encode({"tables": torch.tensor(tables)}, cfg, xt) * torch.tensor(w)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_ref), rtol=1e-4, atol=1e-4)
 

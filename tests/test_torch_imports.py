@@ -48,7 +48,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "export.decimate", "scripts.mesh_simplification", "scripts.full_pipeline",
                "ops.resize", "models.guidance.zero123.scheduler", "models.guidance.zero123.unet",
                "models.guidance.zero123.vae", "models.guidance.zero123.clip",
-               "models.guidance.zero123.guidance", "models.guidance.zero123.checkpoint")
+               "models.guidance.zero123.guidance", "models.guidance.zero123.checkpoint",
+               "ops.knn", "models.geometry.gaussian", "ops.sugar_reg", "systems.gaussian_stage")
 
 
 def test_port_imports_no_jax():
@@ -57,7 +58,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, names, bad = out.stdout.strip().splitlines()[-1].split("|")
-    assert int(n_modules) >= 63
+    assert int(n_modules) >= 67
     for name in NEW_MODULES:
         assert f"dreammesh4d_tpu_torch.{name}" in names.split(" "), name
     assert bad == "[]", bad

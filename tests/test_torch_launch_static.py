@@ -29,8 +29,9 @@ from the checkpoint's parameters (the JAX comparison of both files is in
 ``test_torch_export.py``).
 
 The guidance paths (off, missing, ``allow_missing``, random weights and a
-checkpoint), and what the port refuses: the Gaussian stage and more than
-one device (A7); ``zero123-system`` builds since it runs from its YAML.
+checkpoint), and what the port refuses: more than one device (A7);
+``zero123-system`` and the Gaussian stage build since they run from their
+YAML.
 """
 
 import os
@@ -235,8 +236,9 @@ def test_guidance_paths(tmp_path, caplog):
 
 def test_unported_systems_and_devices_raise(dotlist, tmp_path):
     """Since ``zero123-system`` runs from its YAML it builds (from the
-    YAML's full width, guidance off); the Gaussian stage and more than one
-    device still raise."""
+    YAML's full width, guidance off), and so does the Gaussian stage
+    (``system.stage=gaussian``, at 512 slots on the CPU); more than one
+    device still raises."""
     zero123 = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
                           cli_args=["data.image_path=/x/a_rgba.png", "use_timestamp=false",
                                     f"exp_root_dir={tmp_path}",
@@ -250,9 +252,11 @@ def test_unported_systems_and_devices_raise(dotlist, tmp_path):
             cli_args=["data.image_path=/x/a_rgba.png", f"exp_root_dir={tmp_path}",
                       "system.guidance.pretrained_model_name_or_path=none", "trainer.devices=2"]),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        assembly.build_experiment(load_config(YAML, cli_args=dotlist + ["system.stage=gaussian"],
-                                              makedirs=False), device="cpu")
+    gaussian = assembly.build_experiment(load_config(
+        YAML, cli_args=dotlist + ["system.stage=gaussian", "system.geometry.max_num=512",
+                                  "system.geometry.init_num_pts=64"], makedirs=False), device="cpu")
+    assert isinstance(gaussian, assembly.GaussianStageExperiment)
+    assert int(gaussian.state.gaussians.alive.sum()) == 64 and gaussian.state.gaussians.xyz.shape == (512, 3)
     for extra in (["trainer.devices=2"], ["trainer.mesh=[2,1]"]):
         with pytest.raises(NotImplementedError, match="A7"):
             assembly.build_experiment(load_config(YAML, cli_args=dotlist + extra, makedirs=False),

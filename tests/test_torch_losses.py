@@ -28,6 +28,16 @@ from dreammesh4d_tpu_torch.systems import zero123_system as tz123
 from dreammesh4d_tpu_torch.utils import schedule as tsched
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh(seed=0, batch=()):
     mesh = make_icosphere(1, radius=0.7)
     verts, faces = np.asarray(mesh.v_pos, np.float32), np.asarray(mesh.t_pos_idx)
@@ -40,7 +50,7 @@ def _mesh(seed=0, batch=()):
 
 def _compare(j_fn, t_fn, x, value_rtol=1e-5, grad_tol=1e-4):
     """Value and gradient of a scalar function of one array on both sides."""
-    jv, jg = jax.value_and_grad(j_fn)(jnp.asarray(x))
+    jv, jg = jax.jit(jax.value_and_grad(j_fn))(jnp.asarray(x))
     xt = torch.tensor(x, requires_grad=True)
     tv = t_fn(xt)
     tv.backward()
@@ -96,7 +106,7 @@ def test_laplacian_smoothing_loss_vertex_at_centroid():
     loss = tmesh.laplacian_smoothing_loss(x, ring_t)
     loss.backward()
     assert torch.isfinite(x.grad).all()
-    jv, jg = jax.value_and_grad(jmesh.laplacian_smoothing_loss)(
+    jv, jg = jax.jit(jax.value_and_grad(jmesh.laplacian_smoothing_loss))(
         jnp.asarray(deformed), (jnp.asarray(idx), jnp.asarray(mask)))
     assert abs(float(loss.detach()) - float(jv)) <= 1e-5 * float(jv)
     # the direction of a ~1e-8 Laplacian is rounding noise on both sides:
@@ -168,14 +178,14 @@ def test_tv_loss():
 
 @pytest.mark.parametrize("only_time", [False, True])
 def test_plane_tv_loss(only_time):
-    cfg = jdef.DeformationConfig(net_width=8, grid_channels=4, base_resolution=(6, 5, 4, 3),
+    # the port's seeded planes, carried to the JAX function (the loss reads only the grids)
+    cfg = tdef.DeformationConfig(net_width=8, grid_channels=4, base_resolution=(6, 5, 4, 3),
                                  multires=(1, 2))
-    params = jax.tree.map(np.asarray, jdef.init_deformation(cfg, jax.random.PRNGKey(0)))
+    grids = tdef.init_deformation(cfg, torch.Generator().manual_seed(0), device="cpu")["grids"]
     rng = np.random.default_rng(8)
-    for planes in params["grids"]:
-        for i in range(6):
-            planes[i] = (planes[i] + 0.3 * rng.normal(size=planes[i].shape)).astype(np.float32)
-    jv, jg = jax.value_and_grad(lambda p: jdef.plane_tv_loss(p, only_time_planes=only_time))(
+    params = {"grids": [[(p.numpy() + 0.3 * rng.normal(size=tuple(p.shape))).astype(np.float32)
+                         for p in planes] for planes in grids]}
+    jv, jg = jax.jit(jax.value_and_grad(lambda p: jdef.plane_tv_loss(p, only_time_planes=only_time)))(
         jax.tree.map(jnp.asarray, params))
     tp = convert.deformation_params(params, "cpu")
     leaves = [p.requires_grad_(True) for planes in tp["grids"] for p in planes]

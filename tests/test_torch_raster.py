@@ -16,6 +16,7 @@ blend and ``rasterize`` end to end, on the CPU.
   written out in numpy) on adversarial segments: atol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +34,17 @@ from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
 from dreammesh4d_tpu_torch.ops.gs.binning import PairAssignment, bin_gaussians_pairs
 from dreammesh4d_tpu_torch.ops.gs.projection import compute_cov3d, project_gaussians, project_gaussians_sq
 from dreammesh4d_tpu_torch.ops.gs.rasterize import RasterizerConfig, rasterize
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FOV = 0.8
 W = 64
@@ -237,10 +249,9 @@ def test_rasterize_matches_jax_xla(tile):
     base = dict(width=W, height=W, tan_fovx=t, tan_fovy=t, tile_capacity=256,
                 max_tiles_per_gaussian=8)
     bg = np.float32([0.3, 0.2, 0.1])
-    ref = j_rasterize(jnp.asarray(scene["means"]), jnp.asarray(scene["opac"]), cam,
-                      JRasterizerConfig(**base, backend="xla"), jnp.asarray(bg),
-                      colors=jnp.asarray(scene["colors"]), scales=jnp.asarray(scene["scales"]),
-                      quats=jnp.asarray(scene["quats"]))
+    ref = jax.jit(lambda m, o, c, s, q: j_rasterize(m, o, cam, JRasterizerConfig(**base, backend="xla"),
+                                                    jnp.asarray(bg), colors=c, scales=s, quats=q))(
+        *(jnp.asarray(scene[k]) for k in ("means", "opac", "colors", "scales", "quats")))
     cam_t = tuple(np.asarray(x) for x in cam)
     out = rasterize(scene["means"], scene["opac"], cam_t,
                     RasterizerConfig(**base, backend="pallas_resident", tile_px=tile), bg,

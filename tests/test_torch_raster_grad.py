@@ -38,6 +38,17 @@ from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
 from dreammesh4d_tpu_torch.ops.gs.binning import bin_gaussians_pairs
 from dreammesh4d_tpu_torch.ops.gs.rasterize import RasterizerConfig, rasterize
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FOV = 0.8
 W = 32
 LEAVES = ("p", "q", "ls", "c", "ol")
@@ -74,7 +85,8 @@ def jax_grads(scene, cam, cfg):
                           colors=jax.nn.sigmoid(pr["c"]), scales=jnp.exp(pr["ls"]), quats=pr["q"])
         return (out.rgb ** 2).mean() + 0.1 * out.depth.mean() + 0.05 * out.alpha.mean()
 
-    return {k: np.asarray(v) for k, v in jax.grad(loss)({k: jnp.asarray(v) for k, v in scene.items()}).items()}
+    grads = jax.jit(jax.grad(loss))({k: jnp.asarray(v) for k, v in scene.items()})
+    return {k: np.asarray(v) for k, v in grads.items()}
 
 
 def torch_grads(scene, cam, cfg):

@@ -44,6 +44,17 @@ from dreammesh4d_tpu_torch.ops.gs.binning import PairAssignment, bin_gaussians_p
 from dreammesh4d_tpu_torch.ops.gs.projection import project_gaussians_sq
 from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: with several test workers on the cores, torch's intra-op
+    pool would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 64
 TILE = 32
 TILES_X = W // TILE

@@ -36,7 +36,8 @@ def viewers():
         n_dg_nodes=16, deformation=jdef.DeformationConfig(
             net_width=16, grid_channels=4, base_resolution=(8, 8, 8, 5), multires=(1, 2)))
     jst = jdyn.build_dynamic_static(dyn_cfg, js, np.asarray(jp.points))
-    params = jax.tree.map(np.asarray, jdef.init_deformation(dyn_cfg.deformation, jax.random.PRNGKey(0)))
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: jdef.init_deformation(dyn_cfg.deformation, k))(
+        jax.random.PRNGKey(0)))
     rng = np.random.default_rng(0)
     for name in ("head_dx", "head_dstrain", "head_drot", "head_dopacity"):
         for layer in ("res", "out"):

@@ -120,10 +120,13 @@ def scene():
     target = jp._replace(
         points=jp.points * 1.05,
         sh_dc=jnp.asarray(0.5 * rng.normal(size=jp.sh_dc.shape), jnp.float32))
-    attrs = jsugar.gaussian_attributes(target, js)
-    normals = jnp.repeat(face_normals(target.points, js.faces), js.n_per_face, axis=0)
-    gt = j_render_batch(attrs.means3d, attrs.quats, attrs.scales, attrs.opacities, attrs.sh,
-                        js.sh_degree, normals, ref_cams, jnp.ones(3), raster._replace(backend="xla"))
+    def render_target():  # jitted: eager dispatch compiles each op on first use
+        attrs = jsugar.gaussian_attributes(target, js)
+        normals = jnp.repeat(face_normals(target.points, js.faces), js.n_per_face, axis=0)
+        return j_render_batch(attrs.means3d, attrs.quats, attrs.scales, attrs.opacities, attrs.sh,
+                              js.sh_degree, normals, ref_cams, jnp.ones(3), raster._replace(backend="xla"))
+
+    gt = jax.jit(render_target)()
     rand = sampler.sample()
     batch = {
         "ref_cameras": _np(ref_cams),

@@ -201,9 +201,9 @@ def test_rasterize_pallas_matches_jax():
     scene, cam = make_scene(200, 1), camera()
     jcfg, tcfg = _configs(width=64, height=64, tile_capacity=256)
     bg = np.float32([0.3, 0.2, 0.1])
-    ref = j_rasterize(jnp.asarray(scene["means"]), jnp.asarray(scene["opac"]), cam, jcfg,
-                      jnp.asarray(bg), colors=jnp.asarray(scene["colors"]),
-                      scales=jnp.asarray(scene["scales"]), quats=jnp.asarray(scene["quats"]))
+    ref = jax.jit(lambda m, o, c, s, q: j_rasterize(m, o, cam, jcfg, jnp.asarray(bg), colors=c, scales=s,
+                                                    quats=q))(
+        *(jnp.asarray(scene[k]) for k in ("means", "opac", "colors", "scales", "quats")))
     out = rasterize(scene["means"], scene["opac"], tuple(np.asarray(x) for x in cam), tcfg, bg,
                     colors=scene["colors"], scales=scene["scales"], quats=scene["quats"],
                     device="cpu")
@@ -226,7 +226,7 @@ def test_rasterize_pallas_gradients_match_jax():
         return ((out.rgb - target) ** 2).mean() + 0.1 * out.depth.mean() + 0.05 * out.alpha.mean()
 
     keys = ("means", "quats", "scales", "colors", "opac")
-    jgrads = jax.grad(j_loss)({k: jnp.asarray(scene[k]) for k in keys})
+    jgrads = jax.jit(jax.grad(j_loss))({k: jnp.asarray(scene[k]) for k in keys})
     leaves = {k: torch.tensor(scene[k], requires_grad=True) for k in keys}
     out = rasterize(leaves["means"], leaves["opac"], tuple(np.asarray(x) for x in cam), tcfg,
                     torch.ones(3), colors=leaves["colors"], scales=leaves["scales"],

@@ -8,7 +8,9 @@ The JAX step runs ``backend="pallas_resident", interpret=True``; the port's
 the plain PyTorch versions of the kernels.  Cameras come from the JAX sampler
 through ``convert.camera_batch``.
 
-One step from the same parameters and batch, ``invert_bg_prob`` 0 and 1:
+One step from the same parameters and batch, ``invert_bg_prob`` 0 and 1
+(the JAX step jitted once, at 0.5, with a key per case whose background
+draw gives the same inversion):
 - every ``metrics`` key within 2e-3 relative, with a 5e-3 absolute floor for
   the image terms (rgb, mask, psnr) — the TPU kernel's bf16 transmittance;
 - the gradient of every deformation leaf within 1e-2 of that leaf's max |g|
@@ -65,6 +67,12 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _init_deformation():
+    """The JAX ``init_deformation`` at PRNGKey(0), jitted (eagerly every op
+    compiles on first use)."""
+    return jax.jit(lambda k: jdef.init_deformation(DEF_CFG, k))(jax.random.PRNGKey(0))
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """The shapes here are tiny, and when several test workers share the
@@ -83,7 +91,7 @@ def scene():
     cfg = jdyn.DynamicSuGaRConfig(n_dg_nodes=16, dg_node_connectivity=4, skinning_method="hybrid",
                                   deformation=DEF_CFG, dist_mode="eucdisc")
     jst = jdyn.build_dynamic_static(cfg, js, np.asarray(jp.points))
-    dparams = _np(jdef.init_deformation(DEF_CFG, jax.random.PRNGKey(0)))
+    dparams = _np(_init_deformation())
     rng = np.random.default_rng(0)
     for name in ("head_dx", "head_dstrain", "head_drot", "head_dopacity"):
         for layer in ("res", "out"):
@@ -109,14 +117,17 @@ def scene():
     # target: the sphere rigidly translated along +z over time
     ts = np.float32([0.2, 0.8])
     ref_cams = sampler.orbit(n_views=T, height=W, width=W)["rand_cameras"]
-    attrs = jsugar.gaussian_attributes(jp, js)
-    normals = jnp.repeat(face_normals(jp.points, js.faces), js.n_per_face, axis=0)
-    offsets = jnp.stack([jnp.asarray([0.0, 0.0, 0.35 * float(x)]) for x in ts])
-    bcast = lambda x: jnp.broadcast_to(x, (T,) + x.shape)  # noqa: E731
-    gt = j_render_batch(attrs.means3d, attrs.quats, attrs.scales, attrs.opacities, attrs.sh,
-                        js.sh_degree, None, ref_cams, jnp.ones(3), raster._replace(backend="xla"),
-                        timed_attrs=(attrs.means3d[None] + offsets[:, None, :], bcast(attrs.quats),
-                                     bcast(attrs.scales), bcast(normals)))
+    def render_target():  # jitted: eager dispatch compiles each op on first use
+        attrs = jsugar.gaussian_attributes(jp, js)
+        normals = jnp.repeat(face_normals(jp.points, js.faces), js.n_per_face, axis=0)
+        offsets = jnp.stack([jnp.asarray([0.0, 0.0, 0.35 * float(x)]) for x in ts])
+        bcast = lambda x: jnp.broadcast_to(x, (T,) + x.shape)  # noqa: E731
+        return j_render_batch(attrs.means3d, attrs.quats, attrs.scales, attrs.opacities, attrs.sh,
+                              js.sh_degree, None, ref_cams, jnp.ones(3), raster._replace(backend="xla"),
+                              timed_attrs=(attrs.means3d[None] + offsets[:, None, :], bcast(attrs.quats),
+                                           bcast(attrs.scales), bcast(normals)))
+
+    gt = jax.jit(render_target)()
     batch = {
         "timestamps": ts,
         "frame_indices": np.arange(T, dtype=np.int32),
@@ -152,18 +163,33 @@ def _grad_keeper():
     return optax.GradientTransformation(zeros, lambda g, state, params=None: (zeros(g), g))
 
 
-@pytest.mark.parametrize("invert_bg_prob", [0.0, 1.0])
-def test_one_step_matches_jax(scene, invert_bg_prob):
-    jlosses = jsys.Sugar4DGenLosses(**LOSSES)
+@pytest.fixture(scope="module")
+def jax_step(scene):
+    """ONE jitted JAX step serves both cases: built with invert_bg_prob 0.5
+    (the probability only sets the threshold of the background draw, the
+    step's one use of its key without a guidance), and a key per case whose
+    draw inverts the background (the port's 1.0) or does not (0.0)."""
     keeper = _grad_keeper()
     jstep = jsys.make_dynamic_train_step(
-        scene["jp"], scene["jst"], scene["cfg"].deformation, scene["raster"], keeper, jlosses,
-        jnp.asarray(scene["arap_w"]), guidance_fn=None, invert_bg_prob=invert_bg_prob)
+        scene["jp"], scene["jst"], scene["cfg"].deformation, scene["raster"], keeper,
+        jsys.Sugar4DGenLosses(**LOSSES), jnp.asarray(scene["arap_w"]), guidance_fn=None,
+        invert_bg_prob=0.5)
+    keys = {}
+    for seed in range(64):
+        key = jax.random.PRNGKey(seed)
+        keys.setdefault(float(jax.random.uniform(jax.random.split(key)[0])) > 0.5, key)
+    return jstep, keeper, {0.0: keys[False], 1.0: keys[True]}
+
+
+@pytest.mark.parametrize("invert_bg_prob", [0.0, 1.0])
+def test_one_step_matches_jax(scene, jax_step, invert_bg_prob):
+    jlosses = jsys.Sugar4DGenLosses(**LOSSES)
+    jstep, keeper, keys = jax_step
     jparams = jax.tree.map(jnp.asarray, scene["dparams"])
     jbatch = jax.tree.map(jnp.asarray, scene["batch"])
     jstate = jsys.init_dyn_state(jparams, keeper)
     jstate = jstate._replace(step=jnp.asarray(5, jnp.int32))  # inside lambda_mask's ramp
-    jstate1, jmetrics = jstep(jstate, jbatch, jax.random.PRNGKey(0))
+    jstate1, jmetrics = jstep(jstate, jbatch, keys[invert_bg_prob])
     jgrads = jstate1.opt_state
     adam = optax.adam(LR, b1=0.9, b2=0.99)
     updates, _ = adam.update(jgrads, adam.init(jparams), jparams)
@@ -209,7 +235,7 @@ def test_dynamic_train_step_learns_motion(scene):
         lambda_arap_reg_key_frame=0.1, lambda_arap_reg_inter_frame=0.1,
         lambda_plane_tv=0.0001, lambda_time_smoothness=0.001)
     tstep = _torch_step(scene, losses, invert_bg_prob=0.0)
-    fresh = _np(jdef.init_deformation(DEF_CFG, jax.random.PRNGKey(0)))
+    fresh = _np(_init_deformation())
     state = init_dyn_state(convert.deformation_params(fresh, "cpu"), lr=LR, betas=(0.9, 0.999),
                            device="cpu")
     batch = _torch_batch(scene["batch"])
