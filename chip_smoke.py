@@ -188,9 +188,23 @@ Phases, each of which fails the run on a failed check:
     dead slot in any tile; prints ms/step, the seconds of ``refresh_knn`` and
     ``densify_and_prune``, peak memory and the fullest tile against the
     capacity;
-15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``
-    too), the card's name and power limit, and as the last line
-    ``{"ok": true, "device": {...}}``.
+16. more than one device (``drive_multidevice``, run after 14, before the
+    lines of 15): the launcher's refusal of more devices than cards; two
+    ranks spawned by the phase on the one card in a ``gloo`` group
+    (``launch.spawn``), configs/sugar_dynamic_dg.yaml at full width at mesh
+    [2,1] and [1,2] and sugar_static_refine.yaml at [2,1], MULTI_STEPS steps
+    with the guidance at ``random:0`` (MULTI_DTYPE, output convolutions
+    drawn, cuDNN TF32 off) against one process: the first step's losses and
+    gradient within MULTI_RTOL, the later steps' losses within
+    MULTI_RTOL_LATER; the dynamic [2,1] layout in bf16 printed; each
+    rank's B1/B2 launches its share of the views, the Gaussian stage at
+    [2,1] across a densify with ``n_alive`` equal on both ranks, ms/step and
+    peak memory per rank, the UNet's bytes per rank at tp=2 and 1; and
+    ``scripts/render_4d`` frame (byte-equal to ``write_png`` of
+    ``Viewer4D.render``), orbit and play on phase 9's dynamic trial;
+15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian`` and
+    ``launches_multidevice`` too), the card's name and power limit, and as
+    the last line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -2911,6 +2925,273 @@ def time_kernels(torch, rb, tb, path):
     print(json.dumps(res))
 
 
+MULTI_STEPS = 3  # each layout of phase 16
+MULTI_RTOL = 1e-4  # the first step's logged losses and gradient, two ranks against one process
+MULTI_ATOL = 1e-7
+# the later steps' losses: after one Adam step (eps 1e-8, 1e-15) a gradient
+# element at rounding level has moved by ±lr, so two trajectories that sum
+# in another order part at ~1e-4 (PERF.md, PR 12)
+MULTI_RTOL_LATER = 1e-2
+# the held guidance of phase 16, with cuDNN's TF32 off (a bfloat16 layout
+# is printed beside it): TF32 convolutions round by the algorithm cuDNN
+# picks for a batch, and the split batches pick others
+MULTI_DTYPE = "float32"
+MULTI_RENDER_N = 8  # render_4d orbit / play frames
+EXP_DIRS = {"dynamic": "sugar-dynamic", "static": "sugar-refine"}  # the YAMLs' names
+
+
+def multidevice_rank(rank, jobs, out_dir):
+    """One rank of phase 16, spawned by ``launch.spawn`` inside a ``gloo``
+    group on the one card: every job's ``launch.main`` in the group, each
+    step timed (the card synchronised) with its B1/B2 launches, written to
+    ``<out_dir>/<job>_rank<rank>.json`` with the peak memory, the UNet's
+    parameter bytes on this rank and the alive Gaussians."""
+    import torch
+
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.ops.gs import resident_blend as rb
+    from dreammesh4d_tpu_torch.systems import assembly
+
+    torch.backends.cudnn.allow_tf32 = False  # as the one-process runs it is held to
+    for name, yaml, extras in jobs:
+        spans = Spans(torch, lambda: dict(rb.launch_counts))
+        spans.time(launch, "build_experiment", "setup", keep=True)
+        for cls in (assembly.SugarStaticExperiment, assembly.Sugar4DGenExperiment,
+                    assembly.GaussianStageExperiment):
+            spans.train_steps(cls, name)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            launch.main(launch.make_args(yaml, "train"), extras)
+        finally:
+            spans.close()
+        exp = spans.results["setup"][0]
+        unet = exp.guidance.modules.unet if exp.guidance is not None else None
+        gaussians = getattr(exp.state, "gaussians", None)
+        rec = {"dp": exp.par.dp, "tp": exp.par.tp, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "steps": [{"step": r[1], "ms": r[3], "launches": r[4], "metrics": r[5]} for r in spans.steps],
+               "unet_bytes": sum(p.numel() * p.element_size() for p in unet.parameters()) if unet else 0,
+               "n_alive": int(gaussians.alive.sum()) if gaussians is not None else None}
+        with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def loss_errors(rows, ref):
+    """Per metric row, the largest relative error of a logged loss of
+    ``rows`` against ``ref`` (floored at MULTI_ATOL / MULTI_RTOL) and what
+    it was."""
+    out = []
+    for a, b in zip(rows, ref):
+        worst = (0.0, "")
+        for k in b:
+            if k.startswith("loss"):
+                err = abs(a[k] - b[k]) / max(abs(b[k]), MULTI_ATOL / MULTI_RTOL)
+                worst = max(worst, (err, f"{k} step {int(b['step'])}: {a[k]:.7g} vs {b[k]:.7g}"))
+        out.append(worst)
+    return out
+
+
+def first_step_grad_error(trial, ref_trial):
+    """The largest difference of Adam's first moment after the first step,
+    (1 − β1)·g of the first step's gradient, between two trials, over the
+    state's largest |value| (as ``tests/test_torch_launch_multidevice.py``
+    holds it), and which leaf."""
+    import torch
+
+    def moments(t):
+        state = torch.load(os.path.join(t, "ckpts", "step_00000001", "state.pt"), map_location="cpu",
+                           weights_only=True)["opt_state"]["state"]
+        return [state[k]["exp_avg"] for k in sorted(state)]
+
+    a, b = moments(trial), moments(ref_trial)
+    check(len(a) == len(b) > 0, f"{trial}: {len(a)} Adam entries, the single run {len(b)}")
+    top = max(float(m.abs().max()) for m in b)
+    return max((float((x - y).abs().max()) / top, f"leaf {i} of {len(b)}") for i, (x, y) in enumerate(zip(a, b)))
+
+
+def metrics_rows(trial):
+    import csv
+
+    with open(os.path.join(trial, "metrics.csv")) as f:
+        return [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+
+
+def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
+    """More than one device (phase 16).  (a) The launcher refuses
+    ``trainer.devices`` above the visible cards ("visible"), before any
+    process or file.  (b) Two ranks spawned here (``launch.spawn``), both on
+    the one card, in a ``gloo`` group carrying CUDA tensors through host
+    memory (NCCL refuses two ranks on one device): configs/sugar_dynamic_dg.yaml
+    at full width for MULTI_STEPS steps at mesh [2,1] (the frames split) and
+    [1,2] (the UNet's attention and FF split), sugar_static_refine.yaml at
+    [2,1], each with the guidance at ``random:0`` in MULTI_DTYPE with its
+    output convolutions drawn (``zero_init=false``, so that the split layers
+    reach the loss), on phase 9's assets; every logged loss held to the
+    single-process run of the same dotlist (run here), cuDNN's TF32 off in
+    both so that float32 convolutions do not round by the algorithm picked
+    for each batch: the first step's losses and its gradient (Adam's first
+    moment after one step, (1 − β1)·g) at MULTI_RTOL, the later steps'
+    losses at MULTI_RTOL_LATER; the
+    B1/B2 launches of every step on each rank (its share of the views); and
+    the Gaussian stage at [2,1] across one densify (the YAML's ball,
+    GS_FREQ): ``n_alive`` equal on both ranks.  The dynamic [2,1] layout
+    runs once more with the YAML's bfloat16 guidance, against its own
+    single-process run, printed and not held (bfloat16 cuDNN is not
+    reproducible between calls).  Prints ms/step per layout and the peak
+    memory per rank (two ranks sharing one card over ``gloo``: not a
+    multi-card figure), and the UNet's parameter bytes per rank at tp=2
+    against tp=1.  (c) ``scripts/render_4d`` on phase 9's dynamic trial:
+    ``frame`` byte-equal to ``write_png`` of ``Viewer4D.render`` at the same
+    arguments, ``orbit`` / ``play --n MULTI_RENDER_N`` numbered PNGs and the
+    sidecar, with their seconds."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.config import load_config
+    from dreammesh4d_tpu_torch.data.png import read_png, write_png
+    from dreammesh4d_tpu_torch.scripts import render_4d
+    from dreammesh4d_tpu_torch.serving import Viewer4D
+
+    res = {"launches": {}}
+    before = dict(rb.launch_counts)
+    drop = ("tag=", "trainer.max_steps=", "trainer.val_check_interval=", "exp_root_dir=",
+            "system.guidance.pretrained_model_name_or_path=", "checkpoint.")
+    out = os.path.join(tmp, "multi")
+
+    def guidance(dtype):
+        return ["system.guidance.pretrained_model_name_or_path=random:0", "system.guidance.zero_init=false",
+                f"system.guidance.dtype={dtype}"]
+
+    common = [f"exp_root_dir={out}", f"trainer.max_steps={MULTI_STEPS}", "trainer.val_check_interval=100000",
+              "trainer.log_every_n_steps=1", "checkpoint.every_n_train_steps=1"]
+    static_yaml, _, static_list = launcher["trials"]["static"]
+    dyn_yaml, dyn_trial, dyn_list = launcher["trials"]["dynamic"]
+    static = [x for x in static_list if not x.startswith(drop)] + common
+    dynamic = [x for x in dyn_list if not x.startswith(drop)] + common
+
+    # (a) the launcher's refusal
+    over = torch.cuda.device_count() + 1
+    try:
+        launch.main(launch.make_args(static_yaml, "train"), static + guidance(MULTI_DTYPE)
+                    + [f"trainer.devices={over}", "tag=refused"])
+    except ValueError as e:
+        check("visible" in str(e), f"trainer.devices={over}: {e}")
+        print(f"[{card}] the launcher refuses trainer.devices={over} on {over - 1} card(s): {e}")
+    else:
+        fail(f"the launcher ran trainer.devices={over} on {over - 1} card(s)")
+    check(not os.path.exists(os.path.join(out, "sugar-refine", "refused")), "the refused run wrote a trial")
+
+    # (b) two ranks on the card, and one process for reference: name ->
+    # (YAML, dotlist, mesh, the single run it is held to, held)
+    gaussian = [x for x in static if not x.startswith("system.geometry.surface")] + GS_FREQ + [
+        "system.stage=gaussian", "system.guidance.pretrained_model_name_or_path=none"]
+    layouts = {"dynamic_dp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[2,1]", "dynamic", True),
+               "dynamic_tp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[1,2]", "dynamic", True),
+               "static_dp": (static_yaml, static + guidance(MULTI_DTYPE), "[2,1]", "static", True),
+               "gaussian_dp": (static_yaml, gaussian, "[2,1]", None, True),
+               "dynamic_dp_bf16": (dyn_yaml, dynamic + guidance("bfloat16"), "[2,1]", "dynamic_bf16", False)}
+    jobs = [(name, yaml, dotlist + [f"tag={name}", "trainer.devices=2", f"trainer.mesh={mesh}"])
+            for name, (yaml, dotlist, mesh, _, _) in layouts.items()]
+    t0 = time.perf_counter()
+    launch.spawn(multidevice_rank, 2, device, backend="gloo", args=(jobs, out))
+    res["spawn_s"] = time.perf_counter() - t0
+    single = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for kind, yaml, dotlist in (("dynamic", dyn_yaml, dynamic + guidance(MULTI_DTYPE)),
+                                    ("static", static_yaml, static + guidance(MULTI_DTYPE)),
+                                    ("dynamic_bf16", dyn_yaml, dynamic + guidance("bfloat16"))):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            launch.main(launch.make_args(yaml, "train"), dotlist + [f"tag={kind}_single"])
+            single[kind] = {"s": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated() / 2**30,
+                            "rows": metrics_rows(os.path.join(out, EXP_DIRS[kind.split("_")[0]],
+                                                              f"{kind}_single"))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    recs = {name: [json.load(open(os.path.join(out, f"{name}_rank{r}.json"))) for r in range(2)]
+            for name in layouts}
+    frames_n = int(load_config(dyn_yaml, cli_args=dynamic, makedirs=False).data["num_frames"])
+    share = {"static": 1 + STATIC_RAND_VIEWS // 2, "gaussian": 1 + STATIC_RAND_VIEWS // 2}
+    res["worst"] = {}
+    for name, (_, _, mesh, ref_kind, held) in layouts.items():
+        dp = int(mesh[1])
+        n_views = 2 * frames_n // dp if name.startswith("dynamic") else share[name.split("_")[0]]
+        want = {"resident_fwd": n_views, "resident_bwd_accum": n_views}
+        for r, rec in enumerate(recs[name]):
+            check((rec["dp"], rec["tp"]) == (dp, 2 // dp), f"{name} rank {r}: grid {rec['dp']} x {rec['tp']}")
+            check([s["step"] for s in rec["steps"]] == list(range(MULTI_STEPS)), f"{name} rank {r}: steps taken")
+            for s in rec["steps"]:
+                got = {k: v for k, v in s["launches"].items() if v}
+                check(got == want, f"{name} rank {r} step {s['step']}: launches {got} != {want} (its share)")
+                for k, v in s["launches"].items():
+                    res["launches"][k] = res["launches"].get(k, 0) + v
+            ms = [s["ms"] for s in rec["steps"]]
+            print(f"[{card}] two ranks sharing one card over gloo, {name} mesh {mesh} rank {r}: "
+                  + ", ".join(f"{x:.1f}" for x in ms) + f" ms/step (median after the first "
+                  f"{statistics.median(ms[1:]):.1f}), peak memory {rec['peak_gib']:.2f} GiB, "
+                  f"{json.dumps(want)} launches a step")
+        if ref_kind is None:
+            continue
+        rows = metrics_rows(os.path.join(out, EXP_DIRS[name.split("_")[0]], name))
+        ref = single[ref_kind]["rows"]
+        check(len(rows) == len(ref) == MULTI_STEPS, f"{name}: {len(rows)} metric rows, single {len(ref)}")
+        check(all(sorted(a) == sorted(b) for a, b in zip(rows, ref)),
+              f"{name}: metric keys differ from the single run's")
+        errs = loss_errors(rows, ref)
+        grad_err = first_step_grad_error(os.path.join(out, EXP_DIRS[name.split("_")[0]], name),
+                                         os.path.join(out, EXP_DIRS[ref_kind.split("_")[0]],
+                                                      f"{ref_kind}_single"))
+        res["worst"][name] = {"losses": errs, "grad": grad_err}
+        print(f"[{card}] {name} against one process: worst loss error per step "
+              + ", ".join(f"{e:.3g} ({d})" for e, d in errs) + f"; the first step's gradient {grad_err[0]:.3g} "
+              f"of the state's max ({grad_err[1]})"
+              + (f"; held to {MULTI_RTOL} (step 0, gradient) and {MULTI_RTOL_LATER} (later steps)" if held
+                 else "; printed, not held"))
+        if held:
+            for k, (e, d) in enumerate(errs):
+                band = MULTI_RTOL if k == 0 else MULTI_RTOL_LATER
+                check(e <= band, f"{name} step {k}: a logged loss off the single run by {e:.3g} > {band} ({d})")
+            check(grad_err[0] <= MULTI_RTOL, f"{name}: the first step's gradient off by {grad_err[0]:.3g}")
+    alive = [rec["n_alive"] for rec in recs["gaussian_dp"]]
+    check(alive[0] == alive[1], f"Gaussian stage at [2,1]: n_alive {alive} differs between the ranks")
+    print(f"[{card}] Gaussian stage at [2,1] after the densify at step 2: n_alive {alive[0]} on both ranks")
+    bytes_tp = [rec["unet_bytes"] for rec in recs["dynamic_tp"]]
+    bytes_dp = recs["dynamic_dp"][0]["unet_bytes"]
+    check(bytes_tp[0] == bytes_tp[1] < bytes_dp, f"UNet bytes per rank at tp=2 {bytes_tp} vs tp=1 {bytes_dp}")
+    res["unet_mib"] = (bytes_dp / 2**20, bytes_tp[0] / 2**20)
+    print(f"[{card}] UNet parameter bytes per rank (float32 parameters): tp=1 {bytes_dp / 2**20:.1f} MiB, "
+          f"tp=2 {bytes_tp[0] / 2**20:.1f} MiB; spawn + {len(layouts)} layouts {res['spawn_s']:.1f} s; one "
+          "process: " + ", ".join(f"{k} {v['s']:.1f} s (peak {v['peak']:.2f} GiB)" for k, v in single.items()))
+
+    # (c) the serving CLI on phase 9's dynamic trial
+    cli = os.path.join(tmp, "render_4d")
+    os.makedirs(cli, exist_ok=True)
+    pose = ["--elevation", "10", "--azimuth", "45", "--distance", "3.8", "--t", "0.5", "--device", str(device)]
+    res["cli_s"] = {}
+    t0 = time.perf_counter()
+    render_4d.main(["--trial", dyn_trial, "--mode", "frame", "--out", os.path.join(cli, "frame.png"), *pose])
+    res["cli_s"]["frame"] = time.perf_counter() - t0
+    img = Viewer4D.from_trial(dyn_trial, device=device).render(10.0, 45.0, 3.8, 0.5)
+    ref = write_png(os.path.join(cli, "ref.png"), render_4d.to_u8(img))
+    with open(os.path.join(cli, "frame.png"), "rb") as a, open(ref, "rb") as b:
+        check(a.read() == b.read(), "render_4d frame is not byte-equal to write_png(Viewer4D.render)")
+    for mode in ("orbit", "play"):
+        t0 = time.perf_counter()
+        written = render_4d.main(["--trial", dyn_trial, "--mode", mode, "--n", str(MULTI_RENDER_N),
+                                  "--distance", "3.8", "--device", str(device),
+                                  "--out", os.path.join(cli, f"{mode}.gif")])
+        res["cli_s"][mode] = time.perf_counter() - t0
+        check(len(written) == MULTI_RENDER_N + 1, f"render_4d {mode}: wrote {len(written)} files")
+        check(json.load(open(os.path.join(cli, f"{mode}.json")))["frames"] == MULTI_RENDER_N,
+              f"render_4d {mode}: sidecar")
+        check(read_png(written[0]).std() > 0, f"render_4d {mode}: a blank frame")
+    print(f"[{card}] render_4d on phase 9's dynamic trial: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in res["cli_s"].items()) + f" (frame byte-equal; orbit / play {MULTI_RENDER_N} PNGs)")
+    after = dict(rb.launch_counts)
+    for k in after:
+        res["launches"][k] = res["launches"].get(k, 0) + after[k] - before.get(k, 0)
+    return res
+
+
 def compare_trees(torch, table_cases, pair_views, parent, card):
     """``--parent DIR``: the kernels of an unpacked parent tree (``git
     archive``) against this tree's on the same inputs, each tree's through
@@ -3320,20 +3601,26 @@ def main():
     # 14. the Gaussian stage through the launcher at capacity 200,000
     torch.cuda.empty_cache()
     gaussian = drive_gaussian_stage(torch, np, rb, card, launcher, dev, launch_tmp.name)
+
+    # 16. more than one device: the launcher's refusal, two ranks on the card, render_4d
+    torch.cuda.empty_cache()
+    multi = drive_multidevice(torch, np, rb, card, launcher, dev, launch_tmp.name)
     launch_tmp.cleanup()
 
     # 15. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         # every path's launches: the recipe's (phase 12), the guided launcher's
-        # (phase 13) and the Gaussian stage's (phase 14) included
+        # (phase 13), the Gaussian stage's (phase 14) and the two ranks' and
+        # render_4d's (phase 16) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
+        n_multi = multi["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "launches_recipe": n_recipe, "launches_guided": n_guided, "launches_gaussian": n_gaussian,
-                **extra}
+                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
+                "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

@@ -16,6 +16,18 @@ and is used only when asked for.  A trial is written as the JAX launcher
 writes it: ``<exp_root_dir>/<name>/<tag>/`` with ``configs/parsed.yaml``,
 ``cmd.txt``, ``code_snapshot.txt`` (best effort), ``metrics.csv``,
 ``ckpts/step_XXXXXXXX/`` and ``save/``.
+
+More than one device, as the JAX launcher's YAML surface has it::
+
+    python3 -m dreammesh4d_tpu_torch.launch --config ... --train trainer.devices=4 trainer.mesh=[2,2]
+
+spawns one process per rank (``torch.multiprocessing``, ``spawn``), which
+meet at a free local port and run the verb on the ``(data, model)`` grid
+(``parallel/``): NCCL with one card per rank, ``gloo`` on the CPU.  The
+errors of a bad mesh, an indivisible batch or too few devices are raised
+here, before any process starts; a rank that fails fails the run with its
+traceback.  Rank 0 writes the trial; the timestamp is off, as in the
+reference with more than one GPU.
 """
 
 from __future__ import annotations
@@ -29,9 +41,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from .config import dump_config, load_config
-from .systems.assembly import build_experiment
+from .parallel import mesh as pmesh
+from .parallel.context import plan_from_trainer_cfg
+from .systems.assembly import build_experiment, check_parallel_batch
 from .trainer import Trainer, TrainerConfig
 from .utils.checkpoint import find_last_path, latest_checkpoint, restore_checkpoint
 
@@ -93,10 +109,23 @@ def main(args, extras) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the launcher runs on the card; pass --device cpu to "
                            "run the plain PyTorch versions on the CPU")
-    cfg = load_config(args.config, cli_args=extras)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    cfg = load_config(args.config, cli_args=extras, n_gpus=world, makedirs=False)
+    plan = plan_from_trainer_cfg(cfg.trainer, device)
+    if world == 1 and plan is not None:
+        check_parallel_batch(cfg, plan[1])
+        spawn(_run_verb, plan[0], device, args=(_plain_args(args), list(extras)))
+        return
+    if world > 1:
+        if plan is None or plan[0] != world:
+            raise RuntimeError(f"trainer.devices={plan[0] if plan else 1} inside a process group of "
+                               f"{world} ranks")
+        device = pmesh.rank_device(device, dist.get_rank())
+    if pmesh.is_main_process():
+        os.makedirs(cfg.trial_dir, exist_ok=True)
+        _snapshot(cfg)
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
-    _snapshot(cfg)
 
     experiment = build_experiment(cfg, device=device)
     trainer = Trainer(trainer_config(cfg), cfg.trial_dir)
@@ -114,6 +143,40 @@ def main(args, extras) -> None:
         trainer.predict(experiment)
     else:
         raise ValueError("Specify one of --train / --validate / --test / --export")
+
+
+def _plain_args(args) -> SimpleNamespace:
+    """What :func:`main` reads of ``args``, picklable for the ranks."""
+    return SimpleNamespace(config=args.config, device=str(getattr(args, "device", "cuda")),
+                           **{v: bool(getattr(args, v, False)) for v in VERBS})
+
+
+def _run_verb(rank: int, args, extras) -> None:
+    main(args, extras)
+
+
+def _rank_entry(rank: int, world: int, port: int, device: str, backend, threads: int, fn,
+                fn_args) -> None:
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(threads)
+    pmesh.init_process_group(world, rank, device, port, backend=backend)
+    try:
+        fn(rank, *fn_args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, device="cuda", backend=None, args=()) -> None:
+    """``fn(rank, *args)`` in ``world`` spawned processes, each inside the
+    ``world``-rank process group (``parallel.mesh.init_process_group``:
+    ``backend`` NCCL on cards, ``gloo`` on the CPU by default), on a free
+    local port; ``fn`` must be importable (a module-level function).  CPU
+    ranks share this process's torch threads.  A rank that raises ends
+    every rank and raises here with its traceback."""
+    threads = max(1, torch.get_num_threads() // world)
+    mp.start_processes(_rank_entry, args=(world, pmesh.free_port(), str(device), backend, threads, fn,
+                                          tuple(args)),
+                       nprocs=world, join=True, start_method="spawn")
 
 
 def make_args(config: str, verb: str = "train", device: str = "cuda") -> SimpleNamespace:

@@ -70,6 +70,10 @@ class Zero123Config:
     image_size: int = 256
     dtype: Any = torch.float32
     use_clip: bool = True  # False: a mean-colour projector stands in for CLIP (tests)
+    # random weights (``random[:seed]``) keep the LDM's zero-initialised
+    # output convolutions; False draws them too, so that every layer reaches
+    # the noise prediction (a check of the UNet's tensor-parallel split)
+    zero_init: bool = True
     # the CLIP vision tower (defaults: ViT-L/14); its projection is
     # clip_hidden_size → context_dim
     clip_hidden_size: int = 1024
@@ -309,12 +313,16 @@ class StableZero123Guidance:
                  azimuth: torch.Tensor, camera_distances: torch.Tensor,
                  frame_indices: Optional[torch.Tensor], step: int,
                  generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
-                 noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                 noise: Optional[torch.Tensor] = None,
+                 rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         """SDS of the renders ``rgb`` (B, H, W, 3).  ``u`` (B,) in [0, 1)
         picks t and ``noise`` (B, 4, L, L) is ε; each is drawn from
-        ``generator`` (u first) when not given.  Returns ``loss_sds`` (its
-        gradient reaches ``rgb``), ``grad_norm``, ``min_step``, ``max_step``
-        and the timesteps ``t``."""
+        ``generator`` (u first) when not given.  ``rows = (offset, total)``
+        says that ``rgb`` holds rows [offset, offset + B) of a batch of
+        ``total`` (one data-parallel rank's share): the draws are then the
+        whole batch's, of which these rows are kept.  Returns ``loss_sds``
+        (its gradient reaches ``rgb``), ``grad_norm``, ``min_step``,
+        ``max_step`` and the timesteps ``t``."""
         cfg, mod = self.cfg, self.modules
         sched = mod.schedule
         dev = mod.device
@@ -324,10 +332,11 @@ class StableZero123Guidance:
         with torch.no_grad():
             context, c_concat_in = self._conditioning(bank, elevation, azimuth, camera_distances,
                                                       frame_indices, B)
+            lo, total = rows or (0, B)
             if u is None:
-                u = _draw(generator, (B,), False, dev)
+                u = _draw(generator, (total,), False, dev)[lo:lo + B]
             if noise is None:
-                noise = _draw(generator, latents.shape, True, dev)
+                noise = _draw(generator, (total,) + tuple(latents.shape[1:]), True, dev)[lo:lo + B]
             noise = noise.to(dev, torch.float32)
             t, min_p, max_p = sds_timesteps(cfg, u.to(dev, torch.float32), step, T)
             latents_noisy = add_noise(sched, latents.detach(), noise, t)

@@ -152,6 +152,7 @@ class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, context_dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = query_dim // num_heads
         self.to_q = Linear(query_dim, query_dim, bias=False)
         self.to_k = Linear(context_dim, query_dim, bias=False)
         self.to_v = Linear(context_dim, query_dim, bias=False)
@@ -159,7 +160,10 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None):
         ctx = x if context is None else context
-        out = attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.num_heads)
+        q = self.to_q(x)
+        # the head count of the local width: a tensor-parallel shard holds
+        # num_heads / tp whole heads (``parallel/sharding_rules.py``)
+        out = attention(q, self.to_k(ctx), self.to_v(ctx), q.shape[-1] // self.head_dim)
         return self.to_out(out)
 
 

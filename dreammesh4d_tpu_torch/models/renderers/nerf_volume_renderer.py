@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -173,6 +173,23 @@ def _draw_samples(rcfg: NeRFRendererConfig, rng: Optional[torch.Generator], R: i
     return draws
 
 
+def _draws_of_rows(rcfg: NeRFRendererConfig, rng: Optional[torch.Generator], lo: int, R: int,
+                   total: int, use_occ: bool, want_perturb: bool, device) -> Dict[str, torch.Tensor]:
+    """The random numbers of rays [lo, lo + R) of a :func:`render_rays`
+    call over ``total`` rays: every chunk's draws in that call's order, the
+    rows outside kept nowhere."""
+    chunk = rcfg.ray_chunk_train
+    step = chunk if chunk and total > chunk else total
+    parts = []
+    for s in range(0, total, step):
+        e = min(s + step, total)
+        draws = _draw_samples(rcfg, rng, e - s, use_occ, want_perturb, device)
+        a, b = max(s, lo), min(e, lo + R)
+        if a < b:
+            parts.append({k: v[a - s:b - s] for k, v in draws.items()})
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]} if parts else {}
+
+
 def _render(geo_params, geo_cfg, rcfg, rays_o, rays_d, light_positions, bg_color, draws,
             ambient_ratio, shading_normal_only, level_mask, material, occ_state):
     """All of ``rays_o``'s rays at once, with the random numbers in ``draws``."""
@@ -274,9 +291,13 @@ def render_rays(
     material=None,
     return_normal_perturb: bool = False,
     occ_state: Optional[OccGridState] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render flat rays.  ``rng=None`` (or ``rcfg.randomized`` off) places
-    the samples at the centres of their strata.  Returns comp_rgb,
+    the samples at the centres of their strata.  ``rows = (offset, total)``
+    says that the rays are rows [offset, offset + R) of a call over
+    ``total`` rays (one data-parallel rank's share): the random numbers are
+    then those that call draws, of which these rows are kept.  Returns comp_rgb,
     comp_rgb_fg, comp_normal (in [0, 1]), opacity, depth, z_variance (R, ·)
     and per-sample weights (R, K), normal and t_dirs (R, K, 3), plus
     normal_perturb with ``return_normal_perturb``."""
@@ -287,8 +308,13 @@ def render_rays(
         occ_state = None
     common = (ambient_ratio, shading_normal_only, level_mask, material, occ_state)
     chunk = rcfg.ray_chunk_train
+    all_draws = None
+    if rows is not None:
+        all_draws = _draws_of_rows(rcfg, rng, rows[0], R, rows[1], use_occ, return_normal_perturb,
+                                   dev)
     if not chunk or R <= chunk:
-        draws = _draw_samples(rcfg, rng, R, use_occ, return_normal_perturb, dev)
+        draws = all_draws if all_draws is not None else _draw_samples(
+            rcfg, rng, R, use_occ, return_normal_perturb, dev)
         return _render(geo_params, geo_cfg, rcfg, rays_o, rays_d, light_positions, bg_color,
                        draws, *common)
 
@@ -299,7 +325,10 @@ def render_rays(
     outs = []
     for s in range(0, R, chunk):
         sl = slice(s, min(s + chunk, R))
-        draws = _draw_samples(rcfg, rng, sl.stop - sl.start, use_occ, return_normal_perturb, dev)
+        if all_draws is not None:
+            draws = {k: v[sl] for k, v in all_draws.items()}
+        else:
+            draws = _draw_samples(rcfg, rng, sl.stop - sl.start, use_occ, return_normal_perturb, dev)
 
         def chunk_fn(ro, rd, lp, bg, draws=draws):
             return _render(geo_params, geo_cfg, rcfg, ro, rd, lp, bg, draws, *common)

@@ -25,8 +25,14 @@ its embedding bank is built once, at construction, and rides every step as
 the step's ``guidance_state``.  ``freq.guidance_eval`` (stages 1 and 5)
 writes ``it{step}-guidance.png`` every that many steps.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: more than one device (A7).
+``trainer.devices`` / ``trainer.mesh`` (more than one device, inside the
+process group the launcher makes): each experiment builds its
+:class:`~..parallel.context.ParallelContext` from ``cfg.trainer``, checks
+that the batch divides the data axis (``random_camera.batch_size`` in
+stages 1 and 4 and the Gaussian stage, ``num_frames`` in stage 5), splits
+the guidance's UNet over ``model`` and gives every rank its rows of the
+random views / frames; the reference view and the embedding bank stay
+whole on every rank.  Rank 0 writes the files (the saver and the trainer).
 """
 
 from __future__ import annotations
@@ -66,11 +72,12 @@ from ..ops.gs.rasterize import RasterizerConfig, rasterize
 from ..ops.hashgrid import HashGridConfig, progressive_level_mask
 from ..ops.meshops import build_one_ring, cotangent_weights
 from ..ops.resize import resize_hw
+from ..parallel.context import ParallelContext, check_batch_size
 from ..registry import find, register
 from ..utils.checkpoint import restore_checkpoint
 from ..utils.saving import Saver
 from ..utils.schedule import C_max
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 from .gaussian_stage import (GaussianStageLosses, init_gaussian_train_state, make_gaussian_train_step,
                              make_reg_state, reset_state_opacity)
 from .sugar_4dgen import (Sugar4DGenLosses, init_dyn_state, make_dynamic_render_eval,
@@ -164,7 +171,8 @@ def maybe_build_guidance(system_cfg: dict, device="cuda"):
     guidance = cls(config_from_dict(gcfg), device=device)
     if is_random:
         seed = int(path.partition(":")[2] or 0)
-        guidance.modules.init_params(torch.Generator(device=device).manual_seed(seed))
+        guidance.modules.init_params(torch.Generator(device=device).manual_seed(seed),
+                                     zero_init=guidance.cfg.zero_init)
     else:
         report = load_zero123_checkpoint(path, guidance.modules)
         if report["unmapped"]:
@@ -173,16 +181,18 @@ def maybe_build_guidance(system_cfg: dict, device="cuda"):
     return guidance
 
 
-def sds_guidance_fn(guidance, temporal: bool = False):
+def sds_guidance_fn(guidance, temporal: bool = False, par: ParallelContext = None):
     """The train steps' ``guidance_fn(bank, generator, rgb, batch)``: the SDS
     loss of the random-view renders, with the step's draws; ``temporal``
-    indexes the bank by ``batch["frame_indices"]``."""
+    indexes the bank by ``batch["frame_indices"]``.  Under ``par`` the
+    renders are this rank's rows and the draws the whole batch's."""
+    par = par or ParallelContext()
 
     def guidance_fn(bank, generator, rgb, batch):
         return guidance.sds_loss(bank, rgb, batch["elevation"], batch["azimuth"],
                                  batch["camera_distances"],
                                  batch["frame_indices"] if temporal else None, batch["step"],
-                                 generator)["loss_sds"]
+                                 generator, rows=par.rows(rgb.shape[0]) if par.active else None)["loss_sds"]
 
     return guidance_fn
 
@@ -204,17 +214,41 @@ def guidance_eval_snapshot(saver, guidance, bank, generator, rgb, elevation, azi
     saver.save_image_grid(f"it{step}-guidance.png", layers)
 
 
-def check_single_device(trainer_cfg: dict) -> None:
-    """``trainer.devices`` / ``trainer.mesh`` asking for more than one device
-    raise: the port trains on one (ROADMAP A7)."""
-    tcfg = dict(trainer_cfg or {})
-    devices = tcfg.get("devices", 1)
-    n = torch.cuda.device_count() if devices in ("auto", "-1", -1) else int(devices)
-    mesh = tcfg.get("mesh")
-    if n > 1 or (mesh is not None and int(np.prod(mesh)) > 1):
-        raise NotImplementedError(
-            f"trainer.devices={devices!r}, trainer.mesh={mesh!r}: more than one device is not "
-            "ported to PyTorch yet (ROADMAP A7)")
+def check_parallel_batch(cfg, dp: int) -> None:
+    """``ValueError`` ("divisible") unless the batch that shards over
+    ``data`` divides ``dp``: ``data.num_frames`` in the dynamic stage,
+    ``data.random_camera.batch_size`` (every milestone) in the others."""
+    data = dict(cfg.data or {})
+    if cfg.system_type == "sugar-4dgen-system":
+        c = _filtered_dataclass(TemporalImageConfig, {k: v for k, v in data.items()
+                                                      if k != "random_camera"})
+        check_batch_size(c.num_frames, dp, "data.num_frames")
+    else:
+        rc = make_random_camera_config(dict(data.get("random_camera", {})))
+        check_batch_size(rc.batch_size, dp, "data.random_camera.batch_size")
+
+
+def make_parallel_context(cfg, device) -> ParallelContext:
+    """The experiment's context from ``cfg.trainer``, its batch checked."""
+    par = ParallelContext.from_trainer_cfg(dict(cfg.trainer or {}), device)
+    if par.active:
+        check_parallel_batch(cfg, par.dp)
+    return par
+
+
+# the batch entries that shard over ``data``: the random views of stages 1
+# and 4 and of the Gaussian stage, the frames of stage 5
+RAND_VIEW_KEYS = ("rand_cameras", "elevation", "azimuth", "camera_distances", "rand_rays_o",
+                  "rand_rays_d")
+RAND_RAY_KEYS = ("rand_rays_o", "rand_rays_d", "light_positions", "elevation", "azimuth",
+                 "camera_distances")
+FRAME_KEYS = ("timestamps", "frame_indices", "ref_cameras", "rand_cameras", "elevation", "azimuth",
+              "camera_distances")
+
+
+def _shard(par: ParallelContext, batch: dict, keys) -> dict:
+    """``batch`` with this rank's rows of its entries ``keys``; the rest whole."""
+    return {k: par.shard_batch(v) if k in keys else v for k, v in batch.items()}
 
 
 def sugar_config(geo: dict) -> SuGaRConfig:
@@ -315,7 +349,7 @@ class GaussianStageExperiment:
         self.cfg = cfg
         self.device = dev = torch.device(device)
         system = cfg.system
-        check_single_device(cfg.trainer)
+        self.par = par = make_parallel_context(cfg, dev)
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
 
@@ -349,16 +383,17 @@ class GaussianStageExperiment:
         self.opacity_reset_every = int(freq.get("opacity_reset", 3000))
         self.reset_neighbors_every = int(freq.get("reset_neighbors", 50))
 
-        self.guidance = maybe_build_guidance(system, device=dev)
+        self.guidance = par.shard_guidance(maybe_build_guidance(system, device=dev))
         self.bank = guidance_fn = None
         if self.guidance is not None:
             self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
-            guidance_fn = sds_guidance_fn(self.guidance)
+            guidance_fn = sds_guidance_fn(self.guidance, par=par)
         self._train_step, self._density_step = make_gaussian_train_step(
             self.gcfg, self.raster_cfg, losses, guidance_fn,
             invert_bg_prob=float(system.get("renderer", {}).get("invert_bg_prob", 1.0)),
-            sugar_reg_start=int(freq.get("start_sugar_reg", 3000)), device=dev)
+            sugar_reg_start=int(freq.get("start_sugar_reg", 3000)), device=dev, par=par)
         self.state = init_gaussian_train_state(gaussians, self.optimizer_kwargs, device=dev)
+        par.replicate(x for x in self.state.gaussians if x.is_floating_point())
         self.reg_state = make_reg_state(self.state)
         self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
 
@@ -370,8 +405,9 @@ class GaussianStageExperiment:
         keep = ["ref_cameras", "ref_rgb", "ref_mask", "rand_cameras"]
         if self.guidance is not None:  # the SDS conditioning reads the view poses
             keep += ["elevation", "azimuth", "camera_distances"]
-        self.state, metrics = self._train_step(self.state, {k: batch[k] for k in keep}, self.reg_state,
-                                               self.generator, self.bank)
+        batch = _shard(self.par, {k: batch[k] for k in keep}, RAND_VIEW_KEYS)
+        self.state, metrics = self._train_step(self.state, batch, self.reg_state, self.generator,
+                                               self.bank)
         if self.densify_from <= step < self.densify_until and step % self.densify_every == 0 and step > 0:
             self.state, info = self._density_step(self.state, self.generator)
             metrics = {**metrics, "gauss_num": info["n_alive"]}
@@ -439,7 +475,7 @@ class SugarStaticExperiment:
         self.cfg = cfg
         self.device = dev = torch.device(device)
         system = cfg.system
-        check_single_device(cfg.trainer)
+        self.par = par = make_parallel_context(cfg, dev)
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
 
@@ -455,11 +491,11 @@ class SugarStaticExperiment:
             rotation_lr=geo.get("rotation_lr", 0.001),
             spatial_lr_scale=float(geo.get("spatial_lr_scale", 1.0)))
         self.losses = _loss_config(SugarStaticLosses, system)
-        self.guidance = maybe_build_guidance(system, device=dev)
+        self.guidance = par.shard_guidance(maybe_build_guidance(system, device=dev))
         self.bank = guidance_fn = None
         if self.guidance is not None:
             self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
-            guidance_fn = sds_guidance_fn(self.guidance)
+            guidance_fn = sds_guidance_fn(self.guidance, par=par)
         d = self.data.cfg
         self.raster_cfg = build_raster_config(d.random_camera.height, d.random_camera.width,
                                               d.default_fovy_deg, system)
@@ -470,17 +506,19 @@ class SugarStaticExperiment:
                 self.static, build_raster_config(rc_h, rc_w, d.default_fovy_deg, system),
                 self.losses, guidance_fn, invert_bg_prob=invert_bg_prob,
                 ref_raster_cfg=build_raster_config(ref_h, ref_w, d.default_fovy_deg, system),
-                device=dev)
+                device=dev, par=par)
 
         self._build_step = build_step
         self._steps: Dict[tuple, Any] = {}
         _step_for_current(self)
         self._render_eval = make_render_eval(self.static, self.raster_cfg, device=dev)
         self.state = init_static_state(params, self.optimizer_kwargs, device=dev)
+        par.replicate(self.state.params)
         self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
 
     def train_batch(self, step: int) -> dict:
-        """The step's batch: what the train step reads of ``train_batch``."""
+        """The step's batch: what the train step reads of ``train_batch``,
+        this rank's rows of the random views."""
         batch = self.data.train_batch(step)
         keep = ["ref_cameras", "ref_rgb", "ref_mask", "rand_cameras"]
         if self.guidance is not None:  # the SDS conditioning reads the view poses
@@ -493,7 +531,7 @@ class SugarStaticExperiment:
         if C_max(lw.lambda_normal_depth_consistency) > 0:
             batch["rand_rays_o"], batch["rand_rays_d"] = batch["rays_o"], batch["rays_d"]
             keep += ["rand_rays_o", "rand_rays_d"]
-        return {k: batch[k] for k in keep}
+        return _shard(self.par, {k: batch[k] for k in keep}, RAND_VIEW_KEYS)
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.train_batch(step)
@@ -571,7 +609,7 @@ class Sugar4DGenExperiment:
         self.cfg = cfg
         self.device = dev = torch.device(device)
         system = cfg.system
-        check_single_device(cfg.trainer)
+        self.par = par = make_parallel_context(cfg, dev)
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self.data = make_temporal_datamodule(cfg.data, cfg.seed, device=dev)
 
@@ -592,13 +630,13 @@ class Sugar4DGenExperiment:
 
         self.lr = float(system.get("optimizer", {}).get("args", {}).get("lr", 1.6e-3))
         self.losses = _loss_config(Sugar4DGenLosses, system)
-        self.guidance = maybe_build_guidance(system, device=dev)
+        self.guidance = par.shard_guidance(maybe_build_guidance(system, device=dev))
         self.bank = guidance_fn = None
         grs = 0
         if self.guidance is not None:
             frames_rgb, _ = self.data.frames_at(int(self.data.heights[-1]), int(self.data.widths[-1]))
             self.bank = self.guidance.prepare_embeddings(frames_rgb)
-            guidance_fn = sds_guidance_fn(self.guidance, temporal=True)
+            guidance_fn = sds_guidance_fn(self.guidance, temporal=True, par=par)
             grs = int(dict(system.get("guidance", {})).get("guidance_render_size", 0) or 0)
         self.guidance_eval_every = int(dict(system.get("freq", {})).get("guidance_eval", 0))
         d = self.data.cfg
@@ -630,7 +668,7 @@ class Sugar4DGenExperiment:
                 video_frames=self.data.frames_at(ref_h, ref_w),
                 video_depths=self.data.load_depths(ref_h, ref_w) if need_depth else None,
                 video_normals=self.data.load_normals(ref_h, ref_w) if need_normal else None,
-                device=dev)
+                device=dev, par=par)
 
         self._build_step = build_step
         self._steps: Dict[tuple, Any] = {}
@@ -638,11 +676,12 @@ class Sugar4DGenExperiment:
         self._render_eval = make_dynamic_render_eval(sugar_params, self.static, deform_cfg,
                                                      self.raster_cfg)
         self.state = init_dyn_state(deform_params, lr=self.lr, device=dev)
+        par.replicate(tree_leaves(self.state.deform_params))
         self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
 
     def train_batch(self, step: int) -> dict:
-        """The step's batch; the frames stay on the device inside the step,
-        only cameras and timestamps are read here."""
+        """The step's batch, all frames; the frames stay on the device inside
+        the step, only cameras and timestamps are read here."""
         batch = self.data.train_batch(step)
         batch["inter_timestamps"] = self.data.inter_frame_timestamps(self.num_inter_frames,
                                                                      self.length_inter_frames)
@@ -653,9 +692,12 @@ class Sugar4DGenExperiment:
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.train_batch(step)
-        self.state, metrics = _step_for_current(self)(self.state, batch, self.generator, self.bank)
+        self.state, metrics = _step_for_current(self)(self.state, _shard(self.par, batch, FRAME_KEYS),
+                                                      self.generator, self.bank)
         if (self.guidance_eval_every > 0 and self.guidance is not None
                 and (step + 1) % self.guidance_eval_every == 0):
+            # every rank (the generator and the UNet's model group stay in
+            # step); rank 0's saver writes
             V = 2  # render only the views the snapshot reads
             cams = type(batch["rand_cameras"])(*(x[:V] for x in batch["rand_cameras"]))
             with torch.no_grad():
@@ -766,7 +808,7 @@ class Zero123Experiment:
         self.cfg = cfg
         self.device = dev = torch.device(device)
         system = cfg.system
-        check_single_device(cfg.trainer)
+        self.par = par = make_parallel_context(cfg, dev)
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
 
@@ -804,18 +846,19 @@ class Zero123Experiment:
         self.adam = dict(lr=float(args.get("lr", 0.01)), betas=(float(betas[0]), float(betas[1])),
                          eps=float(args.get("eps", 1e-8)))
         self.losses = _loss_config(Zero123Losses, system)
-        self.guidance = maybe_build_guidance(system, device=dev)
+        self.guidance = par.shard_guidance(maybe_build_guidance(system, device=dev))
         self.bank = guidance_fn = None
         if self.guidance is not None:
             self.bank = self.guidance.prepare_embeddings(self.data.ref_batch()["ref_rgb"])
-            guidance_fn = sds_guidance_fn(self.guidance)
+            guidance_fn = sds_guidance_fn(self.guidance, par=par)
         self.guidance_eval_every = int(dict(system.get("freq", {})).get("guidance_eval", 0))
         self._train_step = make_zero123_train_step(self.geo_cfg, self.rcfg, self.losses,
-                                                    self.material, guidance_fn, device=dev)
+                                                    self.material, guidance_fn, device=dev, par=par)
         self._image_renderer = make_image_renderer(self.geo_cfg, self.rcfg, self.material)
         params = init_implicit_volume(self.geo_cfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)),
                                       device=dev)
         self.state = init_nerf_state(params, **self.adam, device=dev)
+        par.replicate(tree_leaves(self.state.geo_params))
         self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed) + 1)
         self.ambient_only_steps = int(system.get("material", {}).get("ambient_only_steps", 0))
         self.occ_state = self._occ_update = None
@@ -849,11 +892,12 @@ class Zero123Experiment:
         if self._occ_update is not None and step % self.rcfg.grid_update_every == 0:
             self.occ_state = self._occ_update(self.occ_state, self.state.geo_params, self.generator,
                                               torch.as_tensor(lm, device=self.device))
-        self.state, metrics = self._train_step(self.state, batch, self.generator, lm, ambient,
-                                               self.bank, self.occ_state)
+        self.state, metrics = self._train_step(self.state, _shard(self.par, batch, RAND_RAY_KEYS),
+                                               self.generator, lm, ambient, self.bank, self.occ_state)
         if (self.guidance_eval_every > 0 and self.guidance is not None
                 and (step + 1) % self.guidance_eval_every == 0):
-            # the first random view again (the step's own render is inside its loss)
+            # the first random view again (the step's own render is inside its
+            # loss), on every rank; rank 0's saver writes
             out = self._image_renderer(self.state.geo_params, batch["rand_rays_o"][0],
                                        batch["rand_rays_d"][0], batch["light_positions"][0],
                                        torch.ones(3, device=self.device), level_mask=lm,

@@ -16,6 +16,13 @@ Per step:
   takes its norm; the radii are the max over the views, the visibility any;
 - every loss weight is a ``C`` schedule of the step.
 
+Under more than one device each rank renders the whole reference view and
+its own random views; the visibility and the radii are combined over
+``data`` (any, max) before the loss reads them, and the offset leaf's
+gradient is averaged with the parameters' gradients, so that the
+statistics are the single-device ones on every rank and the density
+control runs alike everywhere.
+
 ``density_control_step`` (called by the experiment every densify interval)
 runs ``densify_and_prune`` and writes its result into the parameter leaves
 and the Adam moments in place.
@@ -43,6 +50,7 @@ from ..ops.cameras import GSCameraInfo
 from ..ops.gs.rasterize import RasterizerConfig, rasterize
 from ..ops.meshops import tv_loss
 from ..ops.sugar_reg import SugarRegState, draw_samples, refresh_knn, sugar_density_regularization
+from ..parallel.context import ParallelContext
 from ..utils.schedule import C_step
 from ..utils.tree import tree_to
 from .optim import set_learning_rates
@@ -131,7 +139,8 @@ GuidanceFn = Callable[[Any, torch.Generator, torch.Tensor, Dict[str, Any]], torc
 def make_gaussian_train_step(gcfg: GaussianConfig, raster_cfg: RasterizerConfig,
                              losses: GaussianStageLosses, guidance_fn: Optional[GuidanceFn] = None,
                              bg_color=(1.0, 1.0, 1.0), invert_bg_prob: float = 1.0,
-                             sugar_reg_start: int = 3000, n_sdf_samples: int = 1000, device="cuda"):
+                             sugar_reg_start: int = 3000, n_sdf_samples: int = 1000, device="cuda",
+                             par: Optional[ParallelContext] = None):
     """Build ``(train_step, density_control_step)``.
 
     ``train_step(state, batch, reg_state, generator, guidance_state=None) ->
@@ -143,6 +152,7 @@ def make_gaussian_train_step(gcfg: GaussianConfig, raster_cfg: RasterizerConfig,
     ``density_control_step(state, generator, noise=None) -> (state, info)``:
     ``densify_and_prune`` with the Adam moments, written in place."""
     dev = torch.device(device)
+    par = par or ParallelContext()
     bg_base = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     C = gcfg.capacity
     weights = {"sds": losses.lambda_sds, "rgb": losses.lambda_rgb, "mask": losses.lambda_mask,
@@ -178,7 +188,7 @@ def make_gaussian_train_step(gcfg: GaussianConfig, raster_cfg: RasterizerConfig,
                                        {**batch, "step": step})
         terms["rgb_tv"] = tv_loss(rand_rgb)
 
-        visibility = (ref_radii > 0).any(0) | (rand_radii > 0).any(0)
+        visibility = par.all_max_(((ref_radii > 0).any(0) | (rand_radii > 0).any(0)).to(torch.int32)) > 0
         reg_on = float(step >= sugar_reg_start)
         opac = torch.sigmoid(params.opacity_logits)
         vis_w = (visibility & alive).to(torch.float32)
@@ -197,7 +207,7 @@ def make_gaussian_train_step(gcfg: GaussianConfig, raster_cfg: RasterizerConfig,
         metrics = {f"loss_{k}": v.detach() for k, v in terms.items()}
         metrics["loss_total"] = total.detach()
         metrics["psnr"] = -10.0 * torch.log10(terms["rgb"].detach() + 1e-8)
-        radii = torch.maximum(ref_radii.max(0).values, rand_radii.max(0).values)
+        radii = par.all_max_(torch.maximum(ref_radii.max(0).values, rand_radii.max(0).values))
         return total, metrics, radii, visibility
 
     def train_step(state: GaussianTrainState, batch, reg_state: SugarRegState,
@@ -211,10 +221,12 @@ def make_gaussian_train_step(gcfg: GaussianConfig, raster_cfg: RasterizerConfig,
         loss, metrics, radii, visibility = loss_fn(params, offset, alive, batch, reg_state, generator,
                                                    state.step, guidance_state)
         loss.backward()
+        par.average_gradients(list(params) + [offset])
         set_learning_rates(state.opt_state)
         state.opt_state.step()
         stats = update_stats(state.stats, offset.grad, radii, visibility)
-        return GaussianTrainState(state.gaussians, state.opt_state, stats, state.step + 1), metrics
+        return (GaussianTrainState(state.gaussians, state.opt_state, stats, state.step + 1),
+                par.reduce_metrics(metrics))
 
     def density_control_step(state: GaussianTrainState, generator: torch.Generator, noise=None):
         """Clone / split / prune; the moments of every rewritten slot zeroed."""

@@ -43,6 +43,7 @@ from ..ops.meshops import (
     normal_consistency_loss,
     tv_loss,
 )
+from ..parallel.context import ParallelContext
 from ..utils.schedule import C_max, C_step
 from ..utils.tree import tree_leaves, tree_map, tree_to
 
@@ -114,6 +115,7 @@ def make_dynamic_train_step(
     video_depths: Optional[torch.Tensor] = None,  # (L, H, W, 1)
     video_normals: Optional[torch.Tensor] = None,  # (L, H, W, 3)
     device="cuda",
+    par: Optional[ParallelContext] = None,
 ):
     """Build ``train_step(state, batch, generator, guidance_state=None) ->
     (state, metrics)``.  The optimizer lives in the state
@@ -133,8 +135,19 @@ def make_dynamic_train_step(
     give the two substeps their own render sizes.
 
     ``metrics`` holds ``loss_<term>`` for every term, ``loss_total`` and
-    ``psnr`` as detached 0-d tensors on ``device``."""
+    ``psnr`` as detached 0-d tensors on ``device``.
+
+    Under ``par`` (more than one device) the frame leaves of ``batch``
+    (timestamps, frame indices, both camera batches) hold this rank's rows
+    and ``inter_timestamps`` the whole window.  Per-frame means (rgb, mask,
+    the TV terms, the SDS) stay per rank; the terms of the whole frame
+    batch (the timed mesh's normal consistency, Laplacian, key-frame ARAP
+    and object-centric terms, and the ref depth / normal terms) read the
+    gathered timed vertices and ref maps; the anchor, the inter-frame ARAP
+    and the grid regularizers are the same on every rank.  The gradients
+    and the metrics are averaged over ``data``."""
     dev = torch.device(device)
+    par = par or ParallelContext()
     sugar_params = tree_map(lambda x: x.detach().to(dev), sugar_params)
     static = tree_to(static, dev)
     bg_base = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
@@ -237,36 +250,39 @@ def make_dynamic_train_step(
             gt_rgb = batch["ref_rgb"] * gt_mask
         terms["rgb"] = ((gt_rgb - ref_out["comp_rgb"] * gt_mask) ** 2).mean()
         terms["mask"] = ((gt_mask - ref_out["comp_mask"]) ** 2).mean()
+        if need_depth or need_depth_rel or need_ref_normal:  # these read the whole frame batch
+            fi_all = par.gather(batch["frame_indices"])
+            gt_mask = par.gather(gt_mask)
 
         # ref-view geometry supervision: lstsq-aligned depth MSE, Pearson
         # relative depth, masked normal cosine
         if need_depth or need_depth_rel:
             from .zero123_system import masked_lstsq_depth_loss, masked_pearson
 
-            gt_depth = (video_depths[batch["frame_indices"]] if video_depths is not None
-                        else batch["ref_depth"])
+            gt_depth = (video_depths[fi_all] if video_depths is not None
+                        else par.gather(batch["ref_depth"]))
             mflat = (gt_mask[..., 0] > 0.5).to(torch.float32)
+            pred_depth = par.gather(ref_out["comp_depth"])
             if need_depth:
-                terms["depth"] = masked_lstsq_depth_loss(
-                    ref_out["comp_depth"][..., 0], gt_depth[..., 0], mflat)
+                terms["depth"] = masked_lstsq_depth_loss(pred_depth[..., 0], gt_depth[..., 0], mflat)
             if need_depth_rel:
-                terms["depth_rel"] = 1.0 - masked_pearson(
-                    ref_out["comp_depth"][..., 0], gt_depth[..., 0], mflat)
+                terms["depth_rel"] = 1.0 - masked_pearson(pred_depth[..., 0], gt_depth[..., 0], mflat)
         if need_ref_normal:
-            gt_normal = (video_normals[batch["frame_indices"]] if video_normals is not None
-                         else batch["ref_normal"])
+            gt_normal = (video_normals[fi_all] if video_normals is not None
+                         else par.gather(batch["ref_normal"]))
             gt_n = 1.0 - 2.0 * gt_normal
-            pred_n = 2.0 * ref_out["comp_normal"] - 1.0
+            pred_n = 2.0 * par.gather(ref_out["comp_normal"]) - 1.0
             cos = (pred_n * gt_n).sum(-1) / (
                 torch.linalg.norm(pred_n, dim=-1) * torch.linalg.norm(gt_n, dim=-1) + 1e-8)
             m1 = (gt_mask[..., 0] > 0.5).to(torch.float32)
             terms["normal"] = 1.0 - (cos * m1).sum() / torch.clamp(m1.sum(), min=1.0)
 
-        terms["normal_consistency"] = normal_consistency_loss(vert.xyz, sg.faces, sg.edge_face_pairs)
-        terms["laplacian_smoothing"] = laplacian_smoothing_loss(vert.xyz, ring)
+        vert_xyz, vert_rots = par.gather(vert.xyz), par.gather(vert.rots)
+        terms["normal_consistency"] = normal_consistency_loss(vert_xyz, sg.faces, sg.edge_face_pairs)
+        terms["laplacian_smoothing"] = laplacian_smoothing_loss(vert_xyz, ring)
 
         arap_on = 1.0 if step >= arap_start_step else 0.0
-        terms["arap_reg_key_frame"] = arap_on * _arap(vert.xyz, vert.rots)
+        terms["arap_reg_key_frame"] = arap_on * _arap(vert_xyz, vert_rots)
 
         # frame-0 anchor
         _, vert_t0 = timed_all(sugar_params, deform_params, deform_cfg, static,
@@ -274,7 +290,7 @@ def make_dynamic_train_step(
         terms["ref_xyz"] = (vert_t0.xyz[0] - rest_points).abs().mean()
 
         # object-centric regularizer
-        terms["obj_centric"] = vert.xyz[..., 0].mean().abs() + vert.xyz[..., 1].mean().abs()
+        terms["obj_centric"] = vert_xyz[..., 0].mean().abs() + vert_xyz[..., 1].mean().abs()
 
         # --- inter-frame ARAP substep -------------------------------------
         _, vert_inter = timed_all(sugar_params, deform_params, deform_cfg, static,
@@ -302,8 +318,10 @@ def make_dynamic_train_step(
         state.opt_state.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.deform_params, batch, generator, state.step, guidance_state)
         loss.backward()
+        par.average_gradients(tree_leaves(state.deform_params))
         state.opt_state.step()
-        return DynTrainState(state.deform_params, state.opt_state, state.step + 1), metrics
+        return (DynTrainState(state.deform_params, state.opt_state, state.step + 1),
+                par.reduce_metrics(metrics))
 
     return train_step
 

@@ -34,6 +34,7 @@ from ..models.geometry.sugar import SuGaRParams, SuGaRStatic, gaussian_attribute
 from ..models.renderers.sugar_rasterizer import CameraBatch, depth_to_normal, render_batch
 from ..ops.gs.rasterize import RasterizerConfig
 from ..ops.meshops import face_normals, laplacian_smoothing_loss, normal_consistency_loss, tv_loss
+from ..parallel.context import ParallelContext
 from ..utils.schedule import C_max, C_step
 from ..utils.tree import tree_map, tree_to
 from .optim import set_learning_rates, sugar_optimizer
@@ -102,10 +103,17 @@ def make_static_train_step(
     invert_bg_prob: float = 1.0,
     ref_raster_cfg: Optional[RasterizerConfig] = None,
     device="cuda",
+    par: Optional[ParallelContext] = None,
 ):
     """Build ``train_step(state, batch, generator, guidance_state=None) ->
     (state, metrics)``.  The optimizer lives in the state
     (:func:`init_static_state`); ``static`` is placed on ``device``.
+
+    Under ``par`` (more than one device) ``batch`` holds this rank's random
+    views and the whole reference view: every term is then either the
+    reference view's or the parameters' (the same on every rank) or a mean
+    over the random views (a mean of equal per-rank means), so the step
+    averages the gradients and the metrics over ``data``.
 
     ``batch`` layout:
 
@@ -119,6 +127,7 @@ def make_static_train_step(
     ``metrics`` holds ``loss_<term>`` for every term, ``loss_total`` and
     ``psnr`` as detached 0-d tensors on ``device``."""
     dev = torch.device(device)
+    par = par or ParallelContext()
     static = tree_to(static, dev)
     bg_base = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     ref_cfg = ref_raster_cfg or raster_cfg
@@ -211,9 +220,10 @@ def make_static_train_step(
         state.opt_state.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.params, batch, generator, state.step, guidance_state)
         loss.backward()
+        par.average_gradients(state.params)
         set_learning_rates(state.opt_state)
         state.opt_state.step()
-        return StaticTrainState(state.params, state.opt_state, state.step + 1), metrics
+        return StaticTrainState(state.params, state.opt_state, state.step + 1), par.reduce_metrics(metrics)
 
     return train_step
 

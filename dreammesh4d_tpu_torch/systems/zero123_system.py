@@ -27,6 +27,7 @@ import torch
 from ..models.geometry.implicit_volume import ImplicitVolumeConfig
 from ..models.renderers.nerf_volume_renderer import NeRFRendererConfig, OccGridState, render_rays
 from ..ops.cameras import binary_cross_entropy
+from ..parallel.context import ParallelContext
 from ..utils.schedule import C_max, C_step
 from ..utils.tree import tree_leaves, tree_map, tree_to
 
@@ -112,6 +113,7 @@ def make_zero123_train_step(
     guidance_fn: Optional[GuidanceFn] = None,
     bg_color=(1.0, 1.0, 1.0),
     device="cuda",
+    par: Optional[ParallelContext] = None,
 ):
     """Build ``train_step(state, batch, generator, level_mask, ambient_ratio,
     guidance_state=None, occ_state=None) -> (state, metrics)``.
@@ -126,8 +128,17 @@ def make_zero123_train_step(
       camera_distances)
 
     ``metrics`` holds ``loss_<term>`` for every term, ``loss_total`` and
-    ``psnr`` as detached 0-d tensors on ``device``."""
+    ``psnr`` as detached 0-d tensors on ``device``.
+
+    Under ``par`` (more than one device) the random-view leaves hold this
+    rank's rows and the reference view is whole: the random rays take the
+    draws of the whole batch's rays (``render_rays(rows=)``), the
+    orientation loss divides the sum over all ranks by the opaque count of
+    all ranks, the other terms are the reference view's or means of equal
+    per-rank means; the gradients and the metrics are averaged over
+    ``data``."""
     dev = torch.device(device)
+    par = par or ParallelContext()
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     need_depth = C_max(losses.lambda_depth) > 0
     need_depth_rel = C_max(losses.lambda_depth_rel) > 0
@@ -169,12 +180,14 @@ def make_zero123_train_step(
 
         # --- rand substep --------------------------------------------------
         B, H, W = batch["rand_rays_o"].shape[:3]
+        lo, total = par.rows(B)
         rand_out = render_rays(
             geo_params, geo_cfg, rcfg, batch["rand_rays_o"].reshape(-1, 3),
             batch["rand_rays_d"].reshape(-1, 3),
             torch.repeat_interleave(batch["light_positions"], H * W, dim=0), bg, generator,
             ambient_ratio=ambient_ratio, level_mask=level_mask, material=material,
-            return_normal_perturb=need_3d_smooth, occ_state=occ_state)
+            return_normal_perturb=need_3d_smooth, occ_state=occ_state,
+            rows=(lo * H * W, total * H * W) if par.active else None)
         if guidance_fn is not None:
             terms["sds"] = guidance_fn(gstate, generator, rand_out["comp_rgb"].reshape(B, H, W, 3),
                                        {**batch, "step": step})
@@ -187,8 +200,8 @@ def make_zero123_train_step(
 
         w_det = rand_out["weights"].detach()
         ndotd = (rand_out["normal"] * rand_out["t_dirs"]).sum(-1)
-        n_opaque = torch.clamp((rand_out["opacity"] > 0).sum(), min=1)
-        terms["orient"] = (w_det * torch.clamp(ndotd, min=0.0) ** 2).sum() / n_opaque
+        n_opaque = torch.clamp(par.all_sum((rand_out["opacity"] > 0).sum()), min=1)
+        terms["orient"] = par.all_sum((w_det * torch.clamp(ndotd, min=0.0) ** 2).sum()) / n_opaque
         terms["sparsity"] = torch.sqrt(rand_out["opacity"] ** 2 + 0.01).mean()
         oc = torch.clamp(rand_out["opacity"], 1e-3, 1 - 1e-3)
         terms["opaque"] = binary_cross_entropy(oc, oc)
@@ -212,7 +225,9 @@ def make_zero123_train_step(
         loss, metrics = loss_fn(state.geo_params, batch, generator, state.step, level_mask,
                                 ambient_ratio, guidance_state, occ_state)
         loss.backward()
+        par.average_gradients(tree_leaves(state.geo_params))
         state.opt_state.step()
-        return NeRFTrainState(state.geo_params, state.opt_state, state.step + 1), metrics
+        return (NeRFTrainState(state.geo_params, state.opt_state, state.step + 1),
+                par.reduce_metrics(metrics))
 
     return train_step

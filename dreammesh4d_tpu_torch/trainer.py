@@ -14,6 +14,11 @@ Resuming restores the saved state, and the loop continues from the step in
 the checkpoint's name.  The experiment's random generator is not part of the
 state: after a resume it starts again from its seed, as the JAX trainer's
 key does.
+
+Under more than one device every rank runs the loop and restores
+``resume``; rank 0 alone logs, prints, writes the progress file,
+checkpoints, validates, tests and exports, and the others wait for it at a
+barrier.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from .parallel import mesh as pmesh
 from .utils.checkpoint import (find_last_path, latest_checkpoint, restore_checkpoint,
                                save_checkpoint, step_from_path)
 
@@ -52,7 +58,9 @@ class Trainer:
         self.cfg = cfg
         self.trial_dir = trial_dir
         self.ckpt_dir = os.path.join(trial_dir, "ckpts")
-        os.makedirs(trial_dir, exist_ok=True)
+        self.is_main = pmesh.is_main_process()
+        if self.is_main:
+            os.makedirs(trial_dir, exist_ok=True)
         from .utils.loggers import LoggerCollection, build_loggers
 
         self.logger = LoggerCollection(build_loggers(cfg.loggers, trial_dir))
@@ -75,13 +83,13 @@ class Trainer:
         profiler = None
         t0 = window = time.time()
         for step in range(start_step, cfg.max_steps):
-            if step == cfg.profile_start_step:
+            if self.is_main and step == cfg.profile_start_step:
                 profiler = _start_profiler(experiment.device)
             metrics = experiment.train_step(step)
             if profiler is not None and step == cfg.profile_start_step + cfg.profile_steps - 1:
                 _stop_profiler(profiler, os.path.join(self.trial_dir, "profile"))
                 profiler = None
-            if step % cfg.log_every_n_steps == 0 or step == cfg.max_steps - 1:
+            if self.is_main and (step % cfg.log_every_n_steps == 0 or step == cfg.max_steps - 1):
                 self.logger.log_metrics(metrics, step)
                 dt = time.time() - window
                 window = time.time()
@@ -91,25 +99,32 @@ class Trainer:
                 with open(os.path.join(self.trial_dir, "progress"), "w") as pf:
                     pf.write(f"{step}/{cfg.max_steps} loss={loss:.4f}")
             if cfg.val_check_interval > 0 and (step + 1) % cfg.val_check_interval == 0:
-                experiment.validate(step + 1)
+                self._on_main(experiment.validate, step + 1)
             if (step + 1) % cfg.checkpoint_every == 0 or step == cfg.max_steps - 1:
                 save_checkpoint(self.ckpt_dir, step + 1, experiment.state_for_checkpoint())
         if profiler is not None:
             _stop_profiler(profiler, os.path.join(self.trial_dir, "profile"))
         total = time.time() - t0
         self.logger.finalize()
-        with open(os.path.join(self.trial_dir, "train_summary.json"), "w") as f:
-            json.dump({"steps": cfg.max_steps, "wall_s": total}, f)
-        print(f"Training finished in {total:.1f}s", flush=True)
+        if self.is_main:
+            with open(os.path.join(self.trial_dir, "train_summary.json"), "w") as f:
+                json.dump({"steps": cfg.max_steps, "wall_s": total}, f)
+            print(f"Training finished in {total:.1f}s", flush=True)
+
+    def _on_main(self, fn, *args, **kwargs) -> None:
+        """``fn`` on rank 0; every rank then waits for it."""
+        if self.is_main:
+            fn(*args, **kwargs)
+        pmesh.barrier()
 
     def validate(self, experiment) -> None:
-        experiment.validate(experiment.state.step)
+        self._on_main(experiment.validate, experiment.state.step)
 
     def test(self, experiment) -> None:
-        experiment.validate(self.cfg.max_steps, test=True)
+        self._on_main(experiment.validate, self.cfg.max_steps, test=True)
 
     def predict(self, experiment) -> None:
-        experiment.export()
+        self._on_main(experiment.export)
 
 
 def _start_profiler(device):

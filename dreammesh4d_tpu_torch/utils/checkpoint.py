@@ -10,6 +10,8 @@ the cross-stage weight transfer).
 
 A directory that the JAX package wrote (orbax) is recognised and refused
 with an error that says so: the port does not read orbax checkpoints.
+Under more than one device rank 0 writes and every rank waits for it;
+every rank restores.
 """
 
 from __future__ import annotations
@@ -20,17 +22,21 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel import mesh as _mesh
+
 STATE_FILE = "state.pt"
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any) -> str:
-    """Write ``state`` to ``<ckpt_dir>/step_<step:08d>/state.pt``; returns
-    the step directory."""
+    """Write ``state`` to ``<ckpt_dir>/step_<step:08d>/state.pt`` (on rank
+    0, the other ranks wait); returns the step directory."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if _mesh.is_main_process():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+    _mesh.barrier()
     return path
 
 

@@ -1,7 +1,8 @@
 """Metric logger backends: CSV (always), TensorBoard and wandb when
 installed (counterpart of ``dreammesh4d_tpu/utils/loggers.py``).  A backend
 that cannot be imported warns once and does nothing, as in the JAX package;
-``metrics.csv`` records everything.  wandb runs in offline mode."""
+``metrics.csv`` records everything.  wandb runs in offline mode.  Under
+more than one device only rank 0 logs (the metrics are the global ones)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import csv
 import os
 import warnings
 from typing import Any, Dict, List, Optional
+
+from ..parallel import mesh as _mesh
 
 
 class CSVLogger:
@@ -99,8 +102,11 @@ _BACKENDS = {"csv": CSVLogger, "tensorboard": TensorBoardLogger, "wandb": WandbL
 
 
 def build_loggers(names, trial_dir: str) -> List[Any]:
-    """``names``: iterable of backend names (unknown names warn + skip)."""
+    """``names``: iterable of backend names (unknown names warn + skip);
+    none on a rank other than 0."""
     out: List[Any] = []
+    if not _mesh.is_main_process():
+        return out
     for n in names:
         cls = _BACKENDS.get(str(n).lower())
         if cls is None:

@@ -7,6 +7,8 @@ needed.
 An image sequence is a numbered PNG sequence in a directory named after the
 requested file's stem (``it120-test.mp4`` -> ``it120-test/0000.png`` …),
 whatever the machine has installed; the JAX package writes an mp4 there.
+Under more than one device only rank 0 writes: elsewhere every method
+returns its path and writes nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..data.png import write_png
+from ..parallel import mesh as _mesh
 
 _PNG_FILTER = 1  # Sub: the cheapest filter to compute, and it compresses renders well
 
@@ -25,11 +28,14 @@ _PNG_FILTER = 1  # Sub: the cheapest filter to compute, and it compresses render
 class Saver:
     def __init__(self, save_dir: str):
         self.save_dir = save_dir
-        os.makedirs(save_dir, exist_ok=True)
+        self.writes = _mesh.is_main_process()
+        if self.writes:
+            os.makedirs(save_dir, exist_ok=True)
 
     def path(self, name: str) -> str:
         p = os.path.join(self.save_dir, name)
-        os.makedirs(os.path.dirname(p), exist_ok=True)
+        if self.writes:
+            os.makedirs(os.path.dirname(p), exist_ok=True)
         return p
 
     # ---------------- images ----------------
@@ -65,15 +71,21 @@ class Saver:
                 imgs.append(self._gray(img[..., 0] if img.ndim == 3 else img,
                                        kwargs.get("cmap"), kwargs.get("data_range")))
         grid = np.concatenate(imgs, axis=1 if align == "h" else 0)
+        if not self.writes:
+            return self.path(name)
         return write_png(self.path(name), grid, _PNG_FILTER)
 
     def save_rgb(self, name: str, img: np.ndarray) -> str:
+        if not self.writes:
+            return self.path(name)
         return write_png(self.path(name), self._to_u8(img), _PNG_FILTER)
 
     def save_img_sequence(self, name: str, frames: List[np.ndarray]) -> str:
         """Frames as ``<stem>/0000.png``, ``<stem>/0001.png``, …; returns the
         directory."""
         out = self.path(os.path.splitext(name)[0])
+        if not self.writes:
+            return out
         os.makedirs(out, exist_ok=True)
         for i, frame in enumerate(frames):
             write_png(os.path.join(out, f"{i:04d}.png"), self._to_u8(frame), _PNG_FILTER)
@@ -82,11 +94,15 @@ class Saver:
     # ---------------- data ----------------
     def save_json(self, name: str, data) -> str:
         out = self.path(name)
+        if not self.writes:
+            return out
         with open(out, "w") as f:
             json.dump(data, f, indent=2, default=float)
         return out
 
     def save_npz(self, name: str, **arrays) -> str:
         out = self.path(name)
+        if not self.writes:
+            return out
         np.savez(out, **{k: np.asarray(v) for k, v in arrays.items()})
         return out

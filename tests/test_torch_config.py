@@ -201,7 +201,7 @@ def test_registry_resolves_the_stages_names():
     assert issubclass(mixed, SugarStaticExperiment) and issubclass(mixed, SingleImageDataModule)
     assert registry.find("zero123-system") is Zero123Experiment
     with pytest.raises(KeyError):
-        registry.find("dreamfusion-system")  # the zoo (ROADMAP A7)
+        registry.find("dreamfusion-system")  # the zoo (ROADMAP A8)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

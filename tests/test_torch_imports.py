@@ -49,7 +49,9 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "ops.resize", "models.guidance.zero123.scheduler", "models.guidance.zero123.unet",
                "models.guidance.zero123.vae", "models.guidance.zero123.clip",
                "models.guidance.zero123.guidance", "models.guidance.zero123.checkpoint",
-               "ops.knn", "models.geometry.gaussian", "ops.sugar_reg", "systems.gaussian_stage")
+               "ops.knn", "models.geometry.gaussian", "ops.sugar_reg", "systems.gaussian_stage",
+               "parallel", "parallel.mesh", "parallel.context", "parallel.sharding_rules", "dryrun",
+               "scripts.render_4d")
 
 
 def test_port_imports_no_jax():

@@ -154,6 +154,12 @@ def parity(tmp_path_factory):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(optax, "adam", keeping)
+        # the JAX experiment's eager setup jitted: eager dispatch compiles each op
+        real_init, real_attrs = jdef.init_deformation, jsys.gaussian_attributes
+        mp.setattr(jdef, "init_deformation",
+                   lambda cfg, key: jax.jit(lambda k: real_init(cfg, k))(key))
+        mp.setattr(jsys, "gaussian_attributes",
+                   lambda params, static: jax.jit(lambda p: real_attrs(p, static))(params))
         jexp = jasm.build_experiment(j_load_config(YAML, cli_args=base + [f"system.weights={jweights}"]))
     exp = assembly.build_experiment(load_config(YAML, cli_args=base + [f"system.weights={tweights}"]),
                                     device="cpu")

@@ -29,9 +29,10 @@ from the checkpoint's parameters (the JAX comparison of both files is in
 ``test_torch_export.py``).
 
 The guidance paths (off, missing, ``allow_missing``, random weights and a
-checkpoint), and what the port refuses: more than one device (A7);
-``zero123-system`` and the Gaussian stage build since they run from their
-YAML.
+checkpoint); more than one device outside the launcher's process group
+raises (``tests/test_torch_launch_multidevice.py`` runs it through the
+launcher); ``zero123-system`` and the Gaussian stage build since they run
+from their YAML.
 """
 
 import os
@@ -238,7 +239,9 @@ def test_unported_systems_and_devices_raise(dotlist, tmp_path):
     """Since ``zero123-system`` runs from its YAML it builds (from the
     YAML's full width, guidance off), and so does the Gaussian stage
     (``system.stage=gaussian``, at 512 slots on the CPU); more than one
-    device still raises."""
+    device runs one process per rank, so outside the launcher's process
+    group it raises, saying to run through the launcher; one device makes
+    no process group."""
     zero123 = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
                           cli_args=["data.image_path=/x/a_rgba.png", "use_timestamp=false",
                                     f"exp_root_dir={tmp_path}",
@@ -246,7 +249,7 @@ def test_unported_systems_and_devices_raise(dotlist, tmp_path):
     exp = assembly.build_experiment(zero123, device="cpu")
     assert isinstance(exp, assembly.Zero123Experiment)
     assert tuple(exp.state.geo_params["encoding"]["tables"].shape) == (16, 65536, 16)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(RuntimeError, match="through the launcher"):
         assembly.build_experiment(load_config(
             os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
             cli_args=["data.image_path=/x/a_rgba.png", f"exp_root_dir={tmp_path}",
@@ -258,10 +261,12 @@ def test_unported_systems_and_devices_raise(dotlist, tmp_path):
     assert isinstance(gaussian, assembly.GaussianStageExperiment)
     assert int(gaussian.state.gaussians.alive.sum()) == 64 and gaussian.state.gaussians.xyz.shape == (512, 3)
     for extra in (["trainer.devices=2"], ["trainer.mesh=[2,1]"]):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(RuntimeError, match="through the launcher"):
             assembly.build_experiment(load_config(YAML, cli_args=dotlist + extra, makedirs=False),
                                       device="cpu")
-    assembly.check_single_device({"devices": 1, "mesh": [1, 1]})
+    assert not assembly.make_parallel_context(
+        load_config(YAML, cli_args=dotlist + ["trainer.devices=1", "trainer.mesh=[1,1]"],
+                    makedirs=False), "cpu").active
 
 
 def test_export_writes_mesh_and_gaussians(dotlist, tmp_path):

@@ -75,9 +75,11 @@ def test_render(viewers):
 
 
 def test_orbit(viewers):
+    """Three views: the batch of ``test_play``'s three frames, so that the
+    JAX viewer's jitted render compiles once for both."""
     jv, tv = viewers
-    port = tv.orbit(n_views=2, elevation_deg=10.0, distance=3.8, t=0.7)
-    _check(port, jv.orbit(n_views=2, elevation_deg=10.0, distance=3.8, t=0.7))
+    port = tv.orbit(n_views=3, elevation_deg=10.0, distance=3.8, t=0.7)
+    _check(port, jv.orbit(n_views=3, elevation_deg=10.0, distance=3.8, t=0.7))
     assert np.abs(port[0] - port[1]).max() > 1e-2  # two different views
 
 

@@ -170,10 +170,14 @@ def jax_step(scene):
     step's one use of its key without a guidance), and a key per case whose
     draw inverts the background (the port's 1.0) or does not (0.0)."""
     keeper = _grad_keeper()
-    jstep = jsys.make_dynamic_train_step(
-        scene["jp"], scene["jst"], scene["cfg"].deformation, scene["raster"], keeper,
-        jsys.Sugar4DGenLosses(**LOSSES), jnp.asarray(scene["arap_w"]), guidance_fn=None,
-        invert_bg_prob=0.5)
+    real_attrs = jsys.gaussian_attributes
+    with pytest.MonkeyPatch.context() as mp:  # its eager setup jitted
+        mp.setattr(jsys, "gaussian_attributes",
+                   lambda params, static: jax.jit(lambda p: real_attrs(p, static))(params))
+        jstep = jsys.make_dynamic_train_step(
+            scene["jp"], scene["jst"], scene["cfg"].deformation, scene["raster"], keeper,
+            jsys.Sugar4DGenLosses(**LOSSES), jnp.asarray(scene["arap_w"]), guidance_fn=None,
+            invert_bg_prob=0.5)
     keys = {}
     for seed in range(64):
         key = jax.random.PRNGKey(seed)
@@ -192,8 +196,8 @@ def test_one_step_matches_jax(scene, jax_step, invert_bg_prob):
     jstate1, jmetrics = jstep(jstate, jbatch, keys[invert_bg_prob])
     jgrads = jstate1.opt_state
     adam = optax.adam(LR, b1=0.9, b2=0.99)
-    updates, _ = adam.update(jgrads, adam.init(jparams), jparams)
-    jnew = optax.apply_updates(jparams, updates)
+    jnew = jax.jit(lambda g, p: optax.apply_updates(p, adam.update(g, adam.init(p), p)[0]))(
+        jgrads, jparams)
 
     tstep = _torch_step(scene, convert.losses(jlosses), invert_bg_prob=invert_bg_prob)
     state = convert.dyn_train_state({"deform_params": scene["dparams"], "step": 5}, lr=LR,
