@@ -202,9 +202,24 @@ Phases, each of which fails the run on a failed check:
     peak memory per rank, the UNet's bytes per rank at tp=2 and 1; and
     ``scripts/render_4d`` frame (byte-equal to ``write_png`` of
     ``Viewer4D.render``), orbit and play on phase 9's dynamic trial;
-15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian`` and
-    ``launches_multidevice`` too), the card's name and power limit, and as
-    the last line ``{"ok": true, "device": {...}}``.
+17. the zoo's NeRF systems (``drive_zoo``, run after 16, before the lines
+    of 15): (a) the Stable Diffusion guidance at full width (UNet 320 ×
+    [1,2,4,4], VAE 128 at 512², latents 64²) in float32, one ``sds_loss``
+    on the card against the CPU with the same weights and draws, within
+    SDS_CPU_TOL / SDS_CPU_GRAD_TOL, and its ms per SDS forward + backward;
+    (b) ``configs/zoo/{zero123, dreamfusion-sd, magic3d-coarse-sd,
+    dreamfusion-sd-eff, magic123-coarse-sd, imagecondition}.yaml`` through
+    the launcher at their full widths (16 × 2 × 2^19 corner rows, 64 + 64
+    samples a ray, SD 1.5 and Stable Zero123 in float32) with every
+    guidance at ``random:0``, ZOO_STEPS steps each; phase 9's frame 0 the
+    image.  Checks the SDS terms in every step, finite losses, parameters
+    that moved, no hand-written kernel launched, ``--validate`` and
+    ``--export`` (``model.obj``) of two trials; prints ms/step, the
+    guidance's and the corner grid's shares (each timed alone at the step's
+    shapes), peak memory, and the profile of one dreamfusion step;
+15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
+    ``launches_multidevice`` and ``launches_zoo`` too), the card's name and
+    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -3245,6 +3260,253 @@ def kernel_bounds(args, stats, table_rows, per_pair):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", n_bytes, n_ops
 
 
+# ---------------------------------------------------------------------------
+# 17. the zoo: the six NeRF YAMLs of configs/zoo through the launcher
+# ---------------------------------------------------------------------------
+
+ZOO_STEPS = 3  # trainer.max_steps of each zoo run
+ZOO_PROMPT = "a test object"
+# name: (configs/zoo/<name>.yaml takes an image, the guidance keys, the SDS metrics)
+ZOO_YAMLS = {
+    "zero123": (True, ("system.guidance",), ("loss_sds",)),
+    "dreamfusion-sd": (False, ("system.guidance",), ("loss_sds",)),
+    "magic3d-coarse-sd": (False, ("system.guidance",), ("loss_sds",)),
+    "dreamfusion-sd-eff": (False, ("system.guidance",), ("loss_sds",)),
+    "magic123-coarse-sd": (True, ("system.guidance", "system.guidance_3d"), ("loss_sds_2d", "loss_sds_3d")),
+    "imagecondition": (True, ("system.guidance",), ("loss_sds_2d",)),
+}
+ZOO_EXPORTED = ("dreamfusion-sd", "magic123-coarse-sd")  # also --validate and --export
+# profiled for one step: the profiler's own cost over magic123's ~141,600
+# launches a step was ~100 s (H100 80GB HBM3, 700 W)
+ZOO_PROFILED = ("dreamfusion-sd",)
+ZOO_SD = {}  # the SD config of the card-vs-CPU check: SD 1.5's widths, float32
+
+
+def zoo_point_counts(exp):
+    """(fine, coarse) sample points of one zoo step: every rendered ray
+    takes the renderer's coarse samples without gradients and its coarse +
+    fine samples with the analytic normal; zero123-system's 3D normal
+    smoothness evaluates its random views' samples once more."""
+    s1, s2 = exp.rcfg.num_samples_coarse, exp.rcfg.num_samples_fine
+    n = {k: v.reshape(-1, 3).shape[0] for k, v in exp.train_batch(0).items() if k.endswith("rays_o")}
+    rays = sum(n.values())
+    return (rays + n.get("rand_rays_o", 0)) * (s1 + s2), rays * s1
+
+
+def zoo_guidance_ms(torch, exp, device):
+    """Every SDS term of one zoo step, timed alone (CUDA events): each
+    guidance's ``sds_loss`` and its backward into a render of the step's
+    shape (efficient-dreamfusion's after its resize to ``data.height``)."""
+    batch = exp.train_batch(0)
+    rays = batch["rand_rays_o"] if "rand_rays_o" in batch else batch["rays_o"]
+    B, H, W = rays.shape[:3]
+    if getattr(exp, "_eff", False):
+        H = W = int(exp.cfg.data.height)
+    view = [batch[k] for k in ("elevation", "azimuth", "camera_distances")]
+    gen = torch.Generator(device=device).manual_seed(5)
+    rgb0 = torch.rand((B, H, W, 3), generator=gen, device=device)
+    terms = []
+    if getattr(exp, "pack", None) is not None:
+        sd, prompts = exp.pack
+        terms.append(lambda rgb: sd.sds_loss(prompts, rgb, *view, 0, gen)["loss_sds"])
+    zero123 = getattr(exp, "guidance_3d", None) or getattr(exp, "guidance", None)
+    if zero123 is not None:
+        terms.append(lambda rgb: zero123.sds_loss(exp.bank, rgb, *view, None, 0, gen)["loss_sds"])
+
+    def run():
+        rgb = rgb0.clone().requires_grad_(True)
+        sum(term(rgb) for term in terms).backward()
+
+    return time_ms(torch, run, n=3, warmup=1), (B, H, W)
+
+
+def corner_grid_ms(torch, geo_cfg, fine, coarse, device):
+    """The corner hash grid's work in one step, timed alone (CUDA events):
+    the coarse points encoded without gradients; the fine points encoded
+    twice (the field, and the density whose point gradient is the normal),
+    that gradient taken with its graph, and the backward of both into the
+    tables.  One pass over all of the step's points: the step renders 8192
+    rays at a time and recomputes each chunk's forward in the backward, so
+    this is the least the grid costs there."""
+    from dreammesh4d_tpu_torch.ops.hashgrid import hashgrid_encode, init_hashgrid
+
+    cfg = geo_cfg.hashgrid
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = {"tables": init_hashgrid(cfg, gen, device)["tables"].requires_grad_(True)}
+    x = torch.rand((fine, 3), generator=gen, device=device)
+    xc = torch.rand((coarse, 3), generator=gen, device=device)
+    w = torch.randn((cfg.out_dim, 1), generator=gen, device=device)
+
+    def run():
+        with torch.no_grad():
+            hashgrid_encode(params, cfg, xc)
+        field = hashgrid_encode(params, cfg, x) @ w
+        xr = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad((hashgrid_encode(params, cfg, xr) @ w).sum(), xr, create_graph=True)
+        (field.sum() + g.square().sum()).backward()
+        params["tables"].grad = None
+
+    return time_ms(torch, run, n=3, warmup=1)
+
+
+def zoo_sds_card_vs_cpu(torch, card, device):
+    """One float32 SD ``sds_loss`` (B = 1) at full width on the card and on
+    the CPU: the same weights (every layer drawn, the zero-initialised
+    output convolutions too, so that the UNet's output is not zero), prompt
+    embeddings and draws.  Returns the card's ms of one SDS forward +
+    backward and the errors."""
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import (StableDiffusionGuidance,
+                                                                       StableDiffusionPromptProcessor)
+    from dreammesh4d_tpu_torch.models.guidance.zero123.unet import init_weights
+
+    on_card = StableDiffusionGuidance(ZOO_SD, device=device)
+    init_weights(on_card.modules, torch.Generator(device=device).manual_seed(0))
+    on_cpu = StableDiffusionGuidance(ZOO_SD, device="cpu")
+    on_cpu.modules.load_state_dict({k: v.cpu() for k, v in on_card.modules.state_dict().items()})
+    gen = torch.Generator().manual_seed(11)
+    L = on_card.cfg.latent_size
+    u, noise = torch.tensor([0.37]), torch.randn((1, 4, L, L), generator=gen)
+    rgb0 = smooth_images(torch, 1, 64, 12)
+    view = [torch.tensor([v]) for v in (20.0, 30.0, 1.8)]  # elevation, azimuth (front), distance
+    outs = {}
+    for label, g, dev in (("card", on_card, device), ("cpu", on_cpu, "cpu")):
+        prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=dev)()
+        rgb = rgb0.to(dev).requires_grad_(True)
+        out = g.sds_loss(prompts, rgb, *(v.to(dev) for v in view), 0, u=u, noise=noise)
+        out["loss_sds"].backward()
+        outs[label] = ({k: float(out[k]) for k in ("loss_sds", "grad_norm")}, rgb.grad.cpu())
+        if label == "card":
+            def sds_step(g=g, prompts=prompts):
+                r = rgb0.to(dev).requires_grad_(True)
+                g.sds_loss(prompts, r, *(v.to(dev) for v in view), 0, u=u, noise=noise)["loss_sds"].backward()
+
+            ms = time_ms(torch, sds_step, n=5, warmup=1)
+    (got, gc), (p, gp) = outs["card"], outs["cpu"]
+    errs = {k: abs(got[k] - p[k]) / abs(p[k]) for k in got}
+    grad_err = rel_err(gc, gp)
+    c = on_card.cfg
+    print(f"[{card}] SD sds_loss (UNet {c.model_channels} x {list(c.channel_mult)}, VAE {c.vae_ch} at "
+          f"{c.image_size}^2, latents {c.latent_size}^2), float32, card vs CPU: loss {got['loss_sds']:.8g} vs {p['loss_sds']:.8g} (relative {errs['loss_sds']:.3g}), "
+          f"grad_norm relative {errs['grad_norm']:.3g} (limit {SDS_CPU_TOL}); d loss/d rgb max |d| / max "
+          f"{grad_err:.3g} (limit {SDS_CPU_GRAD_TOL}); one SDS forward + backward on the card {ms:.2f} ms; "
+          f"{sum(x.numel() for x in on_card.modules.parameters())} parameters")
+    check(all(e <= SDS_CPU_TOL for e in errs.values()) and grad_err <= SDS_CPU_GRAD_TOL and p["loss_sds"] > 0,
+          "SD sds_loss: card and CPU differ")
+    return {"sds_ms": ms, "sds_err": max(errs.values()), "sds_grad_err": grad_err}
+
+
+def drive_zoo(torch, np, rb, tb, hc, card, launcher, device, tmp):
+    """Phase 17, the zoo's NeRF systems: (a) the SD guidance float32 card vs
+    CPU (``zoo_sds_card_vs_cpu``); (b) the six YAMLs of ZOO_YAMLS through
+    ``launch.main`` at their full widths (hash grid 16 × 2 × 2^19 corner
+    rows, 64 + 64 samples a ray; SD 1.5's and Stable Zero123's widths,
+    float32) with every guidance at ``random:0``, ZOO_STEPS steps each;
+    phase 9's frame 0 the image.  Checks the SDS terms in every step,
+    finite losses, parameters that moved, no hand-written kernel launched
+    (the corner grid is plain PyTorch), and ``--validate`` / ``--export``
+    (``model.obj``) on ZOO_EXPORTED.  Prints ms/step (median after the
+    first), the guidance's and the corner grid's shares (``zoo_guidance_ms``
+    and ``corner_grid_ms``, each timed alone, over ms/step), peak memory
+    above what earlier phases hold, and the profile of one step of
+    ZOO_PROFILED.  Returns the phase's numbers."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.export.mesh_io import load_obj
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import init_implicit_volume
+    from dreammesh4d_tpu_torch.systems import assembly, assembly_zoo
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    res = zoo_sds_card_vs_cpu(torch, card, device)
+    torch.cuda.empty_cache()
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+
+    image = os.path.join(launcher["frames_dir"], "000_rgba.png")
+    out = os.path.join(tmp, "zoo")
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    for cls in (assembly.Zero123Experiment, assembly_zoo.ZooTextExperiment, assembly_zoo.ZooImageExperiment):
+        spans.train_steps(cls, "zoo")
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    hc.reset_launch_counts()
+    runs, res["peak"], res["ms"], res["guidance_ms"], res["grid_ms"] = {}, {}, {}, {}, {}
+    try:
+        for name, (takes_image, keys, sds_keys) in ZOO_YAMLS.items():
+            yaml = os.path.join(REPO, "configs", "zoo", f"{name}.yaml")
+            dotlist = [f"system.prompt_processor.prompt={ZOO_PROMPT}", f"trainer.max_steps={ZOO_STEPS}",
+                       "trainer.val_check_interval=0", "trainer.log_every_n_steps=1", f"exp_root_dir={out}",
+                       "use_timestamp=false", "tag=sds"]
+            dotlist += [f"{k}.pretrained_model_name_or_path=random:0" for k in keys]
+            if takes_image:
+                dotlist.append(f"data.image_path={image}")
+            first = len(spans.steps)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30  # what earlier phases hold
+            t0 = time.perf_counter()
+            launch.main(launch.make_args(yaml, "train"), dotlist)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+            exp = spans.results["setup"].pop()
+            rows = spans.steps[first:]
+            check([r[1] for r in rows] == list(range(ZOO_STEPS)), f"zoo {name}: steps taken")
+            for _, step, _, _, _, metrics in rows:
+                check(all(math.isfinite(v) for v in metrics.values()), f"zoo {name} step {step}: non-finite metric")
+                for k in sds_keys:
+                    check(metrics.get(k, 0.0) > 0, f"zoo {name} step {step}: no {k} in the metrics")
+            fresh = init_implicit_volume(exp.geo_cfg, torch.Generator(device=device).manual_seed(
+                int(exp.cfg.seed)), device=device)
+            moved = max(float((a.detach() - b).abs().max()) for a, b in
+                        zip(tree_leaves(exp.state.geo_params), tree_leaves(fresh)))
+            check(moved > 0, f"zoo {name}: the parameters did not move")
+            del fresh
+            res["ms"][name] = statistics.median([r[3] for r in rows[1:]])
+            res["peak"][name] = peak
+            runs[name] = (yaml, dotlist, exp.cfg.trial_dir)
+            totals = ", ".join(f"{r[5]['loss_total']:.5g}" for r in rows)
+            print(f"[{card}] zoo {name}: {', '.join(f'{r[3]:.1f}' for r in rows)} ms/step; "
+                  + "; ".join(f"{k} {', '.join(f'{r[5][k]:.5g}' for r in rows)}" for k in sds_keys)
+                  + f"; loss_total {totals}; parameters moved {moved:.3g}; {wall:.1f} s through the launcher; "
+                  f"peak memory {peak:.2f} GiB above the {resident:.2f} GiB resident before it")
+            if name in ZOO_PROFILED:
+                profile_call(torch, f"zoo {name} train step", lambda: exp.train_step(ZOO_STEPS), card)
+            res["guidance_ms"][name], shape = zoo_guidance_ms(torch, exp, device)
+            fine, coarse = zoo_point_counts(exp)
+            geo_cfg = exp.geo_cfg
+            del exp
+            torch.cuda.empty_cache()
+            res["grid_ms"][name] = corner_grid_ms(torch, geo_cfg, fine, coarse, device)
+            print(f"[{card}] zoo {name}: alone, the SDS terms at renders {shape} {res['guidance_ms'][name]:.2f} ms, "
+                  f"the corner grid at the step's {fine} + {coarse} points {res['grid_ms'][name]:.2f} ms")
+        # --validate and --export of two trials, from their last checkpoint
+        for name in ZOO_EXPORTED:
+            yaml, dotlist, trial = runs[name]
+            t0 = time.perf_counter()
+            launch.main(launch.make_args(yaml, "validate"), dotlist + ["resume=LAST"])
+            launch.main(launch.make_args(yaml, "export"), dotlist + ["resume=LAST"])
+            spans.results["setup"].clear()
+            mesh = load_obj(os.path.join(trial, "save", "model.obj"))
+            saved = sorted(os.listdir(os.path.join(trial, "save")))
+            print(f"[{card}] zoo {name} --validate and --export resume=LAST: {time.perf_counter() - t0:.1f} s, "
+                  f"save/ {saved}; model.obj {mesh.v_pos.shape[0]} vertices, {mesh.t_pos_idx.shape[0]} faces")
+            check(f"it{ZOO_STEPS}-val.png" in saved and mesh.v_pos.shape[0] > 0 and np.isfinite(mesh.v_pos).all(),
+                  f"zoo {name}: --validate / --export wrote no image or mesh")
+    finally:
+        spans.close()
+    launched = counts()
+    res["launches"] = launched
+    check(all(v == 0 for v in launched.values()), f"the zoo launched hand-written kernels {launched}: its "
+          "corner grid has none")
+    print(f"[{card}] zoo ms/step (median of steps 1..{ZOO_STEPS - 1}; guidance random:0, float32), the "
+          "guidance's and the corner grid's (plain PyTorch) share, each timed alone at the step's shapes over "
+          "ms/step, peak memory: " + "; ".join(
+              f"{n} {res['ms'][n]:.1f} ms (guidance {res['guidance_ms'][n]:.1f} ms = "
+              f"{res['guidance_ms'][n] / res['ms'][n]:.3f}, grid {res['grid_ms'][n]:.1f} ms = "
+              f"{res['grid_ms'][n] / res['ms'][n]:.3f}, {res['peak'][n]:.2f} GiB)" for n in ZOO_YAMLS))
+    return res
+
+
 def main():
     import argparse
 
@@ -3605,22 +3867,29 @@ def main():
     # 16. more than one device: the launcher's refusal, two ranks on the card, render_4d
     torch.cuda.empty_cache()
     multi = drive_multidevice(torch, np, rb, card, launcher, dev, launch_tmp.name)
+
+    # 17. the zoo's six NeRF YAMLs through the launcher, SD on the card against the CPU
+    torch.cuda.empty_cache()
+    zoo = drive_zoo(torch, np, rb, tb, hc, card, launcher, dev, launch_tmp.name)
     launch_tmp.cleanup()
 
     # 15. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         # every path's launches: the recipe's (phase 12), the guided launcher's
-        # (phase 13), the Gaussian stage's (phase 14) and the two ranks' and
-        # render_4d's (phase 16) included
+        # (phase 13), the Gaussian stage's (phase 14), the two ranks' and
+        # render_4d's (phase 16) and the zoo's (phase 17, none: its corner
+        # grid is plain PyTorch) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
         n_multi = multi["launches"].get(name, 0)
+        n_zoo = zoo["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi,
+                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
-                "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, **extra}
+                "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
+                **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

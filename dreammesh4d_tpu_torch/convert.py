@@ -40,6 +40,9 @@ are read back as Python values.  This module imports no jax.
   param tree as the port's ``Zero123Modules`` state dict (the LDM layout);
   :func:`clip_vision_params` — the JAX CLIP tower as the port's
   ``VisionTransformer`` state dict;
+- the Stable Diffusion guidance: :func:`sd_guidance_params` — the JAX SD
+  param tree (UNet and VAE) as the port's ``StableDiffusionModules`` state
+  dict;
 - evaluation: :func:`perceptual_params` — the LPIPS tree
   ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
@@ -479,4 +482,19 @@ def zero123_guidance_params(jax_params, cfg) -> dict:
                    for k, v in clip_vision_params(jax_params["clip"]).items()})
     if "clip_proj" in jax_params:
         sd["clip_proj"] = _np32(jax_params["clip_proj"])
+    return sd
+
+
+def sd_guidance_params(jax_params, cfg) -> dict:
+    """The JAX Stable Diffusion param tree (``StableDiffusionGuidance.
+    init_params`` or ``convert_sd_state_dict``, as numpy; its ``text``
+    entry, if any, is not carried) → the port's state dict, keyed as
+    ``StableDiffusionModules.state_dict()`` (the SD LDM layout), as float32
+    numpy arrays.  ``cfg``: the port's ``StableDiffusionConfig`` (or any
+    object with the same architecture fields)."""
+    sd: dict = {}
+    _ldm_unet(sd, "model.diffusion_model.", jax_params["unet"], tuple(cfg.channel_mult),
+              int(cfg.num_res_blocks))
+    _ldm_vae(sd, "first_stage_model.", jax_params["vae"], tuple(cfg.vae_ch_mult),
+             int(cfg.vae_num_res_blocks))
     return sd

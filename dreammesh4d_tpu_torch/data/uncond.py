@@ -24,6 +24,7 @@ import torch
 
 from ..models.renderers.sugar_rasterizer import CameraBatch
 from ..ops import cameras as cam_ops
+from ..registry import register
 
 
 @dataclass
@@ -103,6 +104,7 @@ def _spherical_positions(distances, elevation_deg, azimuth_deg) -> np.ndarray:
                      distances * np.sin(el)], -1).astype(np.float32)
 
 
+@register("random-camera-datamodule")
 class RandomCameraSampler:
     """``random-camera-datamodule``: ``sample()`` draws a training batch,
     ``orbit()`` the evaluation views; tensors are placed on ``device``."""

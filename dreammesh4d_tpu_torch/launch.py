@@ -27,7 +27,9 @@ meet at a free local port and run the verb on the ``(data, model)`` grid
 errors of a bad mesh, an indivisible batch or too few devices are raised
 here, before any process starts; a rank that fails fails the run with its
 traceback.  Rank 0 writes the trial; the timestamp is off, as in the
-reference with more than one GPU.
+reference with more than one GPU.  The zoo's systems
+(``systems/assembly_zoo.py``) run in one process only, as in the JAX
+package: ``trainer.devices > 1`` on them raises.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from .config import dump_config, load_config
 from .parallel import mesh as pmesh
 from .parallel.context import plan_from_trainer_cfg
 from .systems.assembly import build_experiment, check_parallel_batch
+from .systems.assembly_zoo import ZOO_EXPERIMENTS
 from .trainer import Trainer, TrainerConfig
 from .utils.checkpoint import find_last_path, latest_checkpoint, restore_checkpoint
 
@@ -112,6 +115,9 @@ def main(args, extras) -> None:
     world = dist.get_world_size() if dist.is_initialized() else 1
     cfg = load_config(args.config, cli_args=extras, n_gpus=world, makedirs=False)
     plan = plan_from_trainer_cfg(cfg.trainer, device)
+    if plan is not None and cfg.system_type in ZOO_EXPERIMENTS:
+        raise RuntimeError(f"trainer.devices={plan[0]}: {cfg.system_type} runs in one process; more "
+                           "than one device for the zoo's systems is not ported yet (ROADMAP A8)")
     if world == 1 and plan is not None:
         check_parallel_batch(cfg, plan[1])
         spawn(_run_verb, plan[0], device, args=(_plain_args(args), list(extras)))

@@ -290,14 +290,18 @@ class StableZero123Guidance:
             cl.append(mod.encode_cond_latent(part))
         return {"c_crossattn": torch.cat(cc), "c_concat": torch.cat(cl)}
 
+    def camera_embedding(self, elevation, azimuth, camera_distances) -> torch.Tensor:
+        """The relative camera ΔT (B, 4) that joins the CLIP embedding."""
+        return camera_delta_T(elevation, azimuth, camera_distances, self.cfg.cond_elevation_deg,
+                              self.cfg.cond_azimuth_deg)
+
     def _conditioning(self, bank, elevation, azimuth, camera_distances, frame_indices, B):
         """The CFG batch's context (2B, 1, ctx) and conditioning latent (2B, 4, L, L)."""
-        cfg, mod = self.cfg, self.modules
+        mod = self.modules
         dev = mod.device
         f_idx = (torch.zeros(B, dtype=torch.long, device=dev) if frame_indices is None
                  else torch.as_tensor(frame_indices, device=dev).long())
-        T_cam = camera_delta_T(elevation.to(dev), azimuth.to(dev), camera_distances.to(dev),
-                               cfg.cond_elevation_deg, cfg.cond_azimuth_deg)
+        T_cam = self.camera_embedding(elevation.to(dev), azimuth.to(dev), camera_distances.to(dev))
         cc = mod.cc_projection(torch.cat([bank["c_crossattn"][f_idx], T_cam], -1))[:, None, :]
         c_concat = bank["c_concat"][f_idx]
         return (torch.cat([torch.zeros_like(cc), cc]),
@@ -391,3 +395,29 @@ class StableZero123GuidanceComponent(StableZero123Guidance):
 class TemporalStableZero123Guidance(StableZero123Guidance):
     """The same computation; callers pass the frames' ``frame_indices``
     into the per-frame bank."""
+
+
+def zero123_delta_T(elevation, azimuth, camera_distances, cond_elevation_deg: float,
+                    cond_azimuth_deg: float, cond_camera_distance: float) -> torch.Tensor:
+    """The vanilla Zero123 relative camera: [Δpolar (rad), sin Δazimuth,
+    cos Δazimuth, distance − cond distance] → (B, 4)."""
+    d_polar = torch.deg2rad((90.0 - elevation) - (90.0 - cond_elevation_deg))
+    d_azim = torch.deg2rad(azimuth - cond_azimuth_deg)
+    return torch.stack([d_polar, torch.sin(d_azim), torch.cos(d_azim),
+                        camera_distances - cond_camera_distance], -1)
+
+
+@register("zero123-guidance")
+class Zero123Guidance(StableZero123Guidance):
+    """The vanilla Zero123 conditioning (counterpart of
+    ``unified.Zero123Guidance`` of the JAX package): the same SDS, with the
+    distance delta as the camera embedding's fourth entry.
+
+    ``find("zero123-guidance")`` gives this class.  The launcher does not:
+    as the JAX launcher does, it builds the stable variant whatever
+    ``system.guidance_type`` says (``systems/assembly.maybe_build_guidance``)."""
+
+    def camera_embedding(self, elevation, azimuth, camera_distances) -> torch.Tensor:
+        cfg = self.cfg
+        return zero123_delta_T(elevation, azimuth, camera_distances, cfg.cond_elevation_deg,
+                               cfg.cond_azimuth_deg, cfg.cond_camera_distance)

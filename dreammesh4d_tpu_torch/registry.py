@@ -5,8 +5,14 @@ and ``"main:sub1,sub2"`` composes classes dynamically.
 The port registers the names its YAML-driven stages resolve:
 ``zero123-system``, ``sugar-static-system``, ``sugar-4dgen-system``,
 ``single-image-datamodule``, ``temporal-image-datamodule``,
-``stable-zero123-guidance`` and ``temporal-stable-zero123-guidance``.  ``find`` imports the modules that
-register them on first use, so importing the package stays light.
+``random-camera-datamodule``, ``stable-zero123-guidance``,
+``temporal-stable-zero123-guidance`` and ``zero123-guidance``, and the
+zoo's ``dreamfusion-system``, ``magic3d-system``,
+``efficient-dreamfusion-system``, ``magic123-system``,
+``image-condition-dreamfusion-system``, ``stable-diffusion-guidance``,
+``stable-diffusion-prompt-processor`` and ``dummy-prompt-processor``.
+``find`` imports the modules that register them on first use, so importing
+the package stays light.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ def find(name: str):
 
 def _import_builtin_modules() -> None:
     # imported for their @register side effects
-    from .data import image, temporal_image  # noqa: F401
+    from .data import image, temporal_image, uncond  # noqa: F401
+    from .models import prompt_processors  # noqa: F401
+    from .models.guidance import stable_diffusion  # noqa: F401
     from .models.guidance.zero123 import guidance  # noqa: F401
-    from .systems import assembly  # noqa: F401
+    from .systems import assembly, assembly_zoo  # noqa: F401

@@ -141,6 +141,13 @@ def build_raster_config(height, width, fovy_deg: float, system_cfg: dict) -> Ras
     )
 
 
+# the JAX launcher builds StableZero123Guidance whatever ``guidance_type``
+# says, so ``zero123-guidance`` YAMLs (zoo/zero123.yaml, magic123's
+# ``guidance_3d``) train with the stable camera embedding; ``find`` alone
+# reaches the vanilla class
+LAUNCHER_GUIDANCE = {"zero123-guidance": "stable-zero123-guidance"}
+
+
 def maybe_build_guidance(system_cfg: dict, device="cuda"):
     """The guidance of ``system.guidance`` (a ``StableZero123Guidance`` of
     ``system.guidance_type``, on ``device``), or None when it is off.
@@ -167,7 +174,8 @@ def maybe_build_guidance(system_cfg: dict, device="cuda"):
             "system.guidance.pretrained_model_name_or_path to a real checkpoint, "
             "'random[:seed]' for an SDS smoke run, or 'none' / "
             "system.guidance.allow_missing=true to train reconstruction-only.")
-    cls = find(str(system_cfg.get("guidance_type") or "stable-zero123-guidance"))
+    name = str(system_cfg.get("guidance_type") or "stable-zero123-guidance")
+    cls = find(LAUNCHER_GUIDANCE.get(name, name))
     guidance = cls(config_from_dict(gcfg), device=device)
     if is_random:
         seed = int(path.partition(":")[2] or 0)
@@ -790,8 +798,73 @@ class Sugar4DGenExperiment:
 # ---------------------------------------------------------------------------
 
 
+def implicit_volume_config(geo: dict, **extra) -> ImplicitVolumeConfig:
+    """``system.geometry`` as the implicit volume's config, its hash grid
+    from ``pos_encoding_config`` (the corner layout unless ``layout`` says
+    otherwise); ``extra`` sets further fields."""
+    pos_enc = dict(geo.get("pos_encoding_config", {}))
+    hg = HashGridConfig(
+        n_levels=int(pos_enc.get("n_levels", 16)),
+        n_features_per_level=int(pos_enc.get("n_features_per_level", 2)),
+        log2_hashmap_size=int(pos_enc.get("log2_hashmap_size", 19)),
+        base_resolution=int(pos_enc.get("base_resolution", 16)),
+        per_level_scale=float(pos_enc.get("per_level_scale", 1.447269237440378)),
+        layout=str(pos_enc.get("layout", "corner")))
+    return ImplicitVolumeConfig(
+        radius=float(geo.get("radius", 2.0)),
+        density_bias=geo.get("density_bias", "blob_magic3d"),
+        density_activation=str(geo.get("density_activation", "softplus")),
+        density_blob_scale=float(geo.get("density_blob_scale", 10.0)),
+        density_blob_std=float(geo.get("density_blob_std", 0.5)),
+        normal_type=str(geo.get("normal_type", "analytic")),
+        hashgrid=hg, **extra)
+
+
+def adam_args(system: dict) -> dict:
+    """Adam's ``lr`` / ``betas`` / ``eps`` from ``system.optimizer.args``."""
+    args = dict(system.get("optimizer", {}).get("args", {}))
+    betas = args.get("betas", [0.9, 0.99])
+    return dict(lr=float(args.get("lr", 0.01)), betas=(float(betas[0]), float(betas[1])),
+                eps=float(args.get("eps", 1e-8)))
+
+
+class NeRFSceneExperiment:
+    """What the implicit-volume experiments share: the ``model.obj`` export
+    and the checkpoint of (``geo_params``, Adam's moments, step).  Needs
+    ``cfg``, ``device``, ``geo_cfg``, ``adam``, ``saver`` and ``state``."""
+
+    def export(self) -> None:
+        """``save/model.obj`` with vertex colours: the density grid at
+        ``system.exporter.isosurface_resolution`` (128; the only resolution
+        key read, as in the JAX package) over the geometry's box, marching
+        tetrahedra at the auto threshold, small components removed, and
+        sigmoid of the field's first three features at every vertex."""
+        res = int(self.cfg.system.get("exporter", {}).get("isosurface_resolution", 128))
+        params = self.state.geo_params
+        grid = export_density_grid(params, self.geo_cfg, res)
+        r = self.geo_cfg.radius
+        mesh = extract_isosurface(grid, None, (-r,) * 3, (r,) * 3)
+        if mesh.n_verts:
+            with torch.no_grad():
+                _, feats = forward_field(params, self.geo_cfg,
+                                         torch.as_tensor(mesh.v_pos, device=self.device))
+                mesh.v_rgb = torch.sigmoid(feats[:, :3]).cpu().numpy()
+        save_obj(self.saver.path("model.obj"), mesh)
+
+    # checkpoint protocol: an occupancy grid is not saved (nor in the JAX package)
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"geo_params": tree_map(lambda x: x.detach(), s.geo_params),
+                "opt_state": _optimizer_state(s.opt_state), "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        self.state = init_nerf_state(saved["geo_params"], **self.adam, step=int(saved["step"]),
+                                     device=self.device)
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
+
+
 @register("zero123-system")
-class Zero123Experiment:
+class Zero123Experiment(NeRFSceneExperiment):
     """Stage 1: the implicit volume fitted to the reference image (and, with
     the guidance, to Zero123's novel views), and its ``mc-cpu`` mesh export
     (stage 2).
@@ -812,23 +885,8 @@ class Zero123Experiment:
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
 
-        geo = dict(system.get("geometry", {}))
-        pos_enc = dict(geo.get("pos_encoding_config", {}))
-        self.hg = HashGridConfig(
-            n_levels=int(pos_enc.get("n_levels", 16)),
-            n_features_per_level=int(pos_enc.get("n_features_per_level", 2)),
-            log2_hashmap_size=int(pos_enc.get("log2_hashmap_size", 19)),
-            base_resolution=int(pos_enc.get("base_resolution", 16)),
-            per_level_scale=float(pos_enc.get("per_level_scale", 1.447269237440378)),
-            layout=str(pos_enc.get("layout", "corner")))
-        self.geo_cfg = ImplicitVolumeConfig(
-            radius=float(geo.get("radius", 2.0)),
-            density_bias=geo.get("density_bias", "blob_magic3d"),
-            density_activation=str(geo.get("density_activation", "softplus")),
-            density_blob_scale=float(geo.get("density_blob_scale", 10.0)),
-            density_blob_std=float(geo.get("density_blob_std", 0.5)),
-            normal_type=str(geo.get("normal_type", "analytic")),
-            hashgrid=self.hg)
+        self.geo_cfg = implicit_volume_config(dict(system.get("geometry", {})))
+        self.hg = self.geo_cfg.hashgrid
         rend = dict(system.get("renderer", {}))
         self.rcfg = NeRFRendererConfig(
             radius=self.geo_cfg.radius,
@@ -841,10 +899,7 @@ class Zero123Experiment:
             occ_thre=float(rend.get("occ_thre", 0.01)),
             grid_update_every=int(rend.get("grid_update_every", 16)))
         self.material = DiffuseWithPointLightMaterial()
-        args = dict(system.get("optimizer", {}).get("args", {}))
-        betas = args.get("betas", [0.9, 0.99])
-        self.adam = dict(lr=float(args.get("lr", 0.01)), betas=(float(betas[0]), float(betas[1])),
-                         eps=float(args.get("eps", 1e-8)))
+        self.adam = adam_args(system)
         self.losses = _loss_config(Zero123Losses, system)
         self.guidance = par.shard_guidance(maybe_build_guidance(system, device=dev))
         self.bank = guidance_fn = None
@@ -923,35 +978,6 @@ class Zero123Experiment:
             frames.append(out["comp_rgb"].cpu().numpy())
         self.saver.save_image_grid(f"it{step}-nerf.png", [{"type": "rgb", "img": f} for f in frames])
 
-    def export(self) -> None:
-        """``save/model.obj`` with vertex colours: the density grid at
-        ``system.exporter.isosurface_resolution`` (128; the only resolution
-        key read, as in the JAX package) over the geometry's box, marching
-        tetrahedra at the auto threshold, small components removed, and
-        sigmoid(features) of the field at every vertex."""
-        res = int(self.cfg.system.get("exporter", {}).get("isosurface_resolution", 128))
-        params = self.state.geo_params
-        grid = export_density_grid(params, self.geo_cfg, res)
-        r = self.geo_cfg.radius
-        mesh = extract_isosurface(grid, None, (-r,) * 3, (r,) * 3)
-        if mesh.n_verts:
-            with torch.no_grad():
-                _, feats = forward_field(params, self.geo_cfg,
-                                         torch.as_tensor(mesh.v_pos, device=self.device))
-                mesh.v_rgb = torch.sigmoid(feats).cpu().numpy()
-        save_obj(self.saver.path("model.obj"), mesh)
-
-    # checkpoint protocol: the occupancy grid is not saved (nor in the JAX package)
-    def state_for_checkpoint(self) -> dict:
-        s = self.state
-        return {"geo_params": tree_map(lambda x: x.detach(), s.geo_params),
-                "opt_state": _optimizer_state(s.opt_state), "step": s.step}
-
-    def load_state(self, saved: dict) -> None:
-        self.state = init_nerf_state(saved["geo_params"], **self.adam, step=int(saved["step"]),
-                                     device=self.device)
-        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
-
 
 EXPERIMENTS = {"sugar-static-system": SugarStaticExperiment,
                "sugar-4dgen-system": Sugar4DGenExperiment,
@@ -961,7 +987,10 @@ EXPERIMENTS = {"sugar-static-system": SugarStaticExperiment,
 def build_experiment(cfg, device="cuda"):
     """The experiment of ``cfg.system_type`` on ``device``; sugar-static-system
     dispatches on ``system.stage``: ``gaussian`` runs :class:`GaussianStageExperiment`,
-    ``sugar`` (the default) the bound refine."""
+    ``sugar`` (the default) the bound refine.  The zoo's systems come from
+    ``assembly_zoo``."""
+    from . import assembly_zoo  # noqa: F401  (adds the zoo's systems to EXPERIMENTS)
+
     if cfg.system_type not in EXPERIMENTS:
         raise KeyError(f"Unknown system_type {cfg.system_type!r}; known: {sorted(EXPERIMENTS)}")
     cls = EXPERIMENTS[cfg.system_type]

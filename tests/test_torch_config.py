@@ -14,9 +14,13 @@ JAX package's loader (CPU).
 - ``load_config`` of the port equals ``config_to_primitive`` of the JAX
   ``load_config`` on the three shipped YAMLs with the dotlists of
   ``run_recovery`` (``tests/test_recovery_benchmark.py``) and
-  ``tests/test_launch_dynamic.py``, ``use_timestamp=false``; the
-  ``parsed.yaml`` that ``dump_config`` writes loads back to the same config.
-- The registry resolves the four names the two stages use.
+  ``tests/test_launch_dynamic.py``, ``use_timestamp=false``, and on the six
+  zoo YAMLs the port runs (prompts and an image path with spaces through
+  the ``rmspace`` / ``basename`` tags, imagecondition's ``???`` prompt
+  left in place); the ``parsed.yaml`` that
+  ``dump_config`` writes loads back to the same config.
+- The registry resolves the names the stages use; a name not ported yet
+  raises ``KeyError``.
 """
 
 import dataclasses
@@ -155,11 +159,26 @@ def _dotlists(tmp):
             "system.renderer.tile_capacity=128", "trainer.max_steps=3",
             "trainer.val_check_interval=100", "system.weights=/o/ckpts/step_00001000", out,
             "use_timestamp=false", "tag=dyn"],
+        # the zoo: prompts with spaces, an image path with a space, imagecondition's ??? prompt kept
+        "zoo/zero123.yaml": ["data.image_path=/x/my ball_rgba.png", "system.guidance.pretrained_model_name_or_path=random:0",
+                             out, "use_timestamp=false"],
+        "zoo/dreamfusion-sd.yaml": ["system.prompt_processor.prompt=a DSLR photo of a corgi", out,
+                                    "use_timestamp=false"],
+        "zoo/magic3d-coarse-sd.yaml": ["system.prompt_processor.prompt=a hamburger", "trainer.max_steps=5",
+                                       out, "use_timestamp=false"],
+        "zoo/dreamfusion-sd-eff.yaml": ["system.prompt_processor.prompt=a  test object ",
+                                        "system.loss.lambda_z_variance=0.1", out, "use_timestamp=false"],
+        "zoo/magic123-coarse-sd.yaml": ["data.image_path=/x/cake_rgba.png", "system.prompt_processor.prompt=a cake",
+                                        "system.guidance_3d.pretrained_model_name_or_path=random:0", out,
+                                        "use_timestamp=false"],
+        "zoo/imagecondition.yaml": ["data.image_path=/x/cake_rgba.png", out, "use_timestamp=false"],
     }
 
 
 @pytest.mark.parametrize("name", ["stable-zero123.yaml", "sugar_static_refine.yaml",
-                                  "sugar_dynamic_dg.yaml"])
+                                  "sugar_dynamic_dg.yaml", "zoo/zero123.yaml", "zoo/dreamfusion-sd.yaml",
+                                  "zoo/magic3d-coarse-sd.yaml", "zoo/dreamfusion-sd-eff.yaml",
+                                  "zoo/magic123-coarse-sd.yaml", "zoo/imagecondition.yaml"])
 def test_load_config_matches_jax(name, tmp_path):
     path = os.path.join(REPO, "configs", name)
     extras = _dotlists(tmp_path)[name]
@@ -201,7 +220,7 @@ def test_registry_resolves_the_stages_names():
     assert issubclass(mixed, SugarStaticExperiment) and issubclass(mixed, SingleImageDataModule)
     assert registry.find("zero123-system") is Zero123Experiment
     with pytest.raises(KeyError):
-        registry.find("dreamfusion-system")  # the zoo (ROADMAP A8)
+        registry.find("prolificdreamer-system")  # not ported yet (ROADMAP A8)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

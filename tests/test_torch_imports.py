@@ -51,7 +51,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "models.guidance.zero123.guidance", "models.guidance.zero123.checkpoint",
                "ops.knn", "models.geometry.gaussian", "ops.sugar_reg", "systems.gaussian_stage",
                "parallel", "parallel.mesh", "parallel.context", "parallel.sharding_rules", "dryrun",
-               "scripts.render_4d")
+               "scripts.render_4d", "models.guidance.stable_diffusion", "models.prompt_processors",
+               "systems.threestudio_zoo", "systems.assembly_zoo")
 
 
 def test_port_imports_no_jax():
@@ -248,3 +249,42 @@ def test_port_sources_name_no_path_under_the_repos_native():
             text = f.read()
         for pattern in ("native/mc", "native/build", '"native", "mc"', "'native', 'mc'"):
             assert pattern not in text, (path, pattern)
+
+
+def test_zoo_entry_points_default_to_cuda(tmp_path):
+    from dreammesh4d_tpu_torch.config import load_config
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import ImplicitVolumeConfig
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import (StableDiffusionGuidance,
+                                                                       StableDiffusionPromptProcessor)
+    from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import NeRFRendererConfig
+    from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+    from dreammesh4d_tpu_torch.systems import threestudio_zoo as zoo
+    from dreammesh4d_tpu_torch.systems.assembly_zoo import ZooTextExperiment
+
+    tiny = dict(model_channels=8, channel_mult=[1], num_res_blocks=1, num_heads=1, context_dim=8, vae_ch=8,
+                vae_ch_mult=[1], latent_size=4, image_size=4)
+    geo = ImplicitVolumeConfig(hashgrid=HashGridConfig(n_levels=2, log2_hashmap_size=6), n_neurons=4)
+    rcfg = NeRFRendererConfig()
+    cfg = load_config(os.path.join(REPO, "configs", "zoo", "dreamfusion-sd.yaml"), makedirs=False,
+                      cli_args=[f"exp_root_dir={tmp_path}", "system.prompt_processor.prompt=x",
+                                "system.guidance.pretrained_model_name_or_path=none",
+                                "system.geometry.pos_encoding_config.n_levels=2",
+                                "system.geometry.pos_encoding_config.log2_hashmap_size=6"])
+    makers = (lambda **kw: StableDiffusionGuidance(tiny, **kw).modules.device,
+              lambda **kw: StableDiffusionPromptProcessor({"context_dim": 8, "seq_len": 2}, **kw)().cond.device,
+              lambda **kw: zoo.init_scene_state({"w": torch.zeros(2)}, **kw).geo_params["w"].device,
+              lambda **kw: ZooTextExperiment(cfg, **kw).state.geo_params["encoding"]["tables"].device)
+    for build in makers:
+        if torch.cuda.is_available():
+            assert build().type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+        assert build(device="cpu").type == "cpu"
+    if not torch.cuda.is_available():
+        for build in (lambda: zoo.make_dreamfusion_train_step(geo, rcfg, zoo.DreamFusionLosses(), None),
+                      lambda: zoo.make_magic123_train_step(geo, rcfg, zoo.Magic123Losses())):
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+    assert callable(zoo.make_eff_dreamfusion_train_step(geo, rcfg, zoo.DreamFusionLosses(), None, 8,
+                                                        device="cpu"))
