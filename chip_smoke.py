@@ -217,9 +217,30 @@ Phases, each of which fails the run on a failed check:
     ``--export`` (``model.obj``) of two trials; prints ms/step, the
     guidance's and the corner grid's shares (each timed alone at the step's
     shapes), peak memory, and the profile of one dreamfusion step;
+18. the zoo's last four YAMLs (``drive_zoo_latent``, run after 17, before
+    the lines of 15): (a) VSD (``models/guidance/vsd.py``) in float32, one
+    ``vsd_loss`` on the card against the CPU with the same weights (every
+    layer drawn), LoRA (B drawn non-zero) and draws, at SD 1.5's layout
+    with the UNet and VAE narrowed to VSD_CHECK's widths, within
+    VSD_CPU_TOL / VSD_CPU_GRAD_TOL, and the ms of one full-width VSD forward
+    + backward; (b) ``configs/zoo/{latentnerf, sketchshape, sjc,
+    prolificdreamer}.yaml`` through the launcher at their full widths with
+    the guidance at ``random:0`` (prolificdreamer's with
+    ``system.guidance.zero_init=false``, every layer drawn: with the LDM's
+    zero-initialised output convolution the UNet returns zeros, and VSD and
+    the LoRA's gradient with it), LATENT_STEPS steps
+    each, sketchshape guided by phase 12's stage-1 ``model.obj``.  Checks
+    the SDS / VSD terms in every step, finite losses, parameters that
+    moved, latentnerf's Adam lr at 0.01 · factor(k) in step k (the warm-up
+    rising), the shape term, the LoRA moved, prolificdreamer resumed from
+    LAST at step LATENT_STEPS with both Adams' counts restored,
+    ``--validate`` / ``--export`` of latentnerf, no hand-written kernel
+    launched; prints ms/step, peak memory, the guide's bake and its faces,
+    and the guidance's share (timed alone at the step's shapes);
 15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
-    ``launches_multidevice`` and ``launches_zoo`` too), the card's name and
-    power limit, and as the last line ``{"ok": true, "device": {...}}``.
+    ``launches_multidevice``, ``launches_zoo`` and ``launches_zoo_latent``
+    too), the card's name and power limit, and as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -2314,7 +2335,7 @@ def drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, device, tmp):
     err, limit = check_density_grid(torch, np, exp2.geo_cfg, exp2.state.geo_params, grid, "stage 2")
     mesh = load_obj(model_obj)
     n_open, n_open_inside = open_edges(np, mesh, exp2.geo_cfg.radius)
-    res["mesh"] = (mesh.n_verts, mesh.n_faces)
+    res["mesh"], res["model_obj"] = (mesh.n_verts, mesh.n_faces), model_obj
     print(f"recipe stage 2: grid {grid.shape} vs the plain version at 4096 cells max|d| {err:.3g} (limit "
           f"{limit:.3g}); model.obj {mesh.n_verts} V / {mesh.n_faces} F, {n_open} open edges, {n_open_inside} "
           f"of them off the box; v_rgb in [{mesh.v_rgb.min():.4f}, {mesh.v_rgb.max():.4f}]")
@@ -3507,6 +3528,299 @@ def drive_zoo(torch, np, rb, tb, hc, card, launcher, device, tmp):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 18. the zoo's last four YAMLs: latentnerf, sketchshape, sjc, prolificdreamer
+# ---------------------------------------------------------------------------
+
+LATENT_STEPS = 3  # trainer.max_steps of each run
+# name: the metrics that must be positive in every step
+LATENT_YAMLS = {"latentnerf": ("loss_sds",), "sketchshape": ("loss_sds", "loss_shape"),
+                "sjc": ("loss_sds", "loss_emptiness"), "prolificdreamer": ("loss_vsd", "loss_lora")}
+VSD_CPU_TOL = 1e-4  # float32 card vs CPU: loss_vsd, loss_lora and grad_norm, relative
+VSD_CPU_GRAD_TOL = 1e-3  # d loss_vsd / d rgb and each LoRA leaf's d loss_lora, of its max |value|
+# the card-vs-CPU VSD check: SD 1.5's layout (UNet [1,2,4,4] x 2 res blocks, 8 heads,
+# context 768, VAE [1,2,4,4] at 512^2, latents 64^2) with the UNet and VAE narrowed, to
+# keep the CPU's side short; the full width is timed on the card
+VSD_CHECK = {"model_channels": 64, "vae_ch": 32}
+
+
+def drawn_vsd(torch, cfg, device):
+    """A float32 VSDGuidance on ``device`` with every layer drawn and a LoRA
+    whose B is drawn non-zero (at its init B = 0 phi is the pretrained UNet)."""
+    from dreammesh4d_tpu_torch.models.guidance.vsd import VSDGuidance
+
+    guidance = VSDGuidance(cfg, device=device)
+    guidance.modules.init_params(torch.Generator(device=device).manual_seed(0), zero_init=False)
+    lora = guidance.init_lora_params(torch.Generator(device=device).manual_seed(1))
+    gen = torch.Generator(device=device).manual_seed(2)
+    with torch.no_grad():
+        for leaves in lora.values():
+            if "B" in leaves:
+                leaves["B"].copy_(0.3 * torch.randn(leaves["B"].shape, generator=gen, device=device))
+    return guidance, lora
+
+
+def zoo_vsd_card_vs_cpu(torch, card, device):
+    """One float32 ``vsd_loss`` (B = 2: one view's LoRA condition dropped,
+    one kept) on the card and on the CPU at VSD_CHECK's widths, the same
+    weights, LoRA, prompt embeddings and draws; then one full-width VSD
+    forward + backward (B = 1, a 64^2 render) timed on the card.  Returns
+    the errors and the ms."""
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import StableDiffusionPromptProcessor
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    on_card, lora = drawn_vsd(torch, dict(VSD_CHECK), device)
+    on_cpu = type(on_card)(dict(VSD_CHECK), device="cpu")
+    on_cpu.modules.load_state_dict({k: v.cpu() for k, v in on_card.modules.state_dict().items()})
+    gen = torch.Generator().manual_seed(11)
+    L = on_card.cfg.latent_size
+    draws = {"u": torch.tensor([0.37, 0.81]), "noise": torch.randn((2, 4, L, L), generator=gen),
+             "u2": torch.tensor([0.52, 0.13]), "noise2": torch.randn((2, 4, L, L), generator=gen),
+             "drop": torch.tensor([True, False])}
+    rgb0 = smooth_images(torch, 2, 64, 12)
+    view = [torch.tensor(v) for v in ([20.0, 10.0], [30.0, 150.0])]  # elevation, azimuth
+    cam = torch.randn((2, 16), generator=gen)
+    outs = {}
+    for label, g, dev in (("card", on_card, device), ("cpu", on_cpu, "cpu")):
+        prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=dev)()
+        rgb = rgb0.to(dev).requires_grad_(True)
+        lo = {k: {n: v.detach().to(dev).requires_grad_(True) for n, v in leaves.items()}
+              for k, leaves in lora.items()}
+        out = g.vsd_loss(lo, prompts, rgb, *(v.to(dev) for v in view), cam.to(dev), 0, **draws)
+        (out["loss_vsd"] + out["loss_lora"]).backward()
+        outs[label] = ({k: float(out[k].detach()) for k in ("loss_vsd", "loss_lora", "grad_norm")}, rgb.grad.cpu(),
+                       [v.grad.cpu() for v in tree_leaves(lo)])
+    (got, gc, lc), (p, gp, lp) = outs["card"], outs["cpu"]
+    errs = {k: abs(got[k] - p[k]) / abs(p[k]) for k in got}
+    grad_err = rel_err(gc, gp)
+    lora_err = max(rel_err(a, b) for a, b in zip(lc, lp))
+    c = on_card.cfg
+    print(f"[{card}] VSD vsd_loss (UNet {c.model_channels} x {list(c.channel_mult)}, VAE {c.vae_ch} at "
+          f"{c.image_size}^2, latents {c.latent_size}^2, LoRA rank {c.lora_rank} on {len(lora) - 1} projections), "
+          f"float32, card vs CPU: loss_vsd {got['loss_vsd']:.8g} vs {p['loss_vsd']:.8g}, loss_lora "
+          f"{got['loss_lora']:.8g} vs {p['loss_lora']:.8g}; relative " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()) + f" (limit {VSD_CPU_TOL}); d loss_vsd/d rgb max |d| / "
+          f"max {grad_err:.3g}, d loss_lora/d LoRA worst leaf {lora_err:.3g} (limit {VSD_CPU_GRAD_TOL})")
+    check(all(e <= VSD_CPU_TOL for e in errs.values()) and grad_err <= VSD_CPU_GRAD_TOL
+          and lora_err <= VSD_CPU_GRAD_TOL and min(p.values()) > 0, "VSD vsd_loss: card and CPU differ")
+    del on_card, on_cpu, lora
+    torch.cuda.empty_cache()
+
+    full, lora = drawn_vsd(torch, dict(ZOO_SD), device)
+    prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=device)()
+    rgb1 = rgb0[:1].to(device)
+    args = (view[0][:1].to(device), view[1][:1].to(device), cam[:1].to(device), 0)
+    gen_card = torch.Generator(device=device).manual_seed(3)
+
+    def vsd_step():
+        rgb = rgb1.clone().requires_grad_(True)
+        out = full.vsd_loss(lora, prompts, rgb, *args, gen_card)
+        (out["loss_vsd"] + out["loss_lora"]).backward()
+        for v in tree_leaves(lora):
+            v.grad = None
+
+    ms = time_ms(torch, vsd_step, n=5, warmup=1)
+    print(f"[{card}] one full-width VSD forward + backward (UNet {full.cfg.model_channels} x "
+          f"{list(full.cfg.channel_mult)}, a 64^2 render, B = 1, float32; the pretrained UNet at B = 2, phi "
+          f"at B = 1 twice, the VAE encode): {ms:.2f} ms")
+    del full, lora
+    torch.cuda.empty_cache()
+    return {"vsd_ms": ms, "vsd_err": max(errs.values()), "vsd_grad_err": grad_err, "vsd_lora_err": lora_err}
+
+
+def latent_guidance_ms(torch, exp, device):
+    """The guidance term of one step of a phase-18 run, timed alone (CUDA
+    events) at the step's shapes: SDS of a 4-channel latent render
+    (latentnerf) or a 3-channel one (sjc), or VSD with the LoRA's backward
+    (prolificdreamer)."""
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    batch = exp.train_batch(0)
+    B, H, W = batch["rays_o"].shape[:3]
+    el, az, dist = (batch[k] for k in ("elevation", "azimuth", "camera_distances"))
+    guidance, prompts = exp.pack
+    gen = torch.Generator(device=device).manual_seed(5)
+    latent = exp.cfg.system_type == "latentnerf-system" and exp.geo_cfg.n_feature_dims == 4
+    rgb0 = torch.rand((B, H, W, 4 if latent else 3), generator=gen, device=device)
+    if hasattr(exp.state, "lora_params"):
+        lora, cam = exp.state.lora_params, batch["c2w"].reshape(B, -1)
+
+        def run():
+            out = guidance.vsd_loss(lora, prompts, rgb0.clone().requires_grad_(True), el, az, cam, 0, gen)
+            (out["loss_vsd"] + out["loss_lora"]).backward()
+            for v in tree_leaves(lora):
+                v.grad = None
+    else:
+        def run():
+            guidance.sds_loss(prompts, rgb0.clone().requires_grad_(True), el, az, dist, 0, gen,
+                              rgb_as_latents=latent)["loss_sds"].backward()
+
+    return time_ms(torch, run, n=3, warmup=1), tuple(rgb0.shape)
+
+
+def drive_zoo_latent(torch, np, rb, tb, hc, card, guide_obj, device, tmp):
+    """Phase 18, the zoo's last four YAMLs: (a) VSD card vs CPU and the
+    full-width VSD time (``zoo_vsd_card_vs_cpu``); (b) LATENT_YAMLS through
+    ``launch.main`` at their full widths (hash grid 16 x 2 x 2^19 corner
+    rows, 64 + 64 samples a ray, SD 1.5's widths in float32) with the
+    guidance at ``random:0`` (prolificdreamer's with every layer drawn,
+    ``system.guidance.zero_init=false``), LATENT_STEPS steps each, sketchshape guided by
+    ``guide_obj``.  Checks, per run, the steps, finite metrics, the
+    LATENT_YAMLS terms in every step, parameters that moved; latentnerf's
+    Adam lr = 0.01 · factor(k) in step k with the warm-up rising and its
+    ``--validate`` / ``--export``; sketchshape's ShapeLoss built once;
+    prolificdreamer's LoRA moved and a ``resume=LAST`` to LATENT_STEPS + 1
+    that starts at step LATENT_STEPS with both Adams' counts at
+    LATENT_STEPS; no hand-written kernel launched.  Prints ms/step (median
+    after the first), peak memory above what earlier phases hold, the
+    guide's bake (seconds, faces) and the guidance's share of a step.
+    Returns the phase's numbers."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.export.mesh_io import load_obj
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import init_implicit_volume
+    from dreammesh4d_tpu_torch.systems import assembly_zoo
+    from dreammesh4d_tpu_torch.systems.optim import scheduler_factor_fn
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    res = zoo_vsd_card_vs_cpu(torch, card, device)
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+
+    def adam_counts(opt):
+        return sorted({int(s["step"]) for s in opt.state.values()})
+
+    entries = []  # per step: system, step, state.step and Adam counts at entry, the scene's lr after
+
+    def record(fn):
+        def recorded(exp, step):
+            e = {"system": exp.cfg.system_type, "step": step, "state_step": exp.state.step,
+                 "adam": adam_counts(exp.state.opt_state)}
+            if hasattr(exp.state, "lora_opt_state"):
+                e["lora_adam"] = adam_counts(exp.state.lora_opt_state)
+            metrics = fn(exp, step)
+            e["lr"] = exp.state.opt_state.param_groups[0]["lr"]
+            entries.append(e)
+            return metrics
+        return recorded
+
+    out = os.path.join(tmp, "zoo_latent")
+    spans = Spans(torch, counts)
+    spans.time(launch, "build_experiment", "setup", keep=True)
+    spans.time(assembly_zoo, "ShapeLoss", "shape bake", keep=True)
+    for cls in (assembly_zoo.ZooTextExperiment, assembly_zoo.ZooVSDExperiment):
+        spans._patch(cls, "train_step", record)
+        spans.train_steps(cls, "zoo_latent")
+    rb.reset_launch_counts()
+    tb.reset_launch_counts()
+    hc.reset_launch_counts()
+    res.update(ms={}, peak={}, guidance_ms={})
+    try:
+        for name, keys in LATENT_YAMLS.items():
+            yaml = os.path.join(REPO, "configs", "zoo", f"{name}.yaml")
+            dotlist = [f"system.prompt_processor.prompt={ZOO_PROMPT}", "trainer.val_check_interval=0",
+                       "trainer.log_every_n_steps=1", f"exp_root_dir={out}", "use_timestamp=false", "tag=latent",
+                       "system.guidance.pretrained_model_name_or_path=random:0"]
+            if name == "sketchshape":
+                dotlist.append(f"system.guide_shape={guide_obj}")
+            if name == "prolificdreamer":
+                dotlist.append("system.guidance.zero_init=false")
+            first, first_entry = len(spans.steps), len(entries)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30
+            t0 = time.perf_counter()
+            launch.main(launch.make_args(yaml, "train"), dotlist + [f"trainer.max_steps={LATENT_STEPS}"])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+            exp = spans.results["setup"].pop()
+            rows, seen = spans.steps[first:], entries[first_entry:]
+            check([r[1] for r in rows] == list(range(LATENT_STEPS)), f"zoo {name}: steps taken")
+            for _, step, _, _, _, metrics in rows:
+                check(all(math.isfinite(v) for v in metrics.values()), f"zoo {name} step {step}: non-finite metric")
+                for k in keys:
+                    check(metrics.get(k, 0.0) > 0, f"zoo {name} step {step}: {k} not positive")
+            fresh = init_implicit_volume(exp.geo_cfg, torch.Generator(device=device).manual_seed(
+                int(exp.cfg.seed)), device=device)
+            moved = max(float((a.detach() - b).abs().max()) for a, b in
+                        zip(tree_leaves(exp.state.geo_params), tree_leaves(fresh)))
+            check(moved > 0, f"zoo {name}: the parameters did not move")
+            del fresh
+            extra = ""
+            if name == "latentnerf":
+                factor = scheduler_factor_fn(exp.cfg.system.scheduler)
+                lrs = [e["lr"] for e in seen]
+                check(lrs == [0.01 * factor(k) for k in range(LATENT_STEPS)] and lrs == sorted(set(lrs)),
+                      f"zoo latentnerf: Adam lr {lrs} is not 0.01 x the scheduler's warm-up")
+                extra = f"; Adam lr {', '.join(f'{x:.6g}' for x in lrs)} = 0.01 x factor(k)"
+            if name == "sketchshape":
+                bake_s, (shape,) = spans.seconds["shape bake"], spans.results["shape bake"]
+                check(len(bake_s) == 1 and shape is exp.shape_loss, "zoo sketchshape: the guide was not baked once")
+                res["bake_s"], res["guide_faces"] = bake_s[0], shape.n_faces
+                res["guide_inside"] = float(shape.occ_grid.mean())
+                extra = (f"; guide {os.path.basename(guide_obj)} {shape.n_faces} faces baked at "
+                         f"{shape.grid_res}^3 in {bake_s[0]:.2f} s, occupancy {res['guide_inside']:.4f}")
+            if name == "prolificdreamer":
+                fresh_lora = exp.pack[0].init_lora_params(torch.Generator(device=device).manual_seed(1))
+                lora_moved = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+                                 zip(tree_leaves(exp.state.lora_params), tree_leaves(fresh_lora)))
+                check(lora_moved > 0, "zoo prolificdreamer: the LoRA did not move")
+                res["lora_moved"] = lora_moved
+                extra = f"; LoRA moved {lora_moved:.3g}"
+                del fresh_lora
+            res["ms"][name] = statistics.median([r[3] for r in rows[1:]])
+            res["peak"][name] = peak
+            totals = ", ".join(f"{r[5]['loss_total']:.5g}" for r in rows)
+            print(f"[{card}] zoo {name}: {', '.join(f'{r[3]:.1f}' for r in rows)} ms/step; "
+                  + "; ".join(f"{k} {', '.join(f'{r[5][k]:.5g}' for r in rows)}" for k in keys)
+                  + f"; loss_total {totals}; parameters moved {moved:.3g}{extra}; {wall:.1f} s through the launcher; peak memory "
+                  f"{peak:.2f} GiB above the {resident:.2f} GiB resident before it")
+            res["guidance_ms"][name], shape_g = latent_guidance_ms(torch, exp, device)
+            print(f"[{card}] zoo {name}: alone, the guidance term at renders {shape_g} "
+                  f"{res['guidance_ms'][name]:.2f} ms")
+            del exp
+            torch.cuda.empty_cache()
+            if name == "prolificdreamer":  # resumed from LAST: step 3 with both Adams' counts restored
+                first_entry = len(entries)
+                launch.main(launch.make_args(yaml, "train"),
+                            dotlist + [f"trainer.max_steps={LATENT_STEPS + 1}", "resume=LAST"])
+                spans.results["setup"].clear()
+                (e,) = entries[first_entry:]
+                print(f"[{card}] zoo prolificdreamer resume=LAST: step {e['step']}, state.step {e['state_step']}, "
+                      f"Adam counts scene {e['adam']} LoRA {e['lora_adam']} at entry")
+                check(e["step"] == e["state_step"] == LATENT_STEPS and e["adam"] == e["lora_adam"] == [LATENT_STEPS],
+                      "zoo prolificdreamer: resume=LAST did not restore the step and both Adams")
+        # --validate and --export of latentnerf from its last checkpoint
+        yaml = os.path.join(REPO, "configs", "zoo", "latentnerf.yaml")
+        dotlist = [f"system.prompt_processor.prompt={ZOO_PROMPT}", f"exp_root_dir={out}", "use_timestamp=false",
+                   "tag=latent", "system.guidance.pretrained_model_name_or_path=random:0",
+                   f"trainer.max_steps={LATENT_STEPS}", "resume=LAST"]
+        t0 = time.perf_counter()
+        launch.main(launch.make_args(yaml, "validate"), dotlist)
+        launch.main(launch.make_args(yaml, "export"), dotlist)
+        trial = spans.results["setup"][-1].cfg.trial_dir
+        spans.results["setup"].clear()
+        mesh = load_obj(os.path.join(trial, "save", "model.obj"))
+        saved = sorted(os.listdir(os.path.join(trial, "save")))
+        print(f"[{card}] zoo latentnerf --validate and --export resume=LAST: {time.perf_counter() - t0:.1f} s, "
+              f"save/ {saved}; model.obj {mesh.v_pos.shape[0]} vertices, {mesh.t_pos_idx.shape[0]} faces")
+        check(f"it{LATENT_STEPS}-val.png" in saved and mesh.v_pos.shape[0] > 0 and np.isfinite(mesh.v_pos).all(),
+              "zoo latentnerf: --validate / --export wrote no image or mesh")
+    finally:
+        spans.close()
+    launched = counts()
+    res["launches"] = launched
+    check(all(v == 0 for v in launched.values()), f"phase 18 launched hand-written kernels {launched}: its "
+          "corner grid, shape loss and VSD are plain PyTorch")
+    print(f"[{card}] zoo (phase 18) ms/step (median of steps 1..{LATENT_STEPS - 1}; guidance random:0, float32), "
+          "the guidance's share (timed alone at the step's shapes, over ms/step), peak memory: " + "; ".join(
+              f"{n} {res['ms'][n]:.1f} ms (guidance {res['guidance_ms'][n]:.1f} ms = "
+              f"{res['guidance_ms'][n] / res['ms'][n]:.3f}, {res['peak'][n]:.2f} GiB)" for n in LATENT_YAMLS)
+          + f"; the guide's bake {res['bake_s']:.2f} s ({res['guide_faces']} faces); one full-width VSD forward + "
+          f"backward {res['vsd_ms']:.2f} ms")
+    return res
+
+
 def main():
     import argparse
 
@@ -3871,25 +4185,31 @@ def main():
     # 17. the zoo's six NeRF YAMLs through the launcher, SD on the card against the CPU
     torch.cuda.empty_cache()
     zoo = drive_zoo(torch, np, rb, tb, hc, card, launcher, dev, launch_tmp.name)
+
+    # 18. the zoo's last four YAMLs through the launcher, VSD on the card against the CPU
+    torch.cuda.empty_cache()
+    zoo_latent = drive_zoo_latent(torch, np, rb, tb, hc, card, recipe["model_obj"], dev, launch_tmp.name)
     launch_tmp.cleanup()
 
     # 15. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         # every path's launches: the recipe's (phase 12), the guided launcher's
         # (phase 13), the Gaussian stage's (phase 14), the two ranks' and
-        # render_4d's (phase 16) and the zoo's (phase 17, none: its corner
-        # grid is plain PyTorch) included
+        # render_4d's (phase 16) and the zoo's (phases 17 and 18, none: their
+        # corner grid, shape loss and VSD are plain PyTorch) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
         n_multi = multi["launches"].get(name, 0)
         n_zoo = zoo["launches"].get(name, 0)
+        n_latent = zoo_latent["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu": tpu, "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo,
+                "tpu": tpu,
+                "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
                 "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
-                **extra}
+                "launches_zoo_latent": n_latent, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

@@ -43,6 +43,11 @@ are read back as Python values.  This module imports no jax.
 - the Stable Diffusion guidance: :func:`sd_guidance_params` — the JAX SD
   param tree (UNet and VAE) as the port's ``StableDiffusionModules`` state
   dict;
+- VSD: :func:`vsd_lora_params` — the JAX LoRA tree (keys the flax paths
+  ``…/attn1/to_q``) as the port's (keys the UNet's module names
+  ``….attn1.to_q``, ``….to_out.0``; the same (in, r) / (r, out) layout);
+  :func:`vsd_checkpoint` — a JAX ``ZooVSDExperiment``'s state (scene, LoRA,
+  both Adams' moments) as the port experiment's ``load_state`` dict;
 - evaluation: :func:`perceptual_params` — the LPIPS tree
   ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
@@ -498,3 +503,83 @@ def sd_guidance_params(jax_params, cfg) -> dict:
     _ldm_vae(sd, "first_stage_model.", jax_params["vae"], tuple(cfg.vae_ch_mult),
              int(cfg.vae_num_res_blocks))
     return sd
+
+
+# --- VSD: the LoRA of the phi UNet ------------------------------------------
+
+
+def _ldm_transformer_names(channel_mult, num_res_blocks, attention_resolutions=(4, 2, 1)) -> dict:
+    """The JAX UNet's spatial transformers (``down_{level}_{i}_attn``,
+    ``mid_attn``, ``up_{level}_{i}_attn``) → their LDM module names, in the
+    order of ``_ldm_unet``'s walk (the port's ``named_modules`` order)."""
+    names, idx, ds = {}, 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            if ds in attention_resolutions:
+                names[f"down_{level}_{i}_attn"] = f"input_blocks.{idx}.1"
+            idx += 1
+        if level != len(channel_mult) - 1:
+            idx += 1
+            ds *= 2
+    names["mid_attn"] = "middle_block.1"
+    idx = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            if ds in attention_resolutions:
+                names[f"up_{level}_{i}_attn"] = f"output_blocks.{idx}.1"
+            idx += 1
+        if level != 0:
+            ds //= 2
+    return names
+
+
+def vsd_lora_params(jax_lora, cfg) -> dict:
+    """The JAX VSD LoRA tree (``VSDGuidance.init_lora_params``, as numpy:
+    ``{"<transformer>/block_<j>/<attn>/<proj>": {"A", "B"}, "camera_proj":
+    {"w", "b"}}``) → the port's, keyed by the UNet's module names (``to_out``
+    is ``to_out.0``, as in ``_ldm_spatial_transformer``), in the order of the
+    port's ``VSDGuidance.lora_targets`` with ``camera_proj`` last; float32
+    numpy.  ``cfg``: the port's ``VSDConfig`` (or any object with the UNet's
+    ``channel_mult`` and ``num_res_blocks``).  Also maps trees of the same
+    structure (Adam's ``mu`` / ``nu``)."""
+    ldm = _ldm_transformer_names(tuple(cfg.channel_mult), int(cfg.num_res_blocks))
+    out = {}
+    for jname, prefix in ldm.items():
+        j = 0
+        while f"{jname}/block_{j}/attn1/to_q" in jax_lora:
+            for attn in ("attn1", "attn2"):
+                for proj in ("to_q", "to_k", "to_v", "to_out"):
+                    ab = jax_lora[f"{jname}/block_{j}/{attn}/{proj}"]
+                    name = f"{prefix}.transformer_blocks.{j}.{attn}.{'to_out.0' if proj == 'to_out' else proj}"
+                    out[name] = {"A": _np32(ab["A"]), "B": _np32(ab["B"])}
+            j += 1
+    out["camera_proj"] = {k: _np32(v) for k, v in jax_lora["camera_proj"].items()}
+    if len(out) != len(jax_lora):
+        raise ValueError(f"LoRA entries not mapped: {sorted(set(jax_lora) - {'camera_proj'})[:4]}…")
+    return out
+
+
+def vsd_checkpoint(src, cfg, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8) -> dict:
+    """A JAX ``ZooVSDExperiment``'s state (its ``VSDTrainState`` as numpy,
+    or a dict with ``geo_params``, ``lora_params``, ``step`` and optionally
+    ``opt_state`` / ``lora_opt_state``, optax Adam states) as the dict the
+    port's ``ZooVSDExperiment.load_state`` takes, on the CPU: the scene as
+    :func:`zero123_checkpoint`, the LoRA through :func:`vsd_lora_params`
+    with its Adam's moments and count."""
+    out = zero123_checkpoint({"geo_params": _get(src, "geo_params"), "step": _get(src, "step"),
+                              "opt_state": _opt_state(src)}, lr=lr, betas=betas, eps=eps)
+
+    def torch_tree(tree):
+        return {k: {n: torch.tensor(v) for n, v in leaves.items()}
+                for k, leaves in vsd_lora_params(tree, cfg).items()}
+
+    lora = torch_tree(_get(src, "lora_params"))
+    opt = torch.optim.Adam(tree_leaves(lora), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    lora_opt = src.get("lora_opt_state") if isinstance(src, dict) else getattr(src, "lora_opt_state", None)
+    if lora_opt is not None:
+        adam = lora_opt if isinstance(lora_opt, dict) or hasattr(lora_opt, "mu") else lora_opt[0]
+        mu, nu = tree_leaves(torch_tree(_get(adam, "mu"))), tree_leaves(torch_tree(_get(adam, "nu")))
+        for p, m, v in zip(tree_leaves(lora), mu, nu):
+            _set_adam(opt, p, _get(adam, "count"), m, v)
+    out.update(lora_params=lora, lora_opt_state={"state": opt.state_dict()["state"]})
+    return out

@@ -246,6 +246,9 @@ class StableDiffusionConfig:
     vae_num_res_blocks: int = 2
     use_text_encoder: bool = False  # the CLIP text tower: refused (ROADMAP A8)
     dtype: Any = torch.float32
+    # random[:seed] keeps the LDM's zero-initialised output convolutions (a
+    # port key, as Stable Zero123's: false draws them, so that VSD is not zero)
+    zero_init: bool = True
 
     def __post_init__(self):
         # "float16"/"fp16" run in bfloat16, as in the JAX package
@@ -294,11 +297,12 @@ class StableDiffusionModules(nn.Module):
         return [f"model.diffusion_model.{n}" for n in self.unet.zero_init_names()]
 
     @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> "StableDiffusionModules":
-        """Random weights drawn from ``generator`` (``unet.init_weights``),
-        the LDM's zero-initialised output convolutions kept, as the JAX
-        package's ``init_params`` does (the UNet then returns zeros)."""
-        init_weights(self, generator, set(self.zero_init_names()))
+    def init_params(self, generator: torch.Generator, zero_init: bool = True) -> "StableDiffusionModules":
+        """Random weights drawn from ``generator`` (``unet.init_weights``).
+        ``zero_init`` keeps the LDM's zero-initialised output convolutions,
+        as the JAX package's ``init_params`` does (the UNet then returns
+        zeros); without it they are drawn too."""
+        init_weights(self, generator, set(self.zero_init_names()) if zero_init else set())
         return self
 
     def encode_images(self, rgb: torch.Tensor) -> torch.Tensor:

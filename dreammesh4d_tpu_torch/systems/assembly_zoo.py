@@ -1,7 +1,8 @@
 """Launcher assembly of the threestudio zoo's NeRF systems (counterpart of
 ``dreammesh4d_tpu/systems/assembly_zoo.py``): ``dreamfusion-system``,
-``magic3d-system`` and ``efficient-dreamfusion-system``
-(:class:`ZooTextExperiment`), ``magic123-system`` and
+``magic3d-system``, ``efficient-dreamfusion-system``, ``latentnerf-system``
+and ``sjc-system`` (:class:`ZooTextExperiment`), ``prolificdreamer-system``
+(:class:`ZooVSDExperiment`), ``magic123-system`` and
 ``image-condition-dreamfusion-system`` (:class:`ZooImageExperiment`), each
 run from its YAML through the port's launcher:
 
@@ -10,20 +11,35 @@ run from its YAML through the port's launcher:
         system.guidance.pretrained_model_name_or_path=random:0
 
 The geometry is the YAML's implicit volume (a corner-layout hash grid by
-default), the renderer the NeRF renderer with its defaults (64 + 64 samples
-a ray), Adam from ``optimizer.args``.  The text guidance is Stable
-Diffusion (``models/guidance/stable_diffusion.py``) with
+default; 4 feature channels for latentnerf without ``refinement``), the
+renderer the NeRF renderer with its defaults (64 + 64 samples a ray), Adam
+from ``optimizer.args`` under ``system.scheduler`` when the YAML has one
+(``systems/optim.py``; latentnerf's warm-up and decay).  The text guidance
+is Stable Diffusion (``models/guidance/stable_diffusion.py``; VSD for
+prolificdreamer, ``models/guidance/vsd.py``) with
 ``system.guidance.pretrained_model_name_or_path`` at ``""`` / ``none``
 (off: the SDS term is zero), ``random[:seed]`` (random weights at the
 configured widths) or an SD 1.x ``.ckpt``; a missing path raises unless
 ``allow_missing: true``.  Magic123's 3D prior is ``system.guidance_3d``
 through ``assembly.maybe_build_guidance`` (Stable Zero123, its bank from the
-reference image).  Every SDS call gets step 0, as in the JAX package, so a
-scheduled ``min/max_step_percent`` stays at its step-0 value.
+reference image).  Latentnerf's sketch-shape guide is ``system.guide_shape``
+(``ops/shape_loss.py``).  Every SDS and VSD call gets step 0, as in the JAX
+package, so a scheduled ``min/max_step_percent`` stays at its step-0 value
+(prolificdreamer's ``max_step_percent`` among them).  A ``guide_shape``
+that names no file drops the shape term with a warning, as the JAX package
+drops it silently.
 
-The experiments run in one process (the launcher refuses ``trainer.devices
-> 1`` for them), and ``system.scheduler`` is refused: both are not ported
-yet (ROADMAP A8), nor are latentnerf, sjc and prolificdreamer.
+The experiments run in one process: the launcher refuses ``trainer.devices
+> 1`` for them (ROADMAP A8).
+
+| system_type | experiment | train step |
+|---|---|---|
+| dreamfusion-system, magic3d-system | ZooTextExperiment | make_dreamfusion_train_step |
+| efficient-dreamfusion-system | ZooTextExperiment | make_eff_dreamfusion_train_step |
+| latentnerf-system | ZooTextExperiment | make_latentnerf_train_step |
+| sjc-system | ZooTextExperiment | make_sjc_train_step |
+| prolificdreamer-system | ZooVSDExperiment | make_prolificdreamer_train_step |
+| magic123-system, image-condition-dreamfusion-system | ZooImageExperiment | make_magic123_train_step |
 """
 
 from __future__ import annotations
@@ -39,46 +55,48 @@ from ..data.uncond import RandomCameraSampler
 from ..models.geometry.implicit_volume import init_implicit_volume
 from ..models.guidance.stable_diffusion import (PromptProcessorConfig, StableDiffusionConfig,
                                                 StableDiffusionGuidance, StableDiffusionPromptProcessor)
+from ..models.guidance.vsd import VSDConfig, VSDGuidance
 from ..models.guidance.zero123.checkpoint import load_sd_checkpoint
 from ..models.materials import DiffuseWithPointLightMaterial
 from ..models.renderers.nerf_volume_renderer import NeRFRendererConfig, make_image_renderer
 from ..ops.cameras import get_ray_directions, get_rays
+from ..ops.shape_loss import ShapeLoss
 from ..registry import register
 from ..utils.saving import Saver
+from ..utils.tree import tree_leaves, tree_map
 from . import assembly
-from .assembly import (NeRFSceneExperiment, _filtered_dataclass, adam_args, implicit_volume_config,
-                       make_random_camera_config, make_single_image_datamodule, maybe_build_guidance)
+from .assembly import (NeRFSceneExperiment, _filtered_dataclass, _load_optimizer_state, _optimizer_state,
+                       adam_args, implicit_volume_config, make_random_camera_config,
+                       make_single_image_datamodule, maybe_build_guidance)
+from .optim import scheduled_lr
 from .threestudio_zoo import (DreamFusionLosses, ImageConditionDreamFusionSystem, Magic123Losses,
-                              init_scene_state, make_dreamfusion_train_step,
-                              make_eff_dreamfusion_train_step, make_magic123_train_step)
+                              ProlificDreamerLosses, init_scene_state, init_vsd_state,
+                              make_dreamfusion_train_step, make_eff_dreamfusion_train_step,
+                              make_magic123_train_step, make_prolificdreamer_train_step)
+from .threestudio_zoo2 import LatentNeRFLosses, SJCLosses, make_latentnerf_train_step, make_sjc_train_step
 
 log = logging.getLogger(__name__)
 
 A8 = "not ported yet (ROADMAP A8)"
 
 
-def build_implicit_volume(system: dict):
+def build_implicit_volume(system: dict, n_feature_dims: int = 3):
     """The implicit volume's config of ``system.geometry`` (which may set
-    ``n_feature_dims``, unlike stage 1's)."""
+    ``n_feature_dims``, unlike stage 1's; ``n_feature_dims`` is the default)."""
     geo = dict(system.get("geometry", {}))
-    return implicit_volume_config(geo, n_feature_dims=int(geo.get("n_feature_dims", 3)))
+    return implicit_volume_config(geo, n_feature_dims=int(geo.get("n_feature_dims", n_feature_dims)))
 
 
-def build_optimizer(system: dict) -> dict:
-    """Adam's arguments from ``system.optimizer.args``; a
-    ``system.scheduler`` block raises (the LR scheduler is not ported)."""
-    if system.get("scheduler"):
-        raise RuntimeError(f"system.scheduler: the learning-rate scheduler is {A8}")
-    return adam_args(system)
-
-
-def maybe_build_sd_guidance(system: dict, device="cuda"):
+def maybe_build_sd_guidance(system: dict, device="cuda", guidance_cls=StableDiffusionGuidance,
+                            config_cls=StableDiffusionConfig):
     """(guidance, prompt embeddings) of ``system.guidance`` /
     ``system.prompt_processor`` on ``device``, or None when the guidance is
     off (``""`` / ``none``, or a missing path with ``allow_missing: true``).
     ``random[:seed]``: random weights from a ``torch.Generator`` seeded with
-    ``seed``; any other path: an SD 1.x ``.ckpt`` (UNet and VAE by key name;
-    its text tower is reported, not loaded)."""
+    ``seed`` (the output convolutions zero unless ``zero_init: false``); any
+    other path: an SD 1.x ``.ckpt`` (UNet and VAE by key name;
+    its text tower is reported, not loaded).  ``guidance_cls`` /
+    ``config_cls``: the guidance and its config (VSD for prolificdreamer)."""
     gcfg = dict(system.get("guidance", {}))
     path = str(gcfg.get("pretrained_model_name_or_path", "") or "")
     if not path or path.lower() == "none":
@@ -94,10 +112,11 @@ def maybe_build_sd_guidance(system: dict, device="cuda"):
             "system.guidance.pretrained_model_name_or_path to a Stable Diffusion 1.x .ckpt, "
             "'random[:seed]' for an SDS smoke run, or 'none' / "
             "system.guidance.allow_missing=true to train without text SDS.")
-    guidance = StableDiffusionGuidance(_filtered_dataclass(StableDiffusionConfig, gcfg), device=device)
+    guidance = guidance_cls(_filtered_dataclass(config_cls, gcfg), device=device)
     if is_random:
         seed = int(path.partition(":")[2] or 0)
-        guidance.modules.init_params(torch.Generator(device=device).manual_seed(seed))
+        guidance.modules.init_params(torch.Generator(device=device).manual_seed(seed),
+                                     zero_init=guidance.cfg.zero_init)
     else:
         report = load_sd_checkpoint(path, guidance.modules)
         if report["unmapped"]:
@@ -111,17 +130,53 @@ def maybe_build_sd_guidance(system: dict, device="cuda"):
 
 
 def sd_guidance_fn(pack):
-    """The zoo steps' ``guidance_fn(generator, rgb, batch)``: the SD SDS loss
-    at step 0 (as in the JAX package), or zero without guidance."""
+    """The zoo steps' ``guidance_fn(generator, rgb, batch, rgb_as_latents=False)``:
+    the SD SDS loss at step 0 (as in the JAX package), or zero without
+    guidance."""
     if pack is None:
-        return lambda generator, rgb, batch: 0.0 * rgb.mean()
+        return lambda generator, rgb, batch, rgb_as_latents=False: 0.0 * rgb.mean()
     guidance, prompts = pack
 
-    def guidance_fn(generator, rgb, batch):
+    def guidance_fn(generator, rgb, batch, rgb_as_latents=False):
         return guidance.sds_loss(prompts, rgb, batch["elevation"], batch["azimuth"],
-                                 batch["camera_distances"], 0, generator)["loss_sds"]
+                                 batch["camera_distances"], 0, generator,
+                                 rgb_as_latents=rgb_as_latents)["loss_sds"]
 
     return guidance_fn
+
+
+def vsd_guidance_fn(pack):
+    """The prolificdreamer step's ``vsd_fn(lora, generator, rgb, batch)``: VSD
+    at step 0 (as in the JAX package) with the batch's ``c2w`` flattened to
+    (B, 16) as the camera condition, or zeros without guidance (the LoRA's
+    gradient then zero)."""
+    if pack is None:
+        def off(lora, generator, rgb, batch):
+            zero = 0.0 * rgb.mean()
+            return {"loss_vsd": zero, "loss_lora": 0.0 * sum(v.sum() for v in tree_leaves(lora)),
+                    "grad_norm": zero.detach()}
+
+        return off
+    guidance, prompts = pack
+
+    def vsd_fn(lora, generator, rgb, batch):
+        cam = batch["c2w"].reshape(batch["c2w"].shape[0], -1)
+        return guidance.vsd_loss(lora, prompts, rgb, batch["elevation"], batch["azimuth"], cam, 0, generator)
+
+    return vsd_fn
+
+
+def build_shape_loss(system: dict, device):
+    """The sketch-shape loss of ``system.guide_shape``, or None without one;
+    a path that names no file drops the term with a warning (the JAX
+    package drops it silently)."""
+    guide = str(system.get("guide_shape", "") or "")
+    if not guide:
+        return None
+    if not os.path.exists(guide):
+        log.warning("system.guide_shape %r names no file: the sketch-shape term is dropped", guide)
+        return None
+    return ShapeLoss(guide, device=device)
 
 
 class ZooNeRFBase(NeRFSceneExperiment):
@@ -134,12 +189,21 @@ class ZooNeRFBase(NeRFSceneExperiment):
         self.geo_cfg = geo_cfg
         self.rcfg = rcfg
         self.adam = adam
+        self.lr_schedule = scheduled_lr(adam["lr"], cfg.system.get("scheduler"))
         self.saver = Saver(os.path.join(cfg.trial_dir, "save"))
         self._image_renderer = make_image_renderer(geo_cfg, rcfg, material)
         params = init_implicit_volume(geo_cfg, torch.Generator(device=dev).manual_seed(int(cfg.seed)),
                                       device=dev)
-        self.state = init_scene_state(params, **adam, device=dev)
+        self.state = self._new_state(params)
         self.generator = torch.Generator(device=dev).manual_seed(int(cfg.seed) + 1)
+
+    def _new_state(self, geo_params, step: int = 0):
+        return init_scene_state(geo_params, **self.adam, step=step, device=self.device,
+                                schedule=self.lr_schedule)
+
+    def load_state(self, saved: dict) -> None:
+        self.state = self._new_state(saved["geo_params"], int(saved["step"]))
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
 
     def validate(self, step: int, test: bool = False) -> None:
         """4 orbit views at min(eval_height, 128)² under a light at (0, 0, 3),
@@ -164,33 +228,46 @@ class ZooNeRFBase(NeRFSceneExperiment):
 @register("dreamfusion-system")
 @register("magic3d-system")
 @register("efficient-dreamfusion-system")
+@register("latentnerf-system")
+@register("sjc-system")
 class ZooTextExperiment(ZooNeRFBase):
-    """Text-to-3D NeRF systems: dreamfusion, magic3d (coarse) and
-    efficient-dreamfusion.  The random views come from the YAML's ``data``
-    block (``RandomCameraSampler``); efficient-dreamfusion renders a
-    (H/4)² subgrid of each view (at least 8²) and resizes it to
-    ``data.height`` before SDS."""
+    """Text-to-3D NeRF systems: dreamfusion, magic3d (coarse),
+    efficient-dreamfusion, latentnerf and sjc.  The random views come from
+    the YAML's ``data`` block (``RandomCameraSampler``); efficient-dreamfusion
+    renders a (H/4)² subgrid of each view (at least 8²) and resizes it to
+    ``data.height`` before SDS; latentnerf renders 4 latent channels (3
+    with ``refinement``) and may carry a sketch-shape guide."""
 
     def __init__(self, cfg, device="cuda"):
         st = cfg.system_type
-        if st in ("latentnerf-system", "sjc-system"):
-            raise KeyError(f"system_type {st!r} is {A8}")
         self.device = dev = torch.device(device)
         system = cfg.system
-        geo_cfg = build_implicit_volume(system)
+        refinement = bool(system.get("refinement", False))
+        geo_cfg = build_implicit_volume(system, 4 if st == "latentnerf-system" and not refinement else 3)
         rcfg = NeRFRendererConfig(radius=geo_cfg.radius)
-        adam = build_optimizer(system)
+        adam = adam_args(system)
         self.sampler = RandomCameraSampler(make_random_camera_config(dict(cfg.data or {})), seed=cfg.seed,
                                            device=dev)
         self.pack = maybe_build_sd_guidance(system, device=dev)
         guidance_fn = sd_guidance_fn(self.pack)
-        losses = _filtered_dataclass(DreamFusionLosses, dict(system.get("loss", {})))
+        loss_d = dict(system.get("loss", {}))
         self._eff = st == "efficient-dreamfusion-system"
+        self.shape_loss = None
         if self._eff:
+            losses = _filtered_dataclass(DreamFusionLosses, loss_d)
             full_hw = int(dict(cfg.data or {}).get("height", 64))
             self._step = make_eff_dreamfusion_train_step(geo_cfg, rcfg, losses, guidance_fn, full_hw,
                                                          device=dev)
+        elif st == "latentnerf-system":
+            self.shape_loss = build_shape_loss(system, dev)
+            self._step = make_latentnerf_train_step(geo_cfg, rcfg, _filtered_dataclass(LatentNeRFLosses, loss_d),
+                                                    guidance_fn, refinement=refinement,
+                                                    shape_loss=self.shape_loss, device=dev)
+        elif st == "sjc-system":
+            self._step = make_sjc_train_step(geo_cfg, rcfg, _filtered_dataclass(SJCLosses, loss_d), guidance_fn,
+                                             device=dev)
         else:
+            losses = _filtered_dataclass(DreamFusionLosses, loss_d)
             self._step = make_dreamfusion_train_step(geo_cfg, rcfg, losses, guidance_fn, device=dev)
         self._finish_init(cfg, geo_cfg, rcfg, adam)
 
@@ -209,6 +286,60 @@ class ZooTextExperiment(ZooNeRFBase):
         return metrics
 
 
+@register("prolificdreamer-system")
+class ZooVSDExperiment(ZooNeRFBase):
+    """prolificdreamer-system: VSD (``VSDGuidance``) with the scene's and the
+    LoRA's Adam stepped from one backward.  The LoRA starts from a
+    ``torch.Generator`` seeded with 1 (B = 0: phi is the pretrained UNet at
+    step 0); its Adam is optax ``adam(optimizer.args.lr_lora)``'s.  The
+    checkpoint carries the LoRA tree and both Adams' moments."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.device = dev = torch.device(device)
+        system = cfg.system
+        geo_cfg = build_implicit_volume(system)
+        rcfg = NeRFRendererConfig(radius=geo_cfg.radius)
+        adam = adam_args(system)
+        self.lora_lr = float(dict(system.get("optimizer", {}).get("args", {})).get("lr_lora", 1e-3))
+        self.sampler = RandomCameraSampler(make_random_camera_config(dict(cfg.data or {})), seed=cfg.seed,
+                                           device=dev)
+        self.pack = maybe_build_sd_guidance(system, device=dev, guidance_cls=VSDGuidance, config_cls=VSDConfig)
+        if self.pack is not None:
+            self.lora0 = self.pack[0].init_lora_params(torch.Generator(device=dev).manual_seed(1))
+        else:
+            self.lora0 = {"unused": torch.zeros((1,), device=dev)}
+        losses = _filtered_dataclass(ProlificDreamerLosses, dict(system.get("loss", {})))
+        self._step = make_prolificdreamer_train_step(geo_cfg, rcfg, losses, vsd_guidance_fn(self.pack),
+                                                     device=dev)
+        self._finish_init(cfg, geo_cfg, rcfg, adam)
+
+    def _new_state(self, geo_params, step: int = 0, lora_params=None):
+        return init_vsd_state(geo_params, self.lora0 if lora_params is None else lora_params, **self.adam,
+                              lora_lr=self.lora_lr, step=step, device=self.device, schedule=self.lr_schedule)
+
+    def train_batch(self, step: int) -> dict:
+        """The step's random views with their c2w (the LoRA's camera condition)."""
+        batch = self.sampler.sample()
+        return {k: batch[k] for k in ("rays_o", "rays_d", "light_positions", "elevation", "azimuth",
+                                      "camera_distances", "c2w")}
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        self.state, metrics = self._step(self.state, self.train_batch(step), self.generator)
+        return metrics
+
+    def state_for_checkpoint(self) -> dict:
+        s = self.state
+        return {"geo_params": tree_map(lambda x: x.detach(), s.geo_params),
+                "lora_params": tree_map(lambda x: x.detach(), s.lora_params),
+                "opt_state": _optimizer_state(s.opt_state), "lora_opt_state": _optimizer_state(s.lora_opt_state),
+                "step": s.step}
+
+    def load_state(self, saved: dict) -> None:
+        self.state = self._new_state(saved["geo_params"], int(saved["step"]), saved["lora_params"])
+        _load_optimizer_state(self.state.opt_state, saved["opt_state"])
+        _load_optimizer_state(self.state.lora_opt_state, saved["lora_opt_state"])
+
+
 @register("magic123-system")
 @register("image-condition-dreamfusion-system")
 class ZooImageExperiment(ZooNeRFBase):
@@ -222,7 +353,7 @@ class ZooImageExperiment(ZooNeRFBase):
         system = cfg.system
         geo_cfg = build_implicit_volume(system)
         rcfg = NeRFRendererConfig(radius=geo_cfg.radius)
-        adam = build_optimizer(system)
+        adam = adam_args(system)
         self.data = make_single_image_datamodule(cfg.data, cfg.seed, device=dev)
         self.sampler = self.data.random_sampler
         material = DiffuseWithPointLightMaterial()
@@ -265,10 +396,11 @@ class ZooImageExperiment(ZooNeRFBase):
         return metrics
 
 
-# every zoo system_type the launcher knows; latentnerf and sjc raise (A8)
+# every zoo system_type the launcher knows
 ZOO_EXPERIMENTS = {name: ZooTextExperiment for name in (
     "dreamfusion-system", "magic3d-system", "efficient-dreamfusion-system", "latentnerf-system",
     "sjc-system")}
+ZOO_EXPERIMENTS["prolificdreamer-system"] = ZooVSDExperiment
 ZOO_EXPERIMENTS.update({name: ZooImageExperiment for name in (
     "magic123-system", "image-condition-dreamfusion-system")})
 

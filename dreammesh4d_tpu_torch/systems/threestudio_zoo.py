@@ -1,6 +1,7 @@
-"""The threestudio zoo's NeRF train steps: dreamfusion, efficient-dreamfusion
-and magic123 (counterpart of ``dreammesh4d_tpu/systems/threestudio_zoo.py``;
-its prolificdreamer step is not ported yet, ROADMAP A8).
+"""The threestudio zoo's NeRF train steps: dreamfusion, efficient-dreamfusion,
+prolificdreamer and magic123 (counterpart of
+``dreammesh4d_tpu/systems/threestudio_zoo.py``; latentnerf and sjc are in
+``threestudio_zoo2.py``).
 
 - ``dreamfusion-system`` (and ``magic3d-system``'s coarse stage): random-
   camera renders driven by an SDS term, plus the orientation / sparsity /
@@ -9,6 +10,10 @@ its prolificdreamer step is not ported yet, ROADMAP A8).
   rendered and the low-resolution render is resized (bilinear, as
   ``jax.image.resize``) to ``full_hw`` before SDS; an optional z-variance
   term;
+- ``prolificdreamer-system``: a VSD term (``models/guidance/vsd.py``) and
+  the LoRA's diffusion loss from one backward, which steps two Adams: the
+  scene's (``optimizer.args``) and the LoRA's (betas (0.9, 0.999), eps
+  1e-8, ``lr_lora``);
 - ``magic123-system``: reference-view rgb and mask losses, a 2D (Stable
   Diffusion) and a 3D (Zero123) SDS term with their own weights, 2D normal
   smoothness and the regularisers; ``image-condition-dreamfusion-system``
@@ -19,13 +24,15 @@ Each factory takes guidance closures ``(generator, rgb (B, H, W, 3), batch)
 the state and the parameters are updated in place; the random numbers (the
 samples' jitter, the SDS draws) come from one ``torch.Generator``, where
 the JAX package splits a ``PRNGKey``.  Loss weights are ``C`` schedules of
-the state's step.
+the state's step; a ``system.scheduler`` block makes the scene's Adam group
+carry ``lr · factor(step)`` (``systems/optim.scheduled_lr``), written before
+each update.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -34,7 +41,8 @@ from ..models.renderers.nerf_volume_renderer import NeRFRendererConfig, render_r
 from ..ops.cameras import binary_cross_entropy
 from ..ops.resize import resize_hw
 from ..utils.schedule import C_step
-from ..utils.tree import tree_to
+from ..utils.tree import tree_leaves, tree_map, tree_to
+from .optim import set_learning_rates
 from .zero123_system import NeRFTrainState, init_nerf_state
 
 # guidance_fn(generator, rgb (B, H, W, 3), batch) -> scalar loss
@@ -45,10 +53,15 @@ SceneTrainState = NeRFTrainState
 
 
 def init_scene_state(geo_params, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8,
-                     step: int = 0, device="cuda") -> SceneTrainState:
+                     step: int = 0, device="cuda", schedule: Optional[Callable[[int], float]] = None
+                     ) -> SceneTrainState:
     """Fresh state: the implicit-volume tree on ``device`` with Adam
-    (``optimizer.args``) over it, zero moments."""
-    return init_nerf_state(geo_params, lr=lr, betas=betas, eps=eps, step=step, device=device)
+    (``optimizer.args``) over it, zero moments; ``schedule`` (step -> lr)
+    becomes its group's ``"schedule"``."""
+    state = init_nerf_state(geo_params, lr=lr, betas=betas, eps=eps, step=step, device=device)
+    if schedule is not None:
+        state.opt_state.param_groups[0]["schedule"] = schedule
+    return state
 
 
 def _regularizers(out, terms: Dict[str, torch.Tensor]) -> None:
@@ -95,6 +108,7 @@ def _make_step(loss_fn, device):
         state.opt_state.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.geo_params, batch, generator, state.step)
         loss.backward()
+        set_learning_rates(state.opt_state)
         state.opt_state.step()
         return SceneTrainState(state.geo_params, state.opt_state, state.step + 1), metrics
 
@@ -166,6 +180,70 @@ def make_eff_dreamfusion_train_step(geo_cfg: ImplicitVolumeConfig, rcfg: NeRFRen
         return _total(terms, weights, step, dev)
 
     return _make_step(loss_fn, dev)
+
+
+# ---------------------------------------------------------------------------
+# prolificdreamer-system (VSD, two optimizers in one step)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ProlificDreamerLosses(DreamFusionLosses):
+    lambda_vsd: Any = 1.0
+    lambda_lora: Any = 1.0
+
+
+class VSDTrainState(NamedTuple):
+    geo_params: Any  # the implicit-volume tree
+    lora_params: Any  # the LoRA tree (``VSDGuidance.init_lora_params``)
+    opt_state: torch.optim.Optimizer  # the scene's Adam
+    lora_opt_state: torch.optim.Optimizer  # the LoRA's Adam
+    step: int
+
+
+def init_vsd_state(geo_params, lora_params, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8,
+                   lora_lr: float = 1e-3, step: int = 0, device="cuda",
+                   schedule: Optional[Callable[[int], float]] = None) -> VSDTrainState:
+    """Fresh state: the scene as :func:`init_scene_state`, the LoRA tree on
+    ``device`` with optax ``adam(lora_lr)``'s defaults (betas (0.9, 0.999),
+    eps 1e-8), zero moments."""
+    scene = init_scene_state(geo_params, lr=lr, betas=betas, eps=eps, step=step, device=device,
+                             schedule=schedule)
+    lora = tree_map(lambda x: x.detach().to(device).clone().requires_grad_(True), lora_params)
+    lora_opt = torch.optim.Adam(tree_leaves(lora), lr=lora_lr, betas=(0.9, 0.999), eps=1e-8)
+    return VSDTrainState(scene.geo_params, lora, scene.opt_state, lora_opt, int(step))
+
+
+def make_prolificdreamer_train_step(geo_cfg: ImplicitVolumeConfig, rcfg: NeRFRendererConfig,
+                                    losses: ProlificDreamerLosses, vsd_fn: Callable, material=None,
+                                    bg_color=(1.0, 1.0, 1.0), device="cuda"):
+    """``vsd_fn(lora_params, generator, rgb (B, H, W, 3), batch) ->
+    {"loss_vsd", "loss_lora", ...}``; ``batch`` as the dreamfusion step's
+    (and what ``vsd_fn`` reads, e.g. ``c2w``).  One backward of the total
+    gives both trees their gradients; both Adams step."""
+    dev = torch.device(device)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    weights = {"vsd": losses.lambda_vsd, "lora": losses.lambda_lora, "orient": losses.lambda_orient,
+               "sparsity": losses.lambda_sparsity, "opaque": losses.lambda_opaque}
+
+    def train_step(state: VSDTrainState, batch, generator: torch.Generator):
+        """One optimisation step of the scene and the LoRA (in place);
+        returns the advanced state and the metrics."""
+        batch = tree_to(batch, dev)
+        for opt in (state.opt_state, state.lora_opt_state):
+            opt.zero_grad(set_to_none=True)
+        out, B, H, W = _rand_render(state.geo_params, geo_cfg, rcfg, batch, bg, generator, material)
+        g = vsd_fn(state.lora_params, generator, out["comp_rgb"].reshape(B, H, W, 3), batch)
+        terms = {"vsd": g["loss_vsd"], "lora": g["loss_lora"]}
+        _regularizers(out, terms)
+        loss, metrics = _total(terms, weights, state.step, dev)
+        loss.backward()
+        set_learning_rates(state.opt_state)
+        state.opt_state.step()
+        state.lora_opt_state.step()
+        return state._replace(step=state.step + 1), metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -211,6 +211,7 @@ def test_registry_resolves_the_stages_names():
     from dreammesh4d_tpu_torch.data.temporal_image import TemporalImageDataModule
     from dreammesh4d_tpu_torch.systems.assembly import (Sugar4DGenExperiment, SugarStaticExperiment,
                                                         Zero123Experiment)
+    from dreammesh4d_tpu_torch.systems.assembly_zoo import ZooVSDExperiment
 
     assert registry.find("sugar-static-system") is SugarStaticExperiment
     assert registry.find("sugar-4dgen-system") is Sugar4DGenExperiment
@@ -219,8 +220,9 @@ def test_registry_resolves_the_stages_names():
     mixed = registry.find("sugar-static-system:single-image-datamodule")
     assert issubclass(mixed, SugarStaticExperiment) and issubclass(mixed, SingleImageDataModule)
     assert registry.find("zero123-system") is Zero123Experiment
+    assert registry.find("prolificdreamer-system") is ZooVSDExperiment
     with pytest.raises(KeyError):
-        registry.find("prolificdreamer-system")  # not ported yet (ROADMAP A8)
+        registry.find("fantasia3d-system")  # not ported yet (ROADMAP A8)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

@@ -52,7 +52,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "ops.knn", "models.geometry.gaussian", "ops.sugar_reg", "systems.gaussian_stage",
                "parallel", "parallel.mesh", "parallel.context", "parallel.sharding_rules", "dryrun",
                "scripts.render_4d", "models.guidance.stable_diffusion", "models.prompt_processors",
-               "systems.threestudio_zoo", "systems.assembly_zoo")
+               "systems.threestudio_zoo", "systems.assembly_zoo", "systems.threestudio_zoo2",
+               "models.guidance.vsd", "ops.shape_loss", "models.geometry.volume_grid")
 
 
 def test_port_imports_no_jax():
@@ -257,9 +258,13 @@ def test_zoo_entry_points_default_to_cuda(tmp_path):
     from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import (StableDiffusionGuidance,
                                                                        StableDiffusionPromptProcessor)
     from dreammesh4d_tpu_torch.models.renderers.nerf_volume_renderer import NeRFRendererConfig
+    from dreammesh4d_tpu_torch.models.guidance.vsd import VSDGuidance
     from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+    from dreammesh4d_tpu_torch.ops.shape_loss import ShapeLoss
     from dreammesh4d_tpu_torch.systems import threestudio_zoo as zoo
-    from dreammesh4d_tpu_torch.systems.assembly_zoo import ZooTextExperiment
+    from dreammesh4d_tpu_torch.systems import threestudio_zoo2 as zoo2
+    from dreammesh4d_tpu_torch.systems.assembly_zoo import ZooTextExperiment, ZooVSDExperiment
+    from test_torch_shape_loss import write_guide_obj
 
     tiny = dict(model_channels=8, channel_mult=[1], num_res_blocks=1, num_heads=1, context_dim=8, vae_ch=8,
                 vae_ch_mult=[1], latent_size=4, image_size=4)
@@ -270,10 +275,21 @@ def test_zoo_entry_points_default_to_cuda(tmp_path):
                                 "system.guidance.pretrained_model_name_or_path=none",
                                 "system.geometry.pos_encoding_config.n_levels=2",
                                 "system.geometry.pos_encoding_config.log2_hashmap_size=6"])
+    vsd_cfg = load_config(os.path.join(REPO, "configs", "zoo", "prolificdreamer.yaml"), makedirs=False,
+                          cli_args=[f"exp_root_dir={tmp_path}", "system.prompt_processor.prompt=x",
+                                    "system.guidance.pretrained_model_name_or_path=none",
+                                    "system.geometry.pos_encoding_config.n_levels=2",
+                                    "system.geometry.pos_encoding_config.log2_hashmap_size=6"])
+    guide = write_guide_obj(tmp_path / "guide.obj")
     makers = (lambda **kw: StableDiffusionGuidance(tiny, **kw).modules.device,
               lambda **kw: StableDiffusionPromptProcessor({"context_dim": 8, "seq_len": 2}, **kw)().cond.device,
               lambda **kw: zoo.init_scene_state({"w": torch.zeros(2)}, **kw).geo_params["w"].device,
-              lambda **kw: ZooTextExperiment(cfg, **kw).state.geo_params["encoding"]["tables"].device)
+              lambda **kw: ZooTextExperiment(cfg, **kw).state.geo_params["encoding"]["tables"].device,
+              lambda **kw: VSDGuidance(tiny, **kw).modules.device,
+              lambda **kw: zoo.init_vsd_state({"w": torch.zeros(2)}, {"a": {"A": torch.zeros(2)}},
+                                              **kw).lora_params["a"]["A"].device,
+              lambda **kw: ShapeLoss(guide, grid_res=4, **kw).occ_grid.device,
+              lambda **kw: ZooVSDExperiment(vsd_cfg, **kw).state.lora_params["unused"].device)
     for build in makers:
         if torch.cuda.is_available():
             assert build().type == "cuda"
@@ -283,7 +299,10 @@ def test_zoo_entry_points_default_to_cuda(tmp_path):
         assert build(device="cpu").type == "cpu"
     if not torch.cuda.is_available():
         for build in (lambda: zoo.make_dreamfusion_train_step(geo, rcfg, zoo.DreamFusionLosses(), None),
-                      lambda: zoo.make_magic123_train_step(geo, rcfg, zoo.Magic123Losses())):
+                      lambda: zoo.make_magic123_train_step(geo, rcfg, zoo.Magic123Losses()),
+                      lambda: zoo.make_prolificdreamer_train_step(geo, rcfg, zoo.ProlificDreamerLosses(), None),
+                      lambda: zoo2.make_latentnerf_train_step(geo, rcfg, zoo2.LatentNeRFLosses(), None),
+                      lambda: zoo2.make_sjc_train_step(geo, rcfg, zoo2.SJCLosses(), None)):
             with pytest.raises((RuntimeError, AssertionError)):
                 build()
     assert callable(zoo.make_eff_dreamfusion_train_step(geo, rcfg, zoo.DreamFusionLosses(), None, 8,

@@ -28,6 +28,10 @@ EXPECTED = {  # name: (module, class) in the port
     "efficient-dreamfusion-system": ("systems.assembly_zoo", "ZooTextExperiment"),
     "magic123-system": ("systems.assembly_zoo", "ZooImageExperiment"),
     "image-condition-dreamfusion-system": ("systems.assembly_zoo", "ZooImageExperiment"),
+    "latentnerf-system": ("systems.assembly_zoo", "ZooTextExperiment"),
+    "sjc-system": ("systems.assembly_zoo", "ZooTextExperiment"),
+    "prolificdreamer-system": ("systems.assembly_zoo", "ZooVSDExperiment"),
+    "stable-diffusion-vsd-guidance": ("models.guidance.vsd", "VSDGuidance"),
     "single-image-datamodule": ("data.image", "SingleImageDataModule"),
     "temporal-image-datamodule": ("data.temporal_image", "TemporalImageDataModule"),
     "random-camera-datamodule": ("data.uncond", "RandomCameraSampler"),
@@ -68,10 +72,11 @@ def test_launcher_systems_and_unported_names(names):
     from dreammesh4d_tpu_torch.systems import assembly_zoo  # noqa: F401  (fills the launcher's table)
 
     assert set(assembly.EXPERIMENTS) <= jax_names
-    assert {"dreamfusion-system", "magic123-system", "latentnerf-system"} <= set(assembly.EXPERIMENTS)
+    assert {"dreamfusion-system", "magic123-system", "latentnerf-system", "sjc-system",
+            "prolificdreamer-system"} <= set(assembly.EXPERIMENTS)
     mixed = registry.find("dreamfusion-system:random-camera-datamodule")
     assert issubclass(mixed, registry.find("dreamfusion-system"))
-    for name in ("prolificdreamer-system", "latentnerf-system", "sjc-system", "stable-diffusion-vsd-guidance"):
+    for name in ("textmesh-system", "fantasia3d-system", "stable-diffusion-unified-guidance"):
         assert name in jax_names
         with pytest.raises(KeyError):
             registry.find(name)

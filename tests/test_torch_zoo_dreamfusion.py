@@ -20,7 +20,9 @@ monkeypatched).  Bands, those of ``test_torch_nerf_train.py``: every metric
 within 1e-4 relative (1e-6 absolute floor), every leaf's gradient within
 1e-3 of its max |g|, the parameters after Adam (the YAML's eps 1e-15)
 within 1e-6 where |g| ≥ 5 % of the leaf's max.  The helpers here serve
-``test_torch_zoo_eff.py`` and ``test_torch_zoo_magic123.py`` too.
+``test_torch_zoo_eff.py``, ``test_torch_zoo_magic123.py``,
+``test_torch_zoo_latentnerf.py``, ``test_torch_zoo_sjc.py`` and
+``test_torch_zoo_prolificdreamer.py`` too.
 """
 
 import os
@@ -42,9 +44,11 @@ from dreammesh4d_tpu.systems import assembly as jasm
 from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.config import load_config
 from dreammesh4d_tpu_torch.models.guidance import stable_diffusion as psd
+from dreammesh4d_tpu_torch.models.guidance import vsd as pvsd
 from dreammesh4d_tpu_torch.models.guidance.zero123 import guidance as pz123
 from dreammesh4d_tpu_torch.models.renderers import nerf_volume_renderer as tnr
 from dreammesh4d_tpu_torch.systems import assembly
+from dreammesh4d_tpu_torch.systems import threestudio_zoo2 as tz2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_SD = ["system.guidance.pretrained_model_name_or_path=random:0", "system.guidance.model_channels=16",
@@ -129,7 +133,9 @@ def build_pair(yaml, dotlist):
 
 def same_draws(monkeypatch):
     """The JAX draws and the port's give the same numbers for the same shape
-    (the port's SDS noise is the NCHW view of the JAX NHWC one)."""
+    (the port's SDS noise is the NCHW view of the JAX NHWC one; a JAX
+    uniform's ``minval`` / ``maxval`` scale its numbers, and its
+    ``bernoulli(p, (B, 1, 1))`` is the port's (B,) uniform below p)."""
     tables = {}
 
     def numbers(kind, shape):
@@ -146,18 +152,24 @@ def same_draws(monkeypatch):
             return torch.tensor(numbers("n", (B, H, W, C)).transpose(0, 3, 1, 2).copy())
         return torch.tensor(numbers("n" if normal else "u", shape))
 
-    monkeypatch.setattr(jax.random, "uniform", lambda key, shape=(), *a, **k: jnp.asarray(numbers("u", shape)))
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape=(), dtype=None, minval=0.0, maxval=1.0:
+                        jnp.asarray(numbers("u", shape)) * (maxval - minval) + minval)
+    monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape:
+                        jnp.asarray(numbers("u", shape[:1]).reshape(shape) < p))
     monkeypatch.setattr(jax.random, "normal", lambda key, shape=(), *a, **k: jnp.asarray(numbers("n", shape)))
     monkeypatch.setattr(tnr, "draw_uniform", lambda rng, shape, device: torch.tensor(numbers("u", shape)))
+    monkeypatch.setattr(tz2, "draw_uniform", lambda rng, shape, device: torch.tensor(numbers("u", shape)))
     monkeypatch.setattr(tnr, "draw_normal", lambda rng, shape, device: torch.tensor(numbers("n", shape)))
-    monkeypatch.setattr(psd, "_draw", sds_draw)
-    monkeypatch.setattr(pz123, "_draw", sds_draw)
+    for module in (psd, pz123, pvsd):
+        monkeypatch.setattr(module, "_draw", sds_draw)
     return tables
 
 
-def check_one_step(jexp, exp, monkeypatch, sds_keys=("loss_sds",), reseed=None):
+def check_one_step(jexp, exp, monkeypatch, sds_keys=("loss_sds",), reseed=None,
+                   jax_grads=lambda state: state.opt_state[0]):
     """``train_step(0)`` of both on the same draws, within the bands;
-    ``reseed`` seeds the global numpy stream before each."""
+    ``reseed`` seeds the global numpy stream before each; ``jax_grads``
+    reads the kept gradient out of the JAX state."""
     same_draws(monkeypatch)
     jparams = np_tree(jexp.state.geo_params)
     if reseed is not None:
@@ -174,7 +186,7 @@ def check_one_step(jexp, exp, monkeypatch, sds_keys=("loss_sds",), reseed=None):
         ref, got = float(jmetrics[k]), float(metrics[k])
         print(f"{k}: {got!r} vs JAX {ref!r}")
         assert abs(got - ref) <= max(1e-4 * abs(ref), 1e-6), (k, got, ref)
-    jgrads = np_tree(jexp.state.opt_state[0])
+    jgrads = np_tree(jax_grads(jexp.state))
     jnew = np_tree(jexp.state.geo_params)
     n_checked = 0
     for leaf, jg, jp, jn in zip(leaves(exp.state.geo_params), leaves(jgrads), leaves(jparams), leaves(jnew)):
