@@ -237,9 +237,28 @@ Phases, each of which fails the run on a failed check:
     ``--validate`` / ``--export`` of latentnerf, no hand-written kernel
     launched; prints ms/step, peak memory, the guide's bake and its faces,
     and the guidance's share (timed alone at the step's shapes);
+19. ``binning: rank`` (``drive_rank``, run after 18, before the lines of
+    15): the served view of phase 4's scene through
+    ``find("diff-sugar-rasterizer-temporal")`` built from
+    configs/sugar_dynamic_dg.yaml's renderer block with ``binning: rank``
+    (``bin_gaussians_ranks``: the pairs are depth ranks into a row table in
+    depth order, un-permuted by ``inv_rank`` in the backward); B1 and B2 on
+    its captured inputs (C = 7 and 4) against their plain versions through
+    ``check_forward`` / ``check_backward`` and timed; the same view in pairs
+    mode against it within RANK_RGB_TOL / RANK_DEPTH_TOL (tiles where pairs
+    mode holds two pairs of one quantized depth printed, and left out only
+    if every failing pixel lies in one); ``launch.main(*launch.parse_args(
+    ["--config", configs/sugar_dynamic_dg.yaml, "--train", "--gpu", "0",
+    "--verbose", ..., "system.renderer.binning=rank"]))`` for RANK_STEPS
+    steps on phase 9's assets beside the same run in pairs mode (B1/B2
+    every step, the first step's loss within 1e-3, first and last losses
+    printed); the 13 factory names of ``models/registry_names.py`` built on
+    the card with a forward each; an image grid with a ``jet`` depth layer
+    equal to the port's table;
 15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
-    ``launches_multidevice``, ``launches_zoo`` and ``launches_zoo_latent``
-    too), the card's name and power limit, and as the last line
+    ``launches_multidevice``, ``launches_zoo``, ``launches_zoo_latent`` and
+    ``launches_rank`` too; B1/B2 also their rank-mode device times), the
+    card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -321,6 +340,19 @@ GS_BIG_STEPS = 2
 H100_F32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM data sheet, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bfloat16 tensor-core peak, H100 SXM data sheet, 700 W
+
+
+class PhaseClock:
+    """Wall seconds from each ``mark`` to the next, under the name of the
+    phase that ran between them (the first phase runs from construction)."""
+
+    def __init__(self):
+        self.seconds, self._name, self._t = {}, "1", time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.seconds[self._name] = round(now - self._t, 1)
+        self._name, self._t = name, now
 
 
 def fail(msg):
@@ -3821,6 +3853,348 @@ def drive_zoo_latent(torch, np, rb, tb, hc, card, guide_obj, device, tmp):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 19. binning: rank through B1/B2, the registry's factory names, the saver's colour maps
+# ---------------------------------------------------------------------------
+
+RANK_STEPS = 3  # trainer.max_steps of each launcher run of phase 19
+RANK_RGB_TOL = 3e-3  # rank against pairs on the served view: rgb and alpha (the reference's bands)
+RANK_DEPTH_TOL = 6e-3  # and depth
+
+
+def captured_blend_args(torch, rb, render):
+    """The arguments of every ``resident_blend.blend_pairs_cuda`` call that
+    ``render()`` makes (under ``no_grad``): what B1 is handed."""
+    blends = []
+    real = rb.blend_pairs_cuda
+
+    def record(*args, **kw):
+        blends.append(args)
+        return real(*args, **kw)
+
+    rb.blend_pairs_cuda = record
+    try:
+        with torch.no_grad():
+            render()
+    finally:
+        rb.blend_pairs_cuda = real
+    check(len(blends) >= 1, "the render did not reach B1")
+    return blends
+
+
+def served_view_attrs(torch, params, static, dparams, dyn_cfg, cams, t):
+    """The served view's per-Gaussian attributes at time ``t`` (as
+    ``view_blend_inputs`` takes them): means, quats, scales, opacities, SH
+    and the face normals, and the view's ``GSCameraInfo``."""
+    from dreammesh4d_tpu_torch.models.geometry.dynamic_sugar import timed_all
+    from dreammesh4d_tpu_torch.models.geometry.sugar import gaussian_attributes
+    from dreammesh4d_tpu_torch.ops.cameras import GSCameraInfo
+    from dreammesh4d_tpu_torch.ops.meshops import face_normals
+
+    ts = torch.tensor([t], device=params.points.device)
+    gs, vert = timed_all(params, dparams, dyn_cfg.deformation, static, ts)
+    attrs0 = gaussian_attributes(params, static.sugar)
+    normals = torch.repeat_interleave(face_normals(vert.xyz, static.sugar.faces), 6, dim=-2)[0]
+    cam = GSCameraInfo(cams.world_view[0], cams.full_proj[0], cams.camera_center[0])
+    return dict(means3d=gs.means3d[0], quats=gs.quats[0], scales=gs.scales[0], opacities=attrs0.opacities,
+                sh=attrs0.sh, sh_degree=3, gs_normals=normals, camera=cam), gs
+
+
+def pair_tie_tiles(torch, pa, T, depth_bits=20):
+    """Tiles in which pairs mode holds two pairs with the same packed key
+    (the same 20-bit quantized depth): their order is free in pairs mode
+    and exact in rank mode."""
+    keys, starts, counts = pa.sorted_keys, pa.starts.long(), pa.counts.long()
+    same = torch.zeros(keys.numel(), dtype=torch.bool, device=keys.device)
+    same[1:] = keys[1:] == keys[:-1]
+    tile_of = keys >> depth_bits
+    return sorted({int(x) for x in tile_of[same & (tile_of < T)].tolist()})
+
+
+def drive_rank(torch, np, rb, tb, hc, card, scene, launcher, device, tmp):
+    """Phase 19: ``binning: rank`` through B1/B2, the registry's factory
+    names and the saver's colour maps.
+
+    (a) The served view of phase 4's full-width scene (t = 0, elevation 5°,
+    distance 3.8) through ``find("diff-sugar-rasterizer-temporal")`` built
+    from configs/sugar_dynamic_dg.yaml's renderer block with ``binning:
+    rank``, its B1 inputs captured (C = 7), and those of the rgb-only blend
+    (C = 4): B1 and B2 on them against their plain versions
+    (``check_forward`` / ``check_backward``, their tolerances), and timed
+    (device time).  (b) The same view with ``binning: pairs`` against rank:
+    rgb and alpha within RANK_RGB_TOL, depth within RANK_DEPTH_TOL; where a
+    pixel fails, the tiles where pairs mode holds two pairs of one quantized
+    depth (free order there) are printed, and if every failing pixel lies in
+    such a tile those tiles alone are left out, with the count printed.
+    (c) ``python3 -m dreammesh4d_tpu_torch.launch --config
+    configs/sugar_dynamic_dg.yaml --train --gpu 0 --verbose
+    system.renderer.binning=rank`` with phase 9's dotlist (full width,
+    guidance off) for RANK_STEPS steps, through ``launch.parse_args`` and
+    ``launch.main``, beside the same run in pairs mode: B1/B2 launches of
+    every step, the losses of the first and last step side by side.  (d)
+    The 13 factory names of ``models/registry_names.py`` constructed on the
+    card, one forward each where the component has one.  (e) One image
+    grid with a colour-mapped depth layer (``jet``).  Returns the phase's
+    numbers, its rank-mode launches among them."""
+    from dreammesh4d_tpu_torch import launch, registry
+    from dreammesh4d_tpu_torch.config import config_to_primitive, load_config
+    from dreammesh4d_tpu_torch.data.png import read_png
+    from dreammesh4d_tpu_torch.models.renderers import sugar_rasterizer
+    from dreammesh4d_tpu_torch.serving import Viewer4D
+    from dreammesh4d_tpu_torch.systems import assembly
+    from dreammesh4d_tpu_torch.utils.colormaps import apply_colormap
+    from dreammesh4d_tpu_torch.utils.saving import Saver
+
+    t_phase = time.perf_counter()
+    params, static, dparams, dyn_cfg, raster_cfg = scene
+    rz = importlib.import_module("dreammesh4d_tpu_torch.ops.gs.rasterize")
+    dyn_yaml = os.path.join(REPO, "configs", "sugar_dynamic_dg.yaml")
+    block = config_to_primitive(load_config(dyn_yaml, makedirs=False).system.renderer)
+    block.update(width=RES, height=RES, fovy_deg=20.0)
+
+    def counts():
+        return {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+
+    # (a) the served view through the factory in rank mode, B1/B2 on its inputs
+    rank_r = registry.find("diff-sugar-rasterizer-temporal")({**block, "binning": "rank"}, device=device)
+    pairs_r = registry.find("diff-sugar-rasterizer-temporal")({**block, "binning": "pairs"}, device=device)
+    check(rank_r.cfg.binning == "rank" and rank_r.cfg._replace(binning="pairs") == pairs_r.cfg
+          and rank_r.cfg.tile_px == 32 and rank_r.cfg.tile_capacity == 2048
+          and rank_r.cfg.max_tiles_per_gaussian == 6 and rank_r.cfg.backend == "pallas_resident",
+          "the factory's rasterizer config is not the YAML's renderer block")
+    viewer = Viewer4D(params, static, dparams, dyn_cfg, raster_cfg, RES, RES, 20.0, VIDEO_LEN, device=device)
+    view, _ = served_view_attrs(torch, params, static, dparams, dyn_cfg, viewer._cameras(5.0, 0.0, 3.8), 0.0)
+    white = torch.ones(3, device=device)
+    ranks = []
+    real_ranks = rz.bin_gaussians_ranks
+
+    def record_ranks(*a, **kw):
+        ranks.append(real_ranks(*a, **kw))
+        return ranks[-1]
+
+    rz.bin_gaussians_ranks = record_ranks
+    try:
+        cases = {7: captured_blend_args(torch, rb, lambda: rank_r.render_view(**view, bg_color=white))[0],
+                 4: captured_blend_args(torch, rb, lambda: rank_r.render_view(
+                     **{**view, "gs_normals": None}, bg_color=white))[0]}
+    finally:
+        rz.bin_gaussians_ranks = real_ranks
+    check(len(ranks) == 2, "rank mode did not bin with bin_gaussians_ranks")
+    N = view["means3d"].shape[0]
+    check(cases[7][0].shape[0] == N + 1 and int(cases[7][1].max()) <= N,
+          "rank mode: the pairs are not ranks into an (N + 1)-row table")
+    order = ranks[0].depth_order
+    check(bool((ranks[0].inv_rank[order] == torch.arange(N, device=order.device)).all()),
+          "rank mode: inv_rank is not the inverse of depth_order")
+    rank_cases = {C: {"rank_view": cases[C]} for C in (7, 4)}
+    b1_err, _, b1_kept = check_forward(torch, rb, rank_cases[7])
+    bwd_err, bwd_work = {}, {}
+    for C in (7, 4):
+        errs, bwd_work[C], _ = check_backward(torch, rb, rank_cases[C])
+        for k, v in errs.items():
+            old = bwd_err.get(k, (0.0, 0.0))
+            bwd_err[k] = (max(old[0], v[0]), max(old[1], v[1]))
+    res = {"b1_err": b1_err, "bwd_err": bwd_err, "b1_kept": b1_kept}
+    a7 = cases[7]
+    res["b1_device_ms"] = device_ms(torch, lambda: rb.blend_pairs_cuda(*a7), "resident_fwd_kernel")
+    res["b1_plain_ms"] = time_ms(torch, lambda: rb.blend_pairs_plain(*a7), n=5)
+    b1_stats = {}
+    rb.blend_pairs_plain(*a7, stats=b1_stats)
+    res["b1_bound"] = resident_fwd_bound(a7, b1_stats)
+    a4 = cases[4]
+    out4 = rb.blend_pairs_cuda(*a4)
+    cot4 = torch.randn(out4.shape, generator=torch.Generator(device=out4.device).manual_seed(5),
+                       device=out4.device)
+    res["b2_device_ms"] = device_ms(torch, lambda: rb.blend_pairs_bwd_cuda(*a4[:4], out4, cot4, *a4[4:]),
+                                    "resident_bwd_kernel")
+    res["b2_plain_ms"] = time_ms(torch, lambda: rb.blend_pairs_bwd_plain(*a4[:4], out4, cot4, *a4[4:]), n=5)
+    res["b2_bound"] = kernel_bounds(a4, bwd_work[4]["rank_view"], a4[0].shape[0], False)
+    print(f"[{card}] rank mode, served view: B1 C=7 {res['b1_device_ms']:.4f} ms device time (plain "
+          f"{res['b1_plain_ms']:.4f} ms; bound {res['b1_bound'][0]:.4f} ms by {res['b1_bound'][1]}), B2 C=4 "
+          f"{res['b2_device_ms']:.4f} ms (plain {res['b2_plain_ms']:.4f} ms; bound {res['b2_bound'][0]:.4f} ms "
+          f"by {res['b2_bound'][1]}); B1 max|d| {b1_err:.3g}, B2 max rel {bwd_err['resident_bwd_accum'][0]:.3g}")
+
+    # (b) rank against pairs on the served view, through the factory's render_view
+    pair_bins = []
+    real_pairs = rz.bin_gaussians_pairs
+
+    def record_pairs(*a, **kw):
+        pair_bins.append(real_pairs(*a, **kw))
+        return pair_bins[-1]
+
+    rb.reset_launch_counts()
+    with torch.no_grad():
+        out_r = rank_r.render_view(**view, bg_color=white)
+        torch.cuda.synchronize()
+        served_launches = dict(rb.launch_counts)  # rank mode's, on the path a user calls
+        rz.bin_gaussians_pairs = record_pairs
+        try:
+            out_p = pairs_r.render_view(**view, bg_color=white)
+        finally:
+            rz.bin_gaussians_pairs = real_pairs
+        direct = sugar_rasterizer.render_view(**view, bg_color=white, cfg=rank_r.cfg)
+    torch.cuda.synchronize()
+    check(served_launches["resident_fwd"] == 1 and rb.launch_counts["resident_fwd"] == 3,
+          "the served-view renders did not launch B1 once each")
+    check(bool((direct["comp_rgb"] == out_r["comp_rgb"]).all()), "the factory's render_view is not the module's")
+    tol = {"comp_rgb": RANK_RGB_TOL, "comp_mask": RANK_RGB_TOL, "comp_depth": RANK_DEPTH_TOL}
+    err = {k: (out_r[k] - out_p[k]).abs().amax(-1) for k in tol}  # (H, W) each
+    bad = (err["comp_rgb"] > tol["comp_rgb"]) | (err["comp_mask"] > tol["comp_mask"]) | (
+        err["comp_depth"] > tol["comp_depth"])
+    tile = rank_r.cfg.tile_px
+    tiles_x = (RES + tile - 1) // tile
+    res["excluded_pixels"] = 0
+    if bool(bad.any()):
+        ys, xs = torch.nonzero(bad, as_tuple=True)
+        bad_tiles = sorted({int(t) for t in ((ys // tile) * tiles_x + xs // tile).tolist()})
+        ties = pair_tie_tiles(torch, pair_bins[0], tiles_x * tiles_x)
+        print(f"rank vs pairs: {int(bad.sum())} pixels over the bands, in tiles {bad_tiles}; tiles where pairs "
+              f"mode holds two pairs of one quantized depth: {ties}; first pixels "
+              f"{[(int(y), int(x)) for y, x in zip(ys[:10], xs[:10])]}")
+        check(set(bad_tiles) <= set(ties), "rank vs pairs: a pixel over the bands lies in a tile without a tie")
+        keep = torch.ones((RES, RES), dtype=torch.bool, device=bad.device)
+        for t in ties:
+            ty, tx = divmod(t, tiles_x)
+            keep[ty * tile:(ty + 1) * tile, tx * tile:(tx + 1) * tile] = False
+        res["excluded_pixels"] = int((~keep).sum())
+        print(f"rank vs pairs: {res['excluded_pixels']} pixels of the {len(ties)} tied tiles left out")
+        err = {k: torch.where(keep, v, torch.zeros_like(v)) for k, v in err.items()}
+    res["rank_vs_pairs"] = {k: float(v.max()) for k, v in err.items()}
+    print(f"rank vs pairs on the served view, max|d|: {json.dumps(res['rank_vs_pairs'])} (limits rgb/alpha "
+          f"{RANK_RGB_TOL}, depth {RANK_DEPTH_TOL}); coverage {float((out_r['comp_mask'] > 0.5).float().mean()):.4f}")
+    for k, v in res["rank_vs_pairs"].items():
+        check(v <= tol[k], f"rank vs pairs {k}: {v:.3g} > {tol[k]}")
+
+    # (c) the launcher with C2's flags, rank and pairs
+    spans = Spans(torch, counts)
+    spans.train_steps(assembly.Sugar4DGenExperiment, "dynamic")
+    dyn = [x for x in launcher["trials"]["dynamic"][2]
+           if not x.startswith(("tag=", "trainer.max_steps=", "resume="))]
+    runs, rank_launches = {}, {}
+    try:
+        for binning in ("rank", "pairs"):
+            argv = ["--config", dyn_yaml, "--train", "--gpu", "0", "--verbose", *dyn,
+                    f"system.renderer.binning={binning}", f"trainer.max_steps={RANK_STEPS}", f"tag={binning}"]
+            args, extras = launch.parse_args(argv)
+            check(args.train and args.gpu == "0" and args.verbose and extras == argv[6:],
+                  "parse_args: the JAX launcher's flags reached the dotlist")
+            first = len(spans.steps)
+            rb.reset_launch_counts()
+            tb.reset_launch_counts()
+            hc.reset_launch_counts()
+            t0 = time.perf_counter()
+            launch.main(args, extras)
+            torch.cuda.synchronize()
+            runs[binning] = {"s": time.perf_counter() - t0, "launches": counts(), "steps": spans.steps[first:]}
+            if binning == "rank":
+                rank_launches = dict(runs[binning]["launches"])
+    finally:
+        spans.close()
+    for binning, run in runs.items():
+        steps = run["steps"]
+        check([s[1] for s in steps] == list(range(RANK_STEPS)), f"launcher {binning}: steps taken")
+        for _, step, _, _, launched, metrics in steps:
+            got = {k: v for k, v in launched.items() if v}
+            check(got.get("resident_fwd", 0) > 0 and got.get("resident_bwd_accum", 0) > 0
+                  and set(got) == {"resident_fwd", "resident_bwd_accum"},
+                  f"launcher {binning} step {step}: launches {got}")
+            check(all(math.isfinite(v) for v in metrics.values()), f"launcher {binning} step {step}: non-finite")
+        run["loss"] = (steps[0][5]["loss_total"], steps[-1][5]["loss_total"])
+        run["ms"] = statistics.median([s[3] for s in steps[1:]])
+    r, p = runs["rank"], runs["pairs"]
+    print(f"[{card}] launcher configs/sugar_dynamic_dg.yaml --train --gpu 0 --verbose, {RANK_STEPS} steps: "
+          f"binning=rank loss_total {r['loss'][0]:.6g} -> {r['loss'][1]:.6g} ({r['ms']:.2f} ms/step, "
+          f"{r['s']:.1f} s, launches {json.dumps({k: v for k, v in r['launches'].items() if v})}); "
+          f"binning=pairs {p['loss'][0]:.6g} -> {p['loss'][1]:.6g} ({p['ms']:.2f} ms/step, {p['s']:.1f} s)")
+    check(abs(r["loss"][0] - p["loss"][0]) <= 1e-3 * abs(p["loss"][0]),
+          "launcher: the first step's loss_total in rank and pairs mode differ by more than 1e-3 relative")
+    res["launcher"] = {b: {"loss_first": run["loss"][0], "loss_last": run["loss"][1], "ms_per_step": run["ms"],
+                           "seconds": run["s"]} for b, run in runs.items()}
+
+    # (d) the registry's factory names on the card, one forward each where there is one
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    tet = {"v_pos": np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], np.float32) * 0.5,
+           "t_pos_idx": np.array([[0, 1, 2], [0, 3, 1], [0, 2, 3], [1, 3, 2]], np.int32),
+           "v_rgb": np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0]], np.float32)}
+    grid = {"n_neurons": 64, "n_hidden_layers": 2, "hashgrid": {"n_levels": 16, "log2_hashmap_size": 16}}
+    pts = (torch.rand((4096, 3), generator=gen) * 1.8 - 0.9).to(device)
+    built = {}
+    t0 = time.perf_counter()
+    sug = registry.find("sugar")({"mesh": tet, "n_gaussians_per_surface_triangle": 6,
+                                  "mesh_component_min_ratio": 0.0}, device=device)
+    built["sugar"] = tuple(sug.gaussian_attributes().means3d.shape)
+    dsug = registry.find("dynamic-sugar")({"mesh": tet, "n_gaussians_per_surface_triangle": 6,
+                                           "mesh_component_min_ratio": 0.0, "num_frames": 4, "n_dg_nodes": 4,
+                                           "dg_node_connectivity": 2, "dist_mode": "eucdisc"}, device=device)
+    built["dynamic-sugar"] = tuple(dsug.timed_all(torch.tensor([0.0, 0.5], device=device))[0].means3d.shape)
+    gsp = registry.find("gaussian-splatting")({"capacity": 8192, "init_num": 4096}, device=device)
+    built["gaussian-splatting"] = tuple(gsp.renderable()[0].shape)
+    vol = registry.find("implicit-volume")(grid, device=device)
+    built["implicit-volume"] = tuple(vol.forward_density(pts).shape)
+    rb.reset_launch_counts()
+    for name in ("diff-sugar-rasterizer-normal", "diff-sugar-rasterizer-shading"):
+        comp = registry.find(name)({**block, "binning": "rank"}, device=device)
+        with torch.no_grad():
+            built[name] = tuple(comp.render_view(**view, bg_color=white)["comp_rgb"].shape)
+    torch.cuda.synchronize()
+    served_launches = {k: v + served_launches[k] for k, v in rb.launch_counts.items()}
+    built["diff-sugar-rasterizer-temporal"] = tuple(out_r["comp_rgb"].shape)
+    nerf = registry.find("nerf-volume-renderer")({"num_samples_coarse": 32, "num_samples_fine": 32,
+                                                  "ray_chunk_train": 0, "geometry": grid}, device=device)
+    rays_o = torch.tensor([[0.0, 0.0, 3.0]], device=device).expand(256, 3)
+    rays_d = torch.nn.functional.normalize(torch.cat([0.2 * torch.rand((256, 2), generator=gen).to(device) - 0.1,
+                                                      -torch.ones((256, 1), device=device)], -1), dim=-1)
+    with torch.no_grad():
+        built["nerf-volume-renderer"] = tuple(nerf.render_rays(vol.state, rays_o, rays_d, rays_o,
+                                                               torch.zeros(3, device=device))["comp_rgb"].shape)
+    lin = np.linspace(-1, 1, 32, dtype=np.float32)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    mesh = registry.find("mesh-exporter")({}, device=device)(np.maximum(0.6 - np.sqrt(x ** 2 + y ** 2 + z ** 2), 0) * 10)
+    built["mesh-exporter"] = (len(mesh.v_pos), len(mesh.t_pos_idx))
+    attrs = sug.gaussian_attributes()
+    registry.find("gaussian-mesh-exporter")({}, device=device)(os.path.join(tmp, "rank_tet.obj"), tet["v_pos"],
+                                                               tet["t_pos_idx"], v_rgb=tet["v_rgb"])
+    built["gaussian-mesh-exporter"] = os.path.getsize(os.path.join(tmp, "rank_tet.obj"))
+    gio = registry.find("gaussian-splatting-io")({}, device=device)
+    n_g = attrs.means3d.shape[0]
+    gio.save_ply(os.path.join(tmp, "rank_g.ply"), attrs.means3d.cpu().numpy(),
+                 attrs.sh.transpose(-1, -2).cpu().numpy(),
+                 np.zeros(n_g, np.float32), np.full((n_g, 3), -2.0, np.float32),
+                 attrs.quats.cpu().numpy())
+    built["gaussian-splatting-io"] = tuple(gio.load_ply(os.path.join(tmp, "rank_g.ply"))["xyz"].shape)
+    perc = registry.find("perceptual-loss")({}, device=device)
+    img = torch.rand((2, 64, 64, 3), generator=gen).to(device)
+    built["perceptual-loss"] = [round(float(v), 6) for v in perc(img, img.flip(1))]
+    built["dummy-exporter"] = registry.find("dummy-exporter")({}, device=device)()
+    torch.cuda.synchronize()
+    factory_s = time.perf_counter() - t0
+    print(f"[{card}] the registry's 13 factory names on the card ({factory_s:.2f} s): {json.dumps(built)}")
+    check(len(built) == 13 and built["dummy-exporter"] == [] and built["mesh-exporter"][1] > 0
+          and all(v > 0 for v in built["perceptual-loss"]), "a factory name did not construct or run")
+    check(bool(torch.isfinite(vol.forward_density(pts)).all()), "implicit-volume: non-finite density")
+    check(all(p.device.type == torch.device(device).type for p in vol.state["density_mlp"][0].values()),
+          "implicit-volume: the parameters are not on the card")
+    rank_launches = {k: v + served_launches.get(k, 0) for k, v in rank_launches.items()}
+
+    # (e) a colour-mapped image: the served view's depth through jet
+    depth = out_r["comp_depth"][..., 0].cpu().numpy()
+    path = Saver(os.path.join(tmp, "rank_save")).save_image_grid("depth_jet.png", [
+        {"type": "rgb", "img": out_r["comp_rgb"].cpu().numpy()},
+        {"type": "grayscale", "img": depth, "kwargs": {"cmap": "jet"}}])
+    grid_img = read_png(path)
+    lo, hi = float(depth.min()), float(depth.max())
+    g8 = (np.clip((depth - lo) / max(hi - lo, 1e-8), 0, 1) * 255).astype(np.uint8)
+    check(grid_img.shape == (RES, 2 * RES, 3) and np.array_equal(grid_img[:, RES:], apply_colormap(g8, "jet")),
+          "the colour-mapped depth layer is not jet's table")
+    print(f"colour map: {path} ({grid_img.shape}), {len(np.unique(grid_img[:, RES:].reshape(-1, 3), axis=0))} "
+          f"colours in the depth layer")
+    res["launches"] = {k: v for k, v in rank_launches.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 19 (binning: rank, registry names, colour maps): rank-mode launches "
+          f"{json.dumps({k: v for k, v in rank_launches.items() if v})}, {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     import argparse
 
@@ -3859,12 +4233,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = DEVICE
+    phases = PhaseClock()
 
     # 1. the card
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    phases.mark("2")
     # 2. build
     t0 = time.perf_counter()
     secs = cuda_build.build(KERNELS)
@@ -3876,6 +4252,7 @@ def main():
             print(f"  {name}: registers per thread {min(regs)}..{max(regs)} over {len(regs)} kernels, "
                   f"{spills} with spills")
 
+    phases.mark("3")
     # 3. the kernels against their plain versions, at the main paths' shapes
     params, static, dparams, dyn_cfg, raster_cfg, graph_s = full_width_scene(torch, dev)
     print(f"scene: {params.log_scales.shape[0]} gaussians, {static.sugar.faces.shape[0]} faces, "
@@ -3953,6 +4330,7 @@ def main():
     check(int((table_cases[7]["whole_image"][2] > 0).sum()) == table_cases[7]["whole_image"][2].numel(),
           "the whole-image Gaussian does not reach every tile")
 
+    phases.mark("4")
     # 4. the serving main path, through the entry points a user calls
     rb.reset_launch_counts()
     frame0 = viewer.render(5.0, 0.0, 3.8, t=0.0)
@@ -4011,6 +4389,7 @@ def main():
           f"{sum(p.numel() for p in dyn_guidance.modules.parameters())} parameters, "
           f"{dyn_guidance.cfg.dtype}; resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
+    phases.mark("5")
     # 5. the training main path
     make_step, video, sample_batch, (bank_s, bank_peak) = training_setup(
         torch, np, viewer, params, static, dparams, dyn_cfg, raster_cfg, dyn_guidance, dev)
@@ -4020,14 +4399,17 @@ def main():
     train_launches, pair_launches, step_ms, bare_step_ms, one_step = drive_training(
         torch, np, rb, card, make_step, sample_batch, dparams, dev)
 
+    phases.mark("6")
     # 6. the stage-1 training main path, 7. the export pass
     s1_launches, s1, s1_geo, s1_params, s1_step = drive_stage1(torch, np, hc, card, s1_guidance, dev)
     export_launches, export_s = drive_export(torch, np, hc, card, s1_geo, s1_params)
 
+    phases.mark("8")
     # 8. the static refine main path on both backends
     static_res, static_steps = drive_static(torch, np, rb, tb, card,
                                             (static_params, static_sugar, static_target, ref_cams), dev)
 
+    phases.mark("9")
     # 9. the launcher main path: both Gaussian YAMLs through dreammesh4d_tpu_torch.launch.main
     launch_tmp = tempfile.TemporaryDirectory()  # phase 11 exports the trials
     launcher = drive_launcher(torch, np, rb, tb, card, video, dev, launch_tmp.name)
@@ -4038,6 +4420,7 @@ def main():
           f"{bare_step_ms:.2f})")
     del video
 
+    phases.mark("10")
     # 10. times (CUDA events, median of 30 after warm-up)
     args = cases[7]["main_view"]
     b1_ms = time_ms(torch, lambda: rb.blend_pairs_cuda(*args))
@@ -4160,13 +4543,16 @@ def main():
               f"{r['ms']:.2f} ms/step, peak memory {r['peak']:.2f} GiB")
         profile_call(torch, f"static refine step ({label})", static_steps[label], card)
 
+    phases.mark("11")
     # 11. the recovery recipe and the exports of phase 9's trials
     recov = drive_recovery_and_export(torch, np, rb, tb, card, launcher, dev)
 
+    phases.mark("12")
     # 12. the README recipe chained: stages 1-6 through the launcher and the simplification tool
     recipe = drive_recipe(torch, np, rb, tb, hc, card, launcher, s1, dev, launch_tmp.name)
     recipe_launches = recipe["total_launches"]
 
+    phases.mark("13")
     # 13. the guidance at full width: card against CPU, a checkpoint, stages 1, 4 and 5 with it on
     del dyn_guidance, s1_guidance, make_step, one_step, s1_step
     torch.cuda.empty_cache()
@@ -4174,42 +4560,57 @@ def main():
                             {"bank_s": bank_s, "bank_peak": bank_peak, "s1_bank_s": s1["bank_s"]},
                             dev, launch_tmp.name)
 
+    phases.mark("14")
     # 14. the Gaussian stage through the launcher at capacity 200,000
     torch.cuda.empty_cache()
     gaussian = drive_gaussian_stage(torch, np, rb, card, launcher, dev, launch_tmp.name)
 
+    phases.mark("16")
     # 16. more than one device: the launcher's refusal, two ranks on the card, render_4d
     torch.cuda.empty_cache()
     multi = drive_multidevice(torch, np, rb, card, launcher, dev, launch_tmp.name)
 
+    phases.mark("17")
     # 17. the zoo's six NeRF YAMLs through the launcher, SD on the card against the CPU
     torch.cuda.empty_cache()
     zoo = drive_zoo(torch, np, rb, tb, hc, card, launcher, dev, launch_tmp.name)
 
+    phases.mark("18")
     # 18. the zoo's last four YAMLs through the launcher, VSD on the card against the CPU
     torch.cuda.empty_cache()
     zoo_latent = drive_zoo_latent(torch, np, rb, tb, hc, card, recipe["model_obj"], dev, launch_tmp.name)
+
+    phases.mark("19")
+    # 19. binning: rank through B1/B2 on the served view and the launcher, the registry's names, a colour map
+    torch.cuda.empty_cache()
+    rank = drive_rank(torch, np, rb, tb, hc, card, (params, static, dparams, dyn_cfg, raster_cfg), launcher,
+                      dev, launch_tmp.name)
     launch_tmp.cleanup()
+
+    phases.mark("end")
+    print(f"[{card}] wall seconds per phase: {json.dumps(phases.seconds)}")
 
     # 15. result lines
     def entry(name, kid, source, replaces, tpu, n_launches, err, ms, plain, b_ms, b_by, **extra):
         # every path's launches: the recipe's (phase 12), the guided launcher's
         # (phase 13), the Gaussian stage's (phase 14), the two ranks' and
-        # render_4d's (phase 16) and the zoo's (phases 17 and 18, none: their
-        # corner grid, shape loss and VSD are plain PyTorch) included
+        # render_4d's (phase 16), the zoo's (phases 17 and 18, none: their
+        # corner grid, shape loss and VSD are plain PyTorch) and rank mode's
+        # (phase 19: the launcher's rank run and the factory's served views) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
         n_multi = multi["launches"].get(name, 0)
         n_zoo = zoo["launches"].get(name, 0)
         n_latent = zoo_latent["launches"].get(name, 0)
+        n_rank = rank["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu,
-                "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent,
+                "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent + n_rank,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
                 "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
-                "launches_zoo_latent": n_latent, **extra}
+                "launches_zoo_latent": n_latent, "launches_rank": n_rank, **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"
@@ -4229,7 +4630,9 @@ def main():
               launches_recovery=recov["recovery_launches"]["resident_fwd"],
               launches_export=recov["export_launches"]["resident_fwd"], cull_kept=kept["resident_fwd"],
               device_ms_gaussian_100k=gaussian["b1_device_ms"], plain_ms_gaussian_100k=gaussian["b1_plain_ms"],
-              max_abs_err_gaussian_100k=gaussian["b1_err"], **b1_more),
+              max_abs_err_gaussian_100k=gaussian["b1_err"], device_ms_rank=rank["b1_device_ms"],
+              plain_ms_rank=rank["b1_plain_ms"], bound_ms_rank=rank["b1_bound"][0],
+              max_abs_err_rank=rank["b1_err"], **b1_more),
         entry("resident_bwd_accum", "B2", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:248",
               "ops/gs/pallas_resident.py::_bwd_kernel_accum",
               train_launches["resident_bwd_accum"] + launcher["launches"]["resident_bwd_accum"]
@@ -4242,7 +4645,9 @@ def main():
               **bwd_more["resident_bwd_accum", 4],
               device_ms_c7=bwd_more["resident_bwd_accum", 7]["device_ms"],
               device_ms_gaussian_100k=gaussian["b2_device_ms"], plain_ms_gaussian_100k=gaussian["b2_plain_ms"],
-              max_abs_err_gaussian_100k=gaussian["bwd_err"]["resident_bwd_accum"][1]),
+              max_abs_err_gaussian_100k=gaussian["bwd_err"]["resident_bwd_accum"][1],
+              device_ms_rank=rank["b2_device_ms"], plain_ms_rank=rank["b2_plain_ms"],
+              bound_ms_rank=rank["b2_bound"][0], max_abs_err_rank=rank["bwd_err"]["resident_bwd_accum"][1]),
         entry("resident_bwd_pairs", "B3", bwd_src, "dreammesh4d_tpu/ops/gs/pallas_resident.py:173",
               "ops/gs/pallas_resident.py::_bwd_kernel", pair_launches["resident_bwd_pairs"],
               bwd_err["resident_bwd_pairs"][1], *b3, max_rel_err=bwd_err["resident_bwd_pairs"][0],

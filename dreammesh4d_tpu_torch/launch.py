@@ -12,7 +12,10 @@
 ``--train`` fits, then runs the test pass; ``--validate`` / ``--test`` /
 ``--export`` restore ``resume=`` first.  ``--device`` (default ``cuda``)
 places everything; ``cpu`` runs the plain PyTorch versions of the kernels
-and is used only when asked for.  A trial is written as the JAX launcher
+and is used only when asked for.  The JAX launcher's ``--gpu``,
+``--verbose`` and ``--typecheck`` are accepted and kept out of the dotlist:
+the first two change nothing, ``--typecheck`` logs that the port has no
+shape annotations to check.  A trial is written as the JAX launcher
 writes it: ``<exp_root_dir>/<name>/<tag>/`` with ``configs/parsed.yaml``,
 ``cmd.txt``, ``code_snapshot.txt`` (best effort), ``metrics.csv``,
 ``ckpts/step_XXXXXXXX/`` and ``save/``.
@@ -105,9 +108,13 @@ def _maybe_resume(experiment, cfg) -> None:
 
 def main(args, extras) -> None:
     """Run one verb.  ``args`` has ``config``, ``device`` and the verb flags
-    (``train`` / ``validate`` / ``test`` / ``export``); ``extras`` is the
-    dotlist.  Returns nothing; the trial directory holds the results."""
+    (``train`` / ``validate`` / ``test`` / ``export``), and may have
+    ``typecheck``; ``extras`` is the dotlist.  Returns nothing; the trial
+    directory holds the results."""
     logging.basicConfig(level=logging.INFO)
+    if getattr(args, "typecheck", False):
+        logging.getLogger(__name__).info(
+            "--typecheck: the port has no shape annotations; nothing is checked at run time")
     device = torch.device(getattr(args, "device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the launcher runs on the card; pass --device cpu to "
@@ -193,11 +200,18 @@ def make_args(config: str, verb: str = "train", device: str = "cuda") -> SimpleN
 
 
 def parse_args(argv=None):
+    """``(args, dotlist)``.  ``--gpu``, ``--verbose`` and ``--typecheck`` are
+    the JAX launcher's flags (``launch.py:162,168-170``): accepted and kept
+    out of the dotlist; ``--device`` takes the place of ``--platform``."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, help="path to config file")
+    parser.add_argument("--gpu", default="0", help="accepted for compatibility; --device places the run")
     group = parser.add_mutually_exclusive_group(required=True)
     for verb in VERBS:
         group.add_argument(f"--{verb}", action="store_true")
+    parser.add_argument("--verbose", action="store_true", help="accepted for compatibility; no effect")
+    parser.add_argument("--typecheck", action="store_true",
+                        help="accepted for compatibility; the port has no shape annotations to check")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain PyTorch versions)")
     return parser.parse_known_args(argv)

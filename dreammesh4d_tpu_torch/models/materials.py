@@ -1,8 +1,8 @@
 """Materials (counterpart of ``dreammesh4d_tpu/models/materials.py``):
-``NoMaterial``, the pass-through of the SuGaR stages, and
-``DiffuseWithPointLightMaterial``, the lambertian + ambient shading of the
-static NeRF stage.  The other materials of the JAX package are not ported
-yet.
+``NoMaterial`` (``no-material``), the pass-through of the SuGaR stages, and
+``DiffuseWithPointLightMaterial`` (``diffuse-with-point-light-material``),
+the lambertian + ambient shading of the static NeRF stage.  The other
+materials of the JAX package are not ported yet (ROADMAP A8.2).
 """
 
 from __future__ import annotations
@@ -12,7 +12,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..registry import register
 
+
+@register("no-material")
 @dataclass
 class NoMaterial:
     n_output_dims: int = 0
@@ -21,6 +24,7 @@ class NoMaterial:
         return features
 
 
+@register("diffuse-with-point-light-material")
 @dataclass
 class DiffuseWithPointLightMaterial:
     ambient_light_color: Tuple[float, float, float] = (0.1, 0.1, 0.1)

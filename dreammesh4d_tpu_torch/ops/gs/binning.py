@@ -1,7 +1,7 @@
 """Tile binning for the Gaussian rasterizer (counterpart of
 ``dreammesh4d_tpu/ops/gs/binning.py``: ``_tile_cull`` :60,
 ``_expand_pairs_mn`` :109, ``bin_gaussians`` :140, ``bin_gaussians_pairs``
-:220).
+:220, ``bin_gaussians_ranks`` :293).
 
 Every Gaussian emits up to ``max_tiles_per_gaussian`` (tile, depth, id)
 pairs — its tile AABB enumerated row-major (``getRect`` clipping), each pair
@@ -23,7 +23,7 @@ ellipse–rectangle cull).  Two layouts of the result:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,7 +43,11 @@ class PairAssignment(NamedTuple):
     sorted_gauss: torch.Tensor  # (N*M,) int32 Gaussian ids, grouped by tile, front to back; N = invalid
     starts: torch.Tensor  # (T,) int32 segment starts
     counts: torch.Tensor  # (T,) int32 segment lengths (before any capacity cut)
-    sorted_keys: torch.Tensor  # (N*M,) int64 packed tile << depth_bits | qdepth
+    sorted_keys: torch.Tensor  # (N*M,) int64 packed tile << depth_bits | qdepth (or | rank)
+    # rank mode (bin_gaussians_ranks): sorted_gauss holds DEPTH RANKS into a
+    # row table in depth order; these map its rows back to Gaussians
+    depth_order: Optional[torch.Tensor] = None  # (N,) int64 Gaussian id at each rank
+    inv_rank: Optional[torch.Tensor] = None  # (N,) int64 rank of each Gaussian
 
 
 def num_tiles(W: int, H: int, tile: int = TILE) -> tuple[int, int]:
@@ -201,3 +205,42 @@ def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor, depths: torch.Tens
     idx = torch.clamp(starts[:, None] + k, 0, max(N * M - 1, 0))
     tile_gauss = torch.where(k < counts[:, None], sorted_gauss[idx], torch.full_like(idx, N))
     return TileAssignment(tile_gauss.to(torch.int32), counts.to(torch.int32))
+
+
+def bin_gaussians_ranks(means2d: torch.Tensor, radii: torch.Tensor, depths: torch.Tensor,
+                        mask: torch.Tensor, W: int, H: int, max_tiles_per_gaussian: int = 16,
+                        conics=None, opacities=None, tile: int = TILE) -> PairAssignment:
+    """Pair-array binning keyed by the exact depth rank.  ``sorted_gauss``
+    holds ranks: the caller gathers its row table by ``depth_order`` and puts
+    per-Gaussian outputs back by ``inv_rank`` (``blend_image_resident`` does
+    both).  The rank is that of a STABLE argsort, as ``jnp.argsort`` gives
+    it; sentinel pairs carry rank N (the zero row past the table).  Raises
+    ``ValueError`` where the JAX package's int32 key would overflow (tile
+    bits + rank bits > 31), so both fail on the same inputs."""
+    N = means2d.shape[0]
+    tiles_x, tiles_y = num_tiles(W, H, tile)
+    T = tiles_x * tiles_y
+    M = max_tiles_per_gaussian
+    dev = means2d.device
+    rank_bits = N.bit_length()
+    tile_bits = (T + 1).bit_length()
+    if tile_bits + rank_bits > 31:
+        raise ValueError(f"{T} tiles x {N} gaussians overflow the JAX package's int32 key "
+                         f"({tile_bits}+{rank_bits} bits)")
+
+    depth_order = torch.argsort(depths, stable=True)  # (N,) front to back
+    inv_rank = torch.empty_like(depth_order)
+    inv_rank[depth_order] = torch.arange(N, device=dev)
+    # the pairs' tiles in rank space: the projection's outputs permuted once
+    tile_ids, pair_valid = _expand_pairs_mn(
+        means2d[depth_order], radii[depth_order], mask[depth_order], tiles_x, tiles_y, M,
+        None if conics is None else conics[depth_order],
+        None if opacities is None else opacities[depth_order], tile=tile)
+    rank = torch.arange(N, device=dev)[None, :].expand(M, N)
+    rank = torch.where(pair_valid, rank, torch.full_like(rank, N))
+    keys = ((tile_ids << rank_bits) | rank).reshape(-1)
+    sorted_keys, _ = torch.sort(keys)
+    sorted_rank = (sorted_keys & ((1 << rank_bits) - 1)).to(torch.int32)
+    starts, counts = _tile_segments(sorted_keys, T, rank_bits)
+    return PairAssignment(sorted_rank, starts.to(torch.int32), counts.to(torch.int32), sorted_keys,
+                          depth_order=depth_order, inv_rank=inv_rank)

@@ -36,8 +36,10 @@ YAML loads.  Fields that only chose a TPU strategy and that the port ignores:
 number of entries between two tile-exit checks, ``bf16_matmuls`` and
 ``grad_reduce`` (the port composites and reduces gradients in exact
 float32), ``stream_rows`` (row dump for the TPU backward), ``chunk`` (the
-XLA scan's chunk size).  ``binning: rank`` raises
-``NotImplementedError`` (ROADMAP.md queue A, ``bin_gaussians_ranks``).
+XLA scan's chunk size).  ``binning: rank`` on ``pallas_resident`` bins with
+``bin_gaussians_ranks`` (the pairs hold depth ranks into a row table in
+depth order; the same kernels B1/B2 composite it) and needs ``bwd_accum:
+true``; the other backends ignore ``binning``, as the JAX package's do.
 Unlike the JAX ``xla`` backend, which bins on fixed 16-px tiles, the port's
 ``xla`` backend uses ``tile_px`` like ``pallas_resident``.
 """
@@ -51,7 +53,7 @@ import torch
 
 from ..cameras import GSCameraInfo
 from ..sh import sh_to_rgb
-from .binning import bin_gaussians, bin_gaussians_pairs
+from .binning import bin_gaussians, bin_gaussians_pairs, bin_gaussians_ranks
 from .projection import ProjectedGaussians, project_gaussians, project_gaussians_sq
 from .resident_blend import blend_image_resident
 from .table_blend import blend_image_table
@@ -159,11 +161,13 @@ def _rasterize_projected(proj: ProjectedGaussians, colors: torch.Tensor,
         return RasterizeOutput(rgb, proj.radii, depth, alpha)
     if cfg.backend not in ("pallas_resident", "xla"):
         raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
-    if cfg.backend == "pallas_resident" and cfg.binning == "rank":
-        raise NotImplementedError(
-            "binning 'rank' is not ported yet: ROADMAP.md queue A, bin_gaussians_ranks; "
-            "use binning 'pairs'")
-    pa = bin_gaussians_pairs(
+    rank = cfg.backend == "pallas_resident" and cfg.binning == "rank"
+    if rank and not cfg.bwd_accum:
+        raise ValueError("binning 'rank' needs bwd_accum: true, as in the JAX package "
+                         "(ops/gs/rasterize.py:184): its per-pair backward reduces by the original "
+                         "pair ids, which rank binning does not produce")
+    binning = bin_gaussians_ranks if rank else bin_gaussians_pairs
+    pa = binning(
         proj.means2d.detach(), proj.radii, proj.depths.detach(), proj.mask, cfg.width,
         cfg.height, cfg.max_tiles_per_gaussian, conics=proj.conics.detach(),
         opacities=opacities.detach(), tile=cfg.tile_px,

@@ -448,14 +448,19 @@ class _BlendPairs(torch.autograd.Function):
     """Compositing with the replay backward: the forward saves (rows, pairs,
     starts, counts, out), the backward returns the gradient of ``rows``.
     CUDA tensors launch the kernels; CPU tensors, or ``plain``, take the
-    plain versions."""
+    plain versions.  With ``depth_order`` (rank mode) the pairs index a row
+    table in depth order: the forward gathers it (the sentinel row stays
+    last) and the backward puts the per-row sums back by ``inv_rank``
+    (``pallas_resident.py:404-407, 512-515``)."""
 
     @staticmethod
     def forward(ctx, rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels,
-                bwd_accum, plain):
+                bwd_accum, plain, depth_order=None, inv_rank=None):
+        if depth_order is not None:
+            rows = torch.cat([rows[:-1][depth_order], rows[-1:]], 0)
         fwd = blend_pairs_plain if plain else blend_pairs_cuda
         out = fwd(rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels)
-        ctx.save_for_backward(rows, pairs, starts, counts, out)
+        ctx.save_for_backward(rows, pairs, starts, counts, out, inv_rank)
         ctx.args = (tiles_x, tile, cap, group, n_channels)
         ctx.bwd_accum, ctx.plain = bwd_accum, plain
         return out
@@ -463,26 +468,32 @@ class _BlendPairs(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cot):
-        rows, pairs, starts, counts, out = ctx.saved_tensors
+        rows, pairs, starts, counts, out, inv_rank = ctx.saved_tensors
         bwd = blend_pairs_bwd_plain if ctx.plain else blend_pairs_bwd_cuda
         grads = bwd(rows, pairs, starts, counts, out, cot, *ctx.args,
                     per_pair=not ctx.bwd_accum)
         if not ctx.bwd_accum:
             grads = reduce_pair_grads(grads, pairs, starts, counts, rows.shape[0])
-        return (grads,) + (None,) * 10
+        if inv_rank is not None:
+            grads = torch.cat([grads[:-1][inv_rank], grads[-1:]], 0)
+        return (grads,) + (None,) * 12
 
 
 def blend_pairs(rows, pairs, starts, counts, tiles_x, tile, cap, group, n_channels,
-                plain: bool = False, bwd_accum: bool = True) -> torch.Tensor:
+                plain: bool = False, bwd_accum: bool = True, depth_order=None,
+                inv_rank=None) -> torch.Tensor:
     """Differentiable compositing (gradient to ``rows`` only).  CUDA tensors
     go through the kernels — ``resident_fwd`` forward and, in the backward,
     ``resident_bwd_accum`` (``bwd_accum``) or ``resident_bwd_pairs`` plus
     :func:`reduce_pair_grads` — or raise; CPU tensors, or ``plain=True``,
-    take :func:`blend_pairs_plain` and :func:`blend_pairs_bwd_plain`."""
+    take :func:`blend_pairs_plain` and :func:`blend_pairs_bwd_plain`.
+    ``depth_order`` / ``inv_rank`` (rank mode): the pairs are depth ranks,
+    ``rows`` stays in Gaussian order."""
     if rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no compositing path for device {rows.device}")
     return _BlendPairs.apply(rows, pairs, starts, counts, tiles_x, tile, cap, group,
-                             n_channels, bwd_accum, plain or rows.device.type == "cpu")
+                             n_channels, bwd_accum, plain or rows.device.type == "cpu",
+                             depth_order, inv_rank)
 
 
 def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torch.Tensor,
@@ -493,7 +504,9 @@ def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torc
     """Full-image blend: returns (rgb (H,W,C) with the background added,
     alpha (H,W,1) = 1 − T, depth (H,W,1)).  Differentiable in means2d,
     conics, colors, opacities, depths and the background; ``bwd_accum``
-    picks the backward kernel (per-Gaussian sums or per-pair rows)."""
+    picks the backward kernel (per-Gaussian sums or per-pair rows).  A
+    ``pa`` of :func:`~.binning.bin_gaussians_ranks` (its ``depth_order``
+    set) holds ranks: the row table is gathered in depth order."""
     C_user = colors.shape[-1]
     colors_aug = torch.cat([colors, depths[:, None]], -1)
     C = C_user + 1
@@ -502,7 +515,8 @@ def blend_image_resident(pa: PairAssignment, means2d: torch.Tensor, conics: torc
     out = blend_pairs(rows, pa.sorted_gauss.to(torch.int32).contiguous(),
                       pa.starts.to(torch.int32).contiguous(),
                       pa.counts.to(torch.int32).contiguous(),
-                      tiles_x, tile, cap, group, C, plain=plain, bwd_accum=bwd_accum)
+                      tiles_x, tile, cap, group, C, plain=plain, bwd_accum=bwd_accum,
+                      depth_order=pa.depth_order, inv_rank=pa.inv_rank)
     return finish_image(out, C_user, W, H, tile, background)
 
 

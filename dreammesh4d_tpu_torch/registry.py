@@ -1,23 +1,52 @@
 """Component registry (counterpart of ``dreammesh4d_tpu/__init__.py:15-48``):
-components register under a string name, ``find`` resolves a name to a class,
-and ``"main:sub1,sub2"`` composes classes dynamically.
+components register under a string name, ``find`` resolves a name to a class
+or a factory, and ``"main:sub1,sub2"`` composes classes dynamically.
 
-The port registers the names its YAML-driven stages resolve:
-``zero123-system``, ``sugar-static-system``, ``sugar-4dgen-system``,
-``single-image-datamodule``, ``temporal-image-datamodule``,
-``random-camera-datamodule``, ``stable-zero123-guidance``,
-``temporal-stable-zero123-guidance`` and ``zero123-guidance``, and the
-zoo's ``dreamfusion-system``, ``magic3d-system``,
-``efficient-dreamfusion-system``, ``magic123-system``,
-``image-condition-dreamfusion-system``, ``stable-diffusion-guidance``,
-``stable-diffusion-prompt-processor`` and ``dummy-prompt-processor``.
+The port registers:
+- the systems: ``zero123-system``, ``sugar-static-system``,
+  ``sugar-4dgen-system`` and the zoo's ``dreamfusion-system``,
+  ``magic3d-system``, ``efficient-dreamfusion-system``, ``magic123-system``,
+  ``image-condition-dreamfusion-system``, ``latentnerf-system``,
+  ``sjc-system`` and ``prolificdreamer-system``;
+- the data modules ``single-image-datamodule``,
+  ``temporal-image-datamodule`` and ``random-camera-datamodule``;
+- the guidance and prompts: ``stable-zero123-guidance``,
+  ``temporal-stable-zero123-guidance``, ``zero123-guidance``,
+  ``stable-diffusion-guidance``, ``stable-diffusion-vsd-guidance``,
+  ``stable-diffusion-prompt-processor`` and ``dummy-prompt-processor``;
+- the materials ``no-material`` and ``diffuse-with-point-light-material``;
+- the factories of ``models/registry_names.py``, where ``find(name)(cfg)``
+  returns a constructed component: ``sugar``, ``dynamic-sugar``,
+  ``gaussian-splatting``, ``implicit-volume``,
+  ``diff-sugar-rasterizer-{normal,temporal,shading}``,
+  ``nerf-volume-renderer``, ``mesh-exporter``, ``gaussian-mesh-exporter``,
+  ``gaussian-splatting-io``, ``perceptual-loss`` and ``dummy-exporter``.
+
 ``find`` imports the modules that register them on first use, so importing
-the package stays light.
+the package stays light.  A JAX name whose module is still queued
+(:data:`QUEUED`) raises ``KeyError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 __modules__: dict = {}
+
+# the JAX package's names whose modules the port has not got yet: name -> the ROADMAP item
+QUEUED = {
+    **dict.fromkeys(("stable-diffusion-unified-guidance", "zero123-unified-guidance"), "ROADMAP A8.1"),
+    **dict.fromkeys(("pbr-material", "neural-radiance-material", "hybrid-rgb-latent-material",
+                     "sd-latent-adapter-material", "neural-environment-map-background",
+                     "gaussian-mvdream-neural-environment-map-background", "solid-color-background",
+                     "textured-background"), "ROADMAP A8.2"),
+    **dict.fromkeys(("implicit-sdf", "neus-volume-renderer", "tetrahedra-sdf-grid", "nvdiff-rasterizer",
+                     "patch-renderer", "custom-mesh", "volume-grid", "fantasia3d-system",
+                     "textmesh-system", "zero123-simple-system"), "ROADMAP A8.3"),
+    **dict.fromkeys(("stable-diffusion-controlnet-guidance", "stable-diffusion-instructpix2pix-guidance",
+                     "deep-floyd-guidance", "deep-floyd-prompt-processor"), "ROADMAP A8.5"),
+    **dict.fromkeys(("instructnerf2nerf-system", "control4d-system", "control4d-multiview-system",
+                     "gan-volume-renderer"), "ROADMAP A8.6"),
+    **dict.fromkeys(("co3d-datamodule", "multiview-camera-datamodule"), "ROADMAP A8.7"),
+}
 
 
 def register(name: str):
@@ -46,6 +75,8 @@ def find(name: str):
     if name not in __modules__:
         _import_builtin_modules()
     if name not in __modules__:
+        if name in QUEUED:
+            raise KeyError(f"{name!r} is not ported yet: {QUEUED[name]}")
         raise KeyError(f"No registered module named {name!r}. Known: {sorted(__modules__)}")
     return __modules__[name]
 
@@ -53,7 +84,7 @@ def find(name: str):
 def _import_builtin_modules() -> None:
     # imported for their @register side effects
     from .data import image, temporal_image, uncond  # noqa: F401
-    from .models import prompt_processors  # noqa: F401
+    from .models import materials, prompt_processors, registry_names  # noqa: F401
     from .models.guidance import stable_diffusion  # noqa: F401
     from .models.guidance.zero123 import guidance  # noqa: F401
     from .systems import assembly, assembly_zoo  # noqa: F401

@@ -166,17 +166,26 @@ def vsd_guidance_fn(pack):
     return vsd_fn
 
 
+_SHAPE_LOSSES: dict = {}  # (path, mtime, size, device) -> ShapeLoss: the bake is read-only after init
+
+
 def build_shape_loss(system: dict, device):
     """The sketch-shape loss of ``system.guide_shape``, or None without one;
     a path that names no file drops the term with a warning (the JAX
-    package drops it silently)."""
+    package drops it silently).  The guide's grids are baked once per file
+    (its path, modification time and size) and device in a process, so the
+    verbs of one guide share a bake."""
     guide = str(system.get("guide_shape", "") or "")
     if not guide:
         return None
     if not os.path.exists(guide):
         log.warning("system.guide_shape %r names no file: the sketch-shape term is dropped", guide)
         return None
-    return ShapeLoss(guide, device=device)
+    st = os.stat(guide)
+    key = (os.path.realpath(guide), st.st_mtime_ns, st.st_size, str(torch.device(device)))
+    if key not in _SHAPE_LOSSES:
+        _SHAPE_LOSSES[key] = ShapeLoss(guide, device=device)
+    return _SHAPE_LOSSES[key]
 
 
 class ZooNeRFBase(NeRFSceneExperiment):

@@ -1,6 +1,6 @@
 """Artifact saving under a trial's ``save`` directory (counterpart of
 ``dreammesh4d_tpu/utils/saving.py`` ``Saver``): image grids of typed
-layers, image sequences, json and npz dumps.  Images are written by the
+layers (grey or colour-mapped), image sequences, json and npz dumps.  Images are written by the
 port's own PNG writer (:mod:`..data.png`), so nothing beyond numpy is
 needed.
 
@@ -21,6 +21,7 @@ import numpy as np
 
 from ..data.png import write_png
 from ..parallel import mesh as _mesh
+from .colormaps import apply_colormap
 
 _PNG_FILTER = 1  # Sub: the cheapest filter to compute, and it compresses renders well
 
@@ -48,14 +49,15 @@ class Saver:
 
     @staticmethod
     def _gray(img: np.ndarray, cmap: Optional[str], data_range=None) -> np.ndarray:
-        """A grey layer normalized to its range (or ``data_range``) as RGB;
-        colour maps are not ported."""
-        if cmap is not None:
-            raise NotImplementedError(f"colour map {cmap!r}: the port writes grey layers only")
+        """A grey layer normalized to its range (or ``data_range``) as RGB:
+        grey, or through the colour map ``cmap`` (``jet``, ``magma`` or
+        ``viridis``; another name raises ``KeyError``)."""
         g = np.asarray(img, np.float32)
         lo, hi = (float(g.min()), float(g.max())) if data_range is None else data_range
         g8 = (np.clip((g - lo) / max(hi - lo, 1e-8), 0, 1) * 255).astype(np.uint8)
-        return np.stack([g8] * 3, -1)
+        if cmap is None:
+            return np.stack([g8] * 3, -1)
+        return apply_colormap(g8, cmap)
 
     def save_image_grid(self, name: str, layers: List[dict], align: str = "h") -> str:
         """``layers``: ``[{"type": "rgb" | "grayscale", "img": (H, W, 3) /

@@ -29,6 +29,7 @@ import math
 import os
 
 import pytest
+import torch
 import yaml
 
 from dreammesh4d_tpu.config import config_to_primitive as j_config_to_primitive
@@ -36,6 +37,16 @@ from dreammesh4d_tpu.config import load_config as j_load_config
 from dreammesh4d_tpu_torch import registry
 from dreammesh4d_tpu_torch.config import config_to_primitive, dump_config, load_config
 from dreammesh4d_tpu_torch.utils import yaml_lite
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))

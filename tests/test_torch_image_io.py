@@ -13,6 +13,8 @@
   up-scales and mixed factors.
 - ``load_rgba`` equals the JAX package's (cv2-based) ``load_rgba`` bit for bit.
 - Files outside the supported kinds raise ``PNGError``.
+- The saver's colour maps (``jet``, ``magma``, ``viridis``) equal the JAX
+  ``Saver._colorize`` (OpenCV's ``applyColorMap``) bit for bit.
 """
 
 import os
@@ -20,6 +22,7 @@ import struct
 import zlib
 
 import cv2
+import torch
 import numpy as np
 import pytest
 from PIL import Image
@@ -27,6 +30,15 @@ from PIL import Image
 from dreammesh4d_tpu.data.image import load_rgba as j_load_rgba
 from dreammesh4d_tpu_torch.data import png
 from dreammesh4d_tpu_torch.data.image import load_rgba
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _image(h, w, c, smooth, seed=0):
@@ -140,3 +152,27 @@ def test_encoder_refuses_what_it_cannot_write():
         png.encode_png(np.zeros((4, 4, 5), np.uint8))
     with pytest.raises(png.PNGError):
         png.encode_png(np.zeros((4, 4, 3), np.uint8), filter_type=5)
+
+
+@pytest.mark.parametrize("cmap", ["jet", "magma", "viridis", None])
+def test_colour_maps_equal_jax(tmp_path, cmap):
+    """A grey layer through the port's colour tables is bit-equal to the JAX
+    ``Saver._colorize`` (OpenCV's ``applyColorMap``), with and without
+    ``data_range``, and so is the grid ``save_image_grid`` writes; an
+    unknown name raises ``KeyError`` in both."""
+    from dreammesh4d_tpu.utils.saving import Saver as JSaver
+    from dreammesh4d_tpu_torch.utils.saving import Saver
+
+    g = np.random.default_rng(7).uniform(-1.0, 3.0, (40, 50)).astype(np.float32)
+    for data_range in (None, (0.0, 2.0)):
+        np.testing.assert_array_equal(Saver._gray(g, cmap, data_range), JSaver._colorize(g, cmap, data_range))
+    rgb = np.random.default_rng(8).random((40, 50, 3)).astype(np.float32)
+    layers = [{"type": "rgb", "img": rgb}, {"type": "grayscale", "img": g[..., None], "kwargs": {"cmap": cmap}}]
+    path = Saver(str(tmp_path / "port")).save_image_grid("grid.png", layers)
+    jpath = JSaver(str(tmp_path / "jax")).save_image_grid("grid.png", layers)
+    np.testing.assert_array_equal(png.read_png(path), np.asarray(Image.open(jpath)))
+    if cmap is not None:
+        with pytest.raises(KeyError):
+            Saver._gray(g, cmap.upper())
+        with pytest.raises(KeyError):
+            JSaver._colorize(g, cmap.upper())

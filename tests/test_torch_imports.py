@@ -19,6 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
@@ -53,7 +63,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "parallel", "parallel.mesh", "parallel.context", "parallel.sharding_rules", "dryrun",
                "scripts.render_4d", "models.guidance.stable_diffusion", "models.prompt_processors",
                "systems.threestudio_zoo", "systems.assembly_zoo", "systems.threestudio_zoo2",
-               "models.guidance.vsd", "ops.shape_loss", "models.geometry.volume_grid")
+               "models.guidance.vsd", "ops.shape_loss", "models.geometry.volume_grid",
+               "models.registry_names", "utils.colormaps")
 
 
 def test_port_imports_no_jax():

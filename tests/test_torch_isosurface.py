@@ -10,6 +10,7 @@ the C++ source into ``dreammesh4d_tpu_torch/_build/``; a failed build raises.
 
 import numpy as np
 import pytest
+import torch
 from scipy.ndimage import uniform_filter
 
 from dreammesh4d_tpu.export import isosurface as jiso
@@ -17,6 +18,15 @@ from dreammesh4d_tpu.export.mesh_io import MeshData as JMeshData
 from dreammesh4d_tpu_torch import host_build
 from dreammesh4d_tpu_torch.export import isosurface as tiso
 from dreammesh4d_tpu_torch.export.mesh_io import MeshData
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def sphere_density(res=48, radius=0.6):

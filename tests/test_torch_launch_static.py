@@ -32,7 +32,8 @@ The guidance paths (off, missing, ``allow_missing``, random weights and a
 checkpoint); more than one device outside the launcher's process group
 raises (``tests/test_torch_launch_multidevice.py`` runs it through the
 launcher); ``zero123-system`` and the Gaussian stage build since they run
-from their YAML.
+from their YAML.  The launcher takes the JAX launcher's ``--gpu``,
+``--verbose`` and ``--typecheck`` and keeps them out of the dotlist.
 """
 
 import os
@@ -299,3 +300,35 @@ def test_export_writes_mesh_and_gaussians(dotlist, tmp_path):
     np.testing.assert_allclose(g["xyz"], attrs.means3d.numpy(), rtol=0, atol=1e-6)
     np.testing.assert_allclose(g["opacity_logits"], saved["params"]["density_logits"].numpy().reshape(-1),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("flags", [["--gpu", "0"], ["--gpu=1"], ["--verbose"], ["--typecheck"]])
+def test_parse_args_takes_the_jax_launchers_flags(flags):
+    """``--gpu``, ``--verbose`` and ``--typecheck`` (JAX ``launch.py:162,
+    168-170``) are accepted and stay out of the dotlist."""
+    from dreammesh4d_tpu_torch import launch
+
+    args, extras = launch.parse_args(["--config", YAML, "--export", *flags])
+    assert extras == [] and args.export and args.device == "cuda"
+    args, extras = launch.parse_args(["--config", YAML, *flags, "--train", "--device", "cpu", "tag=x"])
+    assert extras == ["tag=x"] and args.train and args.device == "cpu"
+
+
+def test_launcher_runs_a_verb_with_the_jax_launchers_flags(dotlist, tmp_path, caplog):
+    """``main`` runs ``--export`` of a saved static checkpoint with all three
+    flags on its command line; ``--typecheck`` logs that the port has no
+    shape annotations to check."""
+    from dreammesh4d_tpu_torch import launch
+    from dreammesh4d_tpu_torch.utils.checkpoint import save_checkpoint
+
+    extras = dotlist + [f"exp_root_dir={tmp_path}", "tag=flags"]
+    args, got = launch.parse_args(["--config", YAML, "--gpu", "0", "--verbose", "--typecheck", "--export",
+                                   "--device", "cpu", *extras, "resume=LAST"])
+    assert got == extras + ["resume=LAST"] and args.typecheck and args.verbose
+    cfg = load_config(YAML, cli_args=extras)
+    save_checkpoint(os.path.join(cfg.trial_dir, "ckpts"), 2,
+                    assembly.build_experiment(cfg, device="cpu").state_for_checkpoint())
+    with caplog.at_level("INFO"):
+        launch.main(args, got)
+    assert sorted(os.listdir(os.path.join(cfg.trial_dir, "save"))) == ["gaussians.ply", "refined_mesh.obj"]
+    assert "--typecheck: the port has no shape annotations" in caplog.text

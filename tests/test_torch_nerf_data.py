@@ -11,6 +11,7 @@ which pass through a 4×4 inverse).
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import dreammesh4d_tpu.models.renderers.nerf_volume_renderer as jnr
@@ -22,6 +23,15 @@ from dreammesh4d_tpu_torch.data.uncond import RandomCameraConfig, RandomCameraSa
 from dreammesh4d_tpu_torch.models.materials import DiffuseWithPointLightMaterial
 from dreammesh4d_tpu_torch.models.renderers import nerf_volume_renderer as tnr
 from dreammesh4d_tpu_torch.ops import cameras as tcam
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_rays(n, seed=3):

@@ -72,10 +72,11 @@ def camera():
 
 
 def j_projected(scene, cam):
+    """The JAX projection, jitted (eagerly every op compiles on first use)."""
     t = float(np.tan(FOV / 2))
-    return j_project_sq(jnp.asarray(scene["means"]), jnp.asarray(scene["scales"]),
-                        jnp.asarray(scene["quats"]), cam.world_view_transform,
-                        cam.full_proj_transform, t, t, W, W)
+    return jax.jit(lambda m, s, q, wv, fp: j_project_sq(m, s, q, wv, fp, t, t, W, W))(
+        jnp.asarray(scene["means"]), jnp.asarray(scene["scales"]), jnp.asarray(scene["quats"]),
+        cam.world_view_transform, cam.full_proj_transform)
 
 
 @pytest.mark.parametrize("path", ["scales_quats", "cov3d"])
@@ -88,9 +89,9 @@ def test_project_gaussians(path):
         tp = project_gaussians_sq(_t(scene["means"]), _t(scene["scales"]), _t(scene["quats"]),
                                   wv, fp, t, t, W, W)
     else:
-        cov = j_cov3d(jnp.asarray(scene["scales"]), jnp.asarray(scene["quats"]))
-        jp = j_project(jnp.asarray(scene["means"]), cov, cam.world_view_transform,
-                       cam.full_proj_transform, t, t, W, W)
+        cov, jp = jax.jit(lambda s, q, m, wv, fp: (lambda c: (c, j_project(m, c, wv, fp, t, t, W, W)))(
+            j_cov3d(s, q)))(jnp.asarray(scene["scales"]), jnp.asarray(scene["quats"]),
+                            jnp.asarray(scene["means"]), cam.world_view_transform, cam.full_proj_transform)
         tcov = compute_cov3d(_t(scene["scales"]), _t(scene["quats"]))
         np.testing.assert_allclose(tcov.numpy(), np.asarray(cov), atol=1e-7, rtol=1e-5)
         tp = project_gaussians(_t(scene["means"]), tcov, wv, fp, t, t, W, W)
@@ -112,8 +113,9 @@ def _segments(sorted_gauss, starts, counts):
 def test_bin_gaussians_pairs(tile):
     scene, cam = make_scene(), camera()
     jp = j_projected(scene, cam)
-    jpa = j_bin_pairs(jp.means2d, jp.radii, jp.depths, jp.mask, W, W, 6, need_origpos=False,
-                      conics=jp.conics, opacities=jnp.asarray(scene["opac"]), tile=tile)
+    jpa = jax.jit(lambda jp, op: j_bin_pairs(jp.means2d, jp.radii, jp.depths, jp.mask, W, W, 6,
+                                             need_origpos=False, conics=jp.conics, opacities=op,
+                                             tile=tile))(jp, jnp.asarray(scene["opac"]))
     tpa = bin_gaussians_pairs(_t(jp.means2d), _t(jp.radii), _t(jp.depths), _t(jp.mask), W, W, 6,
                               conics=_t(jp.conics), opacities=_t(scene["opac"]), tile=tile)
     np.testing.assert_array_equal(tpa.counts.numpy(), np.asarray(jpa.counts))
@@ -135,12 +137,17 @@ def test_plain_blend_matches_jax_resident_kernel(tile):
     scene, cam = make_scene(), camera()
     jp = j_projected(scene, cam)
     op = jnp.asarray(scene["opac"])
-    jpa = j_bin_pairs(jp.means2d, jp.radii, jp.depths, jp.mask, W, W, 6, need_origpos=False,
-                      conics=jp.conics, opacities=op, tile=tile)
     bg = np.float32([0.3, 0.2, 0.1, 0.0, 0.0, 0.0])
-    ref = j_blend_resident(jpa, jp.means2d, jp.conics, jnp.asarray(scene["colors"]), op, jp.depths,
-                           W, W, jnp.asarray(bg), cap=256, interpret=True, group=32,
-                           mm_bf16=False, stream_rows=False, tile=tile)
+
+    @jax.jit  # the JAX binning and kernel in one program
+    def j_render(jp, colors, op, bg):
+        jpa = j_bin_pairs(jp.means2d, jp.radii, jp.depths, jp.mask, W, W, 6, need_origpos=False,
+                          conics=jp.conics, opacities=op, tile=tile)
+        return jpa, j_blend_resident(jpa, jp.means2d, jp.conics, colors, op, jp.depths, W, W, bg,
+                                     cap=256, interpret=True, group=32, mm_bf16=False,
+                                     stream_rows=False, tile=tile)
+
+    jpa, ref = j_render(jp, jnp.asarray(scene["colors"]), op, jnp.asarray(bg))
     pa = PairAssignment(_t(jpa.sorted_gauss), _t(jpa.starts), _t(jpa.counts), None)
     out = rb.blend_image_resident(pa, _t(jp.means2d), _t(jp.conics), _t(scene["colors"]),
                                   _t(scene["opac"]), _t(jp.depths), W, W, _t(bg), cap=256,
@@ -261,14 +268,3 @@ def test_rasterize_matches_jax_xla(tile):
     np.testing.assert_allclose(out.alpha.numpy(), np.asarray(ref.alpha), atol=3e-3)
     np.testing.assert_allclose(out.depth.numpy(), np.asarray(ref.depth), atol=6e-3)
     assert float(out.alpha.max()) > 0.5
-
-
-@pytest.mark.parametrize("overrides", [dict(backend="pallas_resident", binning="rank")])
-def test_unported_backends_raise(overrides):
-    scene, cam = make_scene(N=20), camera()
-    t = float(np.tan(FOV / 2))
-    cfg = RasterizerConfig(width=32, height=32, tan_fovx=t, tan_fovy=t, **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rasterize(scene["means"], scene["opac"], tuple(np.asarray(x) for x in cam), cfg,
-                  np.zeros(3, np.float32), colors=scene["colors"][:, :3], scales=scene["scales"],
-                  quats=scene["quats"], device="cpu")

@@ -4,6 +4,10 @@ of ``tests/test_registry_parity.py``.
 - Every name the port registers (after ``_import_builtin_modules``) is one
   the JAX package registers (``dreammesh4d_tpu`` with its
   ``models/registry_names.py``): the port adds no component name of its own.
+- Every name the JAX package registers is in the port or in ``QUEUED``, the
+  names still to port, each with its ROADMAP item (also the port's
+  ``registry.QUEUED``, whose ``KeyError`` names it): a name missing from
+  both fails.
 - Each port name resolves to a class, never a module, and the names the
   port's stages and the zoo build from their YAML resolve to the classes
   that build them; ``"a:b"`` composes.
@@ -14,10 +18,21 @@ of ``tests/test_registry_parity.py``.
 import types
 
 import pytest
+import torch
 
 import dreammesh4d_tpu as ds
 from dreammesh4d_tpu_torch import registry
 from dreammesh4d_tpu_torch.systems import assembly
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 EXPECTED = {  # name: (module, class) in the port
     "zero123-system": ("systems.assembly", "Zero123Experiment"),
@@ -44,6 +59,23 @@ EXPECTED = {  # name: (module, class) in the port
 }
 
 
+QUEUED = {  # JAX names the port has not got yet: the ROADMAP item that brings each
+    "stable-diffusion-unified-guidance": "A8.1", "zero123-unified-guidance": "A8.1",
+    "pbr-material": "A8.2", "neural-radiance-material": "A8.2", "hybrid-rgb-latent-material": "A8.2",
+    "sd-latent-adapter-material": "A8.2", "neural-environment-map-background": "A8.2",
+    "gaussian-mvdream-neural-environment-map-background": "A8.2", "solid-color-background": "A8.2",
+    "textured-background": "A8.2",
+    "implicit-sdf": "A8.3", "neus-volume-renderer": "A8.3", "tetrahedra-sdf-grid": "A8.3",
+    "nvdiff-rasterizer": "A8.3", "patch-renderer": "A8.3", "custom-mesh": "A8.3", "volume-grid": "A8.3",
+    "fantasia3d-system": "A8.3", "textmesh-system": "A8.3", "zero123-simple-system": "A8.3",
+    "stable-diffusion-controlnet-guidance": "A8.5", "stable-diffusion-instructpix2pix-guidance": "A8.5",
+    "deep-floyd-guidance": "A8.5", "deep-floyd-prompt-processor": "A8.5",
+    "instructnerf2nerf-system": "A8.6", "control4d-system": "A8.6", "control4d-multiview-system": "A8.6",
+    "gan-volume-renderer": "A8.6",
+    "co3d-datamodule": "A8.7", "multiview-camera-datamodule": "A8.7",
+}
+
+
 @pytest.fixture(scope="module")
 def names():
     registry._import_builtin_modules()
@@ -55,6 +87,17 @@ def test_port_names_are_jax_names(names):
     port, jax_names = names
     assert set(EXPECTED) <= set(port)
     assert sorted(set(port) - jax_names) == []
+
+
+def test_jax_names_are_ported_or_queued(names):
+    port, jax_names = names
+    assert sorted(jax_names - set(port) - set(QUEUED)) == []  # neither ported nor queued
+    assert sorted(set(QUEUED) & set(port)) == []  # ported: take it off the queue
+    assert set(QUEUED) <= jax_names
+    assert {k: f"ROADMAP {v}" for k, v in QUEUED.items()} == registry.QUEUED
+    for name, item in QUEUED.items():
+        with pytest.raises(KeyError, match=f"ROADMAP {item}"):
+            registry.find(name)
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))

@@ -29,6 +29,7 @@ plain forward stays within the JAX resident kernel's bands of
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -330,13 +331,17 @@ def test_quadrant_kept_plain(scene):
 def test_plain_blend_on_walls_matches_jax_resident_kernel(quadrant_only):
     means, conics, colors, op, depths, radii = _wall_inputs(quadrant_only)
     n = len(op)
-    jpa = j_bin_pairs(jnp.asarray(means), jnp.asarray(radii), jnp.asarray(depths),
-                      jnp.ones(n, bool), W, W, 6, need_origpos=False, conics=jnp.asarray(conics),
-                      opacities=jnp.asarray(op), tile=TILE)
     bg = np.float32([0.3, 0.2, 0.1])
-    ref = j_blend_resident(jpa, jnp.asarray(means), jnp.asarray(conics), jnp.asarray(colors),
-                           jnp.asarray(op), jnp.asarray(depths), W, W, jnp.asarray(bg), cap=CAP,
-                           interpret=True, group=32, mm_bf16=False, stream_rows=False, tile=TILE)
+
+    @jax.jit  # the JAX binning and kernel in one program: eagerly every op compiles on first use
+    def j_render(means, radii, depths, conics, colors, op, bg):
+        jpa = j_bin_pairs(means, radii, depths, jnp.ones(n, bool), W, W, 6, need_origpos=False,
+                          conics=conics, opacities=op, tile=TILE)
+        return jpa, j_blend_resident(jpa, means, conics, colors, op, depths, W, W, bg, cap=CAP,
+                                     interpret=True, group=32, mm_bf16=False, stream_rows=False,
+                                     tile=TILE)
+
+    jpa, ref = j_render(*(jnp.asarray(x) for x in (means, radii, depths, conics, colors, op, bg)))
     pa = PairAssignment(*(torch.as_tensor(np.asarray(x)) for x in (jpa.sorted_gauss, jpa.starts, jpa.counts)),
                         None)
     t = torch.as_tensor

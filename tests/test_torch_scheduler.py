@@ -31,6 +31,16 @@ from dreammesh4d_tpu.systems import optim as joptim
 from dreammesh4d_tpu_torch.config import load_config
 from dreammesh4d_tpu_torch.systems import optim
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = np.arange(0, 301)
 

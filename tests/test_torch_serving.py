@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import dreammesh4d_tpu.models.geometry.deformation as jdef
 import dreammesh4d_tpu.models.geometry.dynamic_sugar as jdyn
@@ -23,6 +24,16 @@ from dreammesh4d_tpu.serving import Viewer4D as JViewer4D
 from dreammesh4d_tpu.utils.procedural import make_icosphere
 from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.serving import Viewer4D
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 H = W = 64
 FOVY = 20.0
@@ -95,8 +106,6 @@ def test_render_builds_no_autograd_graph(viewers):
     """Serving pays nothing for the differentiable blend: even with
     parameters that require grad, ``Viewer4D`` renders under inference mode
     and neither the frames nor the eval render's outputs carry a graph."""
-    import torch
-
     _, tv = viewers
     leaves = [p for planes in tv.deform_params["grids"] for p in planes]
     for p in leaves:

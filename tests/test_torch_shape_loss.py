@@ -29,6 +29,15 @@ from dreammesh4d_tpu_torch.models.geometry import volume_grid as pvg
 from dreammesh4d_tpu_torch.ops import shape_loss as psl
 from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 def write_guide_obj(path) -> str:
     """A closed, asymmetric 80-face mesh as an OBJ at ``path``."""

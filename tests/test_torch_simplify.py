@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from dreammesh4d_tpu.export.decimate import quadric_decimate as j_quadric_decimate
 from dreammesh4d_tpu.export.mesh_io import MeshData as JMeshData
@@ -28,6 +29,16 @@ from dreammesh4d_tpu_torch.export.decimate import quadric_decimate
 from dreammesh4d_tpu_torch.export.mesh_io import MeshData, save_obj
 from dreammesh4d_tpu_torch.scripts import mesh_simplification as tool
 from dreammesh4d_tpu_torch.utils.procedural import make_icosphere
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """With several test workers on the cores, torch's intra-op pool would
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

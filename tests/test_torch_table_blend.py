@@ -78,14 +78,15 @@ def _t(x):
 def test_bin_gaussians_matches_jax(W, K, M):
     scene, cam = make_scene(200, 0), camera()
     t = float(np.tan(FOV / 2))
-    proj = j_project_sq(jnp.asarray(scene["means"]), jnp.asarray(scene["scales"]),
-                        jnp.asarray(scene["quats"]), cam.world_view_transform,
-                        cam.full_proj_transform, t, t, W, W)
+    # the JAX side jitted: eagerly every op compiles on first use
+    proj = jax.jit(lambda m, s, q: j_project_sq(m, s, q, cam.world_view_transform,
+                                                cam.full_proj_transform, t, t, W, W))(
+        jnp.asarray(scene["means"]), jnp.asarray(scene["scales"]), jnp.asarray(scene["quats"]))
     # equal depths in both packages: the stable order keeps their index order
     depths = proj.depths.at[10:20].set(proj.depths[5])
     op = jnp.asarray(scene["opac"])
-    ref = j_bin_gaussians(proj.means2d, proj.radii, depths, proj.mask, W, W, K, M,
-                          conics=proj.conics, opacities=op)
+    ref = jax.jit(lambda *a: j_bin_gaussians(*a[:4], W, W, K, M, conics=a[4], opacities=a[5]))(
+        proj.means2d, proj.radii, depths, proj.mask, proj.conics, op)
     got = bin_gaussians(_t(proj.means2d), _t(proj.radii), _t(depths), _t(proj.mask), W, W, K, M,
                         conics=_t(proj.conics), opacities=_t(op))
     np.testing.assert_array_equal(got.tile_gauss.numpy(), np.asarray(ref.tile_gauss))
@@ -107,9 +108,10 @@ def test_bin_gaussians_key_overflow(n, side, raises):
     args = [rng.uniform(0, side, (n, 2)).astype(np.float32), np.full(n, 3, np.int32),
             rng.uniform(1, 3, n).astype(np.float32), np.ones(n, bool)]
     outcomes = []
-    for fn, conv in ((j_bin_gaussians, jnp.asarray), (bin_gaussians, _t)):
+    j_bin = jax.jit(lambda *a: j_bin_gaussians(*a, side, side, 1, 1))
+    for fn, conv in ((j_bin, jnp.asarray), (lambda *a: bin_gaussians(*a, side, side, 1, 1), _t)):
         try:
-            out = fn(*(conv(a) for a in args), side, side, 1, 1)
+            out = fn(*(conv(a) for a in args))
             outcomes.append(int(np.asarray(out.tile_counts).sum()))
         except ValueError as e:
             assert "overflow" in str(e)
@@ -167,11 +169,18 @@ def test_table_blend_matches_jax_kernel(case, monkeypatch):
         return jblend.blend_tiles_pallas(jnp.asarray(tile_gauss), jnp.asarray(clipped), m, cc, o,
                                          W, W, C, True, group)
 
-    ref, vjp = jax.vjp(j_blend, jnp.asarray(means), (jnp.asarray(conics), jnp.asarray(colors)),
-                       jnp.asarray(op))
     rows = rb._pack_rows(_t(means), _t(conics), _t(colors), _t(op))
     stats = {}
     out = tb.blend_table_plain(rows, _t(tile_gauss), _t(counts), 2, group, C, stats=stats)
+    cot = np.random.default_rng(4).normal(size=out.shape).astype(np.float32)
+
+    @jax.jit  # the JAX forward and its vjp in one program: eagerly every op compiles on first use
+    def j_blend_vjp(m, cc, o, g):
+        ref, vjp = jax.vjp(j_blend, m, cc, o)
+        return ref, vjp(g)
+
+    ref, (d_means, (d_conics, d_colors), d_op) = j_blend_vjp(
+        jnp.asarray(means), (jnp.asarray(conics), jnp.asarray(colors)), jnp.asarray(op), jnp.asarray(cot))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
     if case == "empty_tiles":
         np.testing.assert_array_equal(out.numpy()[counts == 0, C], 1.0)
@@ -179,8 +188,6 @@ def test_table_blend_matches_jax_kernel(case, monkeypatch):
         assert stats["pairs_read"] < clipped.sum()  # some tile stopped early
     assert stats["pairs_read"] <= clipped.sum()
 
-    cot = np.random.default_rng(4).normal(size=out.shape).astype(np.float32)
-    d_means, (d_conics, d_colors), d_op = vjp(jnp.asarray(cot))
     grads = tb.blend_table_bwd_plain(rows, _t(tile_gauss), _t(counts), out, _t(cot), 2, group, C)
     assert float(grads[-1].abs().max()) == 0.0  # the sentinel row
     for name, got, want in (("means", grads[:-1, 0:2], d_means), ("conics", grads[:-1, 2:5], d_conics),
