@@ -195,10 +195,10 @@ Phases, each of which fails the run on a failed check:
     [2,1] and [1,2] and sugar_static_refine.yaml at [2,1], MULTI_STEPS steps
     with the guidance at ``random:0`` (MULTI_DTYPE, output convolutions
     drawn, cuDNN TF32 off) against one process: the first step's losses and
-    gradient within MULTI_RTOL, the later steps' losses within
-    MULTI_RTOL_LATER; the dynamic [2,1] layout in bf16 printed; each
-    rank's B1/B2 launches its share of the views, the Gaussian stage at
-    [2,1] across a densify with ``n_alive`` equal on both ranks, ms/step and
+    gradient within MULTI_RTOL, the later step's losses within
+    MULTI_RTOL_LATER; each rank's B1/B2 launches its share of the views,
+    the Gaussian stage at [2,1] across a densify (MULTI_GS_STEPS steps)
+    with ``n_alive`` equal on both ranks, ms/step and
     peak memory per rank, the UNet's bytes per rank at tp=2 and 1; and
     ``scripts/render_4d`` frame (byte-equal to ``write_png`` of
     ``Viewer4D.render``), orbit and play on phase 9's dynamic trial;
@@ -255,9 +255,25 @@ Phases, each of which fails the run on a failed check:
     printed); the 13 factory names of ``models/registry_names.py`` built on
     the card with a forward each; an image grid with a ``jet`` depth layer
     equal to the port's table;
+20. the unified guidance, the materials and backgrounds and Adan
+    (``drive_components``, run after 19, before the lines of 15): each
+    built through ``registry.find(name)(cfg)`` (Adan from Python):
+    ``stable-diffusion-unified-guidance`` at SD 1.5's widths (float32,
+    every weight drawn), Perp-Neg SDS on 3 renders at 512² (one in each
+    branch: front-side, side-back, overhead) and the ``vsd`` dispatch with a
+    rank-8 LoRA; ``zero123-unified-guidance`` at Stable Zero123's widths,
+    ``sds`` and ``vsd`` (phi scale 1.5, the camera token, one view's camera
+    dropped); each card against CPU on the same weights and draws within
+    UNIFIED_TOL / UNIFIED_GRAD_TOL and timed (CUDA events); the 8 material
+    and background names on COMP_POINTS points, forward + backward, card
+    against the CPU's float64 within COMP_TOL or COMP_ROUNDING × the CPU's
+    own float32 rounding, timed; Adan over
+    configs/zoo/dreamfusion-sd.yaml's implicit-volume parameters (corner
+    grid 16 × 2 × 2^19), ADAN_STEPS steps with seeded gradients, card
+    against CPU within ADAN_TOL, ms/step; no hand-written kernel launched;
 15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
-    ``launches_multidevice``, ``launches_zoo``, ``launches_zoo_latent`` and
-    ``launches_rank`` too; B1/B2 also their rank-mode device times), the
+    ``launches_multidevice``, ``launches_zoo``, ``launches_zoo_latent``,
+    ``launches_rank`` and ``launches_components`` too; B1/B2 also their rank-mode device times), the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
@@ -272,6 +288,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2993,16 +3010,17 @@ def time_kernels(torch, rb, tb, path):
     print(json.dumps(res))
 
 
-MULTI_STEPS = 3  # each layout of phase 16
+MULTI_STEPS = 2  # each guided layout of phase 16: the first step's checks and one later step's
+MULTI_GS_STEPS = 3  # the Gaussian stage's layout: across its densify at step 2 (GS_FREQ)
 MULTI_RTOL = 1e-4  # the first step's logged losses and gradient, two ranks against one process
 MULTI_ATOL = 1e-7
 # the later steps' losses: after one Adam step (eps 1e-8, 1e-15) a gradient
 # element at rounding level has moved by ±lr, so two trajectories that sum
 # in another order part at ~1e-4 (PERF.md, PR 12)
 MULTI_RTOL_LATER = 1e-2
-# the held guidance of phase 16, with cuDNN's TF32 off (a bfloat16 layout
-# is printed beside it): TF32 convolutions round by the algorithm cuDNN
-# picks for a batch, and the split batches pick others
+# the held guidance of phase 16, with cuDNN's TF32 off: TF32 convolutions
+# round by the algorithm cuDNN picks for a batch, and the split batches
+# pick others
 MULTI_DTYPE = "float32"
 MULTI_RENDER_N = 8  # render_4d orbit / play frames
 EXP_DIRS = {"dynamic": "sugar-dynamic", "static": "sugar-refine"}  # the YAMLs' names
@@ -3101,10 +3119,8 @@ def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
     losses at MULTI_RTOL_LATER; the
     B1/B2 launches of every step on each rank (its share of the views); and
     the Gaussian stage at [2,1] across one densify (the YAML's ball,
-    GS_FREQ): ``n_alive`` equal on both ranks.  The dynamic [2,1] layout
-    runs once more with the YAML's bfloat16 guidance, against its own
-    single-process run, printed and not held (bfloat16 cuDNN is not
-    reproducible between calls).  Prints ms/step per layout and the peak
+    GS_FREQ, MULTI_GS_STEPS steps): ``n_alive`` equal on both ranks.
+    Prints ms/step per layout and the peak
     memory per rank (two ranks sharing one card over ``gloo``: not a
     multi-card figure), and the UNet's parameter bytes per rank at tp=2
     against tp=1.  (c) ``scripts/render_4d`` on phase 9's dynamic trial:
@@ -3147,14 +3163,14 @@ def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
     check(not os.path.exists(os.path.join(out, "sugar-refine", "refused")), "the refused run wrote a trial")
 
     # (b) two ranks on the card, and one process for reference: name ->
-    # (YAML, dotlist, mesh, the single run it is held to, held)
+    # (YAML, dotlist, mesh, the single run it is held to, steps)
     gaussian = [x for x in static if not x.startswith("system.geometry.surface")] + GS_FREQ + [
-        "system.stage=gaussian", "system.guidance.pretrained_model_name_or_path=none"]
-    layouts = {"dynamic_dp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[2,1]", "dynamic", True),
-               "dynamic_tp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[1,2]", "dynamic", True),
-               "static_dp": (static_yaml, static + guidance(MULTI_DTYPE), "[2,1]", "static", True),
-               "gaussian_dp": (static_yaml, gaussian, "[2,1]", None, True),
-               "dynamic_dp_bf16": (dyn_yaml, dynamic + guidance("bfloat16"), "[2,1]", "dynamic_bf16", False)}
+        "system.stage=gaussian", "system.guidance.pretrained_model_name_or_path=none",
+        f"trainer.max_steps={MULTI_GS_STEPS}"]
+    layouts = {"dynamic_dp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[2,1]", "dynamic", MULTI_STEPS),
+               "dynamic_tp": (dyn_yaml, dynamic + guidance(MULTI_DTYPE), "[1,2]", "dynamic", MULTI_STEPS),
+               "static_dp": (static_yaml, static + guidance(MULTI_DTYPE), "[2,1]", "static", MULTI_STEPS),
+               "gaussian_dp": (static_yaml, gaussian, "[2,1]", None, MULTI_GS_STEPS)}
     jobs = [(name, yaml, dotlist + [f"tag={name}", "trainer.devices=2", f"trainer.mesh={mesh}"])
             for name, (yaml, dotlist, mesh, _, _) in layouts.items()]
     t0 = time.perf_counter()
@@ -3165,8 +3181,7 @@ def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
     torch.backends.cudnn.allow_tf32 = False
     try:
         for kind, yaml, dotlist in (("dynamic", dyn_yaml, dynamic + guidance(MULTI_DTYPE)),
-                                    ("static", static_yaml, static + guidance(MULTI_DTYPE)),
-                                    ("dynamic_bf16", dyn_yaml, dynamic + guidance("bfloat16"))):
+                                    ("static", static_yaml, static + guidance(MULTI_DTYPE))):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             launch.main(launch.make_args(yaml, "train"), dotlist + [f"tag={kind}_single"])
@@ -3180,13 +3195,13 @@ def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
     frames_n = int(load_config(dyn_yaml, cli_args=dynamic, makedirs=False).data["num_frames"])
     share = {"static": 1 + STATIC_RAND_VIEWS // 2, "gaussian": 1 + STATIC_RAND_VIEWS // 2}
     res["worst"] = {}
-    for name, (_, _, mesh, ref_kind, held) in layouts.items():
+    for name, (_, _, mesh, ref_kind, n_steps) in layouts.items():
         dp = int(mesh[1])
         n_views = 2 * frames_n // dp if name.startswith("dynamic") else share[name.split("_")[0]]
         want = {"resident_fwd": n_views, "resident_bwd_accum": n_views}
         for r, rec in enumerate(recs[name]):
             check((rec["dp"], rec["tp"]) == (dp, 2 // dp), f"{name} rank {r}: grid {rec['dp']} x {rec['tp']}")
-            check([s["step"] for s in rec["steps"]] == list(range(MULTI_STEPS)), f"{name} rank {r}: steps taken")
+            check([s["step"] for s in rec["steps"]] == list(range(n_steps)), f"{name} rank {r}: steps taken")
             for s in rec["steps"]:
                 got = {k: v for k, v in s["launches"].items() if v}
                 check(got == want, f"{name} rank {r} step {s['step']}: launches {got} != {want} (its share)")
@@ -3211,14 +3226,12 @@ def drive_multidevice(torch, np, rb, card, launcher, device, tmp):
         res["worst"][name] = {"losses": errs, "grad": grad_err}
         print(f"[{card}] {name} against one process: worst loss error per step "
               + ", ".join(f"{e:.3g} ({d})" for e, d in errs) + f"; the first step's gradient {grad_err[0]:.3g} "
-              f"of the state's max ({grad_err[1]})"
-              + (f"; held to {MULTI_RTOL} (step 0, gradient) and {MULTI_RTOL_LATER} (later steps)" if held
-                 else "; printed, not held"))
-        if held:
-            for k, (e, d) in enumerate(errs):
-                band = MULTI_RTOL if k == 0 else MULTI_RTOL_LATER
-                check(e <= band, f"{name} step {k}: a logged loss off the single run by {e:.3g} > {band} ({d})")
-            check(grad_err[0] <= MULTI_RTOL, f"{name}: the first step's gradient off by {grad_err[0]:.3g}")
+              f"of the state's max ({grad_err[1]}); held to {MULTI_RTOL} (step 0, gradient) and "
+              f"{MULTI_RTOL_LATER} (later steps)")
+        for k, (e, d) in enumerate(errs):
+            band = MULTI_RTOL if k == 0 else MULTI_RTOL_LATER
+            check(e <= band, f"{name} step {k}: a logged loss off the single run by {e:.3g} > {band} ({d})")
+        check(grad_err[0] <= MULTI_RTOL, f"{name}: the first step's gradient off by {grad_err[0]:.3g}")
     alive = [rec["n_alive"] for rec in recs["gaussian_dp"]]
     check(alive[0] == alive[1], f"Gaussian stage at [2,1]: n_alive {alive} differs between the ranks")
     print(f"[{card}] Gaussian stage at [2,1] after the densify at step 2: n_alive {alive[0]} on both ranks")
@@ -3317,7 +3330,7 @@ def kernel_bounds(args, stats, table_rows, per_pair):
 # 17. the zoo: the six NeRF YAMLs of configs/zoo through the launcher
 # ---------------------------------------------------------------------------
 
-ZOO_STEPS = 3  # trainer.max_steps of each zoo run
+ZOO_STEPS = 2  # trainer.max_steps of each zoo run
 ZOO_PROMPT = "a test object"
 # name: (configs/zoo/<name>.yaml takes an image, the guidance keys, the SDS metrics)
 ZOO_YAMLS = {
@@ -4195,6 +4208,346 @@ def drive_rank(torch, np, rb, tb, hc, card, scene, launcher, device, tmp):
     return res
 
 
+UNIFIED_TOL = 1e-4  # the unified guidance, float32 card vs CPU: every loss and grad_norm, relative
+UNIFIED_GRAD_TOL = 1e-3  # d loss / d rgb and each LoRA leaf's d loss_lora, of its max |value|
+COMP_POINTS = 512 * 512  # points of each material and background (a 512^2 render's pixels)
+# the 8 components: the card's float32 against the CPU's float64, forward max |d| and each gradient
+# of its max |value|, within COMP_TOL or COMP_ROUNDING times the CPU's own float32 rounding on the
+# same inputs, where that is larger (pbr-material's arccos near the poles: 2.7e-5 from float64 at
+# 262,144 points; the card's acosf / atan2f / rsqrtf carry a few ulp more than the CPU's)
+COMP_TOL = 1e-5
+COMP_ROUNDING = 4
+ADAN_STEPS = 10
+ADAN_TOL = 1e-6  # Adan card vs CPU: each parameter leaf after every step, of its max |value|
+# one render in each Perp-Neg branch: front-side, side-back, overhead
+PERP_VIEWS = {"elevation": [10.0, 20.0, 75.0], "azimuth": [30.0, -130.0, 200.0], "distance": [3.8, 3.8, 3.8]}
+
+
+SD_UNIFIED = {}  # stable-diffusion-unified-guidance's widths in phase 20: SD 1.5's (the defaults)
+Z_UNIFIED = {"use_clip": False}  # zero123-unified-guidance's: Stable Zero123's, the bank given
+
+
+def drawn_lora_tree(torch, guidance):
+    """The guidance's fresh LoRA with every B drawn (at its init B = 0 and
+    phi would be the pretrained UNet), as detached tensors on the CPU."""
+    lora = guidance.init_lora_params(torch.Generator(device=guidance.modules.device).manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    return {k: {n: 0.3 * torch.randn(v.shape, generator=gen) if n == "B" else v.detach().cpu()
+                for n, v in leaves.items()} for k, leaves in lora.items()}
+
+
+def on_device(tree, dev):
+    """A LoRA tree's leaves on ``dev`` as fresh leaves that require grad."""
+    return {k: {n: v.to(dev).clone().requires_grad_(True) for n, v in leaves.items()} for k, leaves in tree.items()}
+
+
+def leaf(x, dev):
+    """``x`` on ``dev`` as a fresh leaf that requires grad (``x`` untouched)."""
+    return x.detach().to(dev).clone().requires_grad_(True)
+
+
+def unified_plan(torch):
+    """Phase 20's guidance checks: family → (registry name, config, [(case,
+    config overrides, label, run)]); ``run(guidance, dev, lora)`` → (its
+    outputs, the gradients [rgb, LoRA leaves …]) on fixed inputs and draws."""
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import StableDiffusionPromptProcessor
+    from dreammesh4d_tpu_torch.models.guidance.unified import SDUnifiedConfig, Zero123UnifiedConfig
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator().manual_seed(11)
+
+    def latent(cfg, b):
+        L = cfg.image_size // 2 ** (len(cfg.vae_ch_mult) - 1)  # the VAE's downsampling
+        return torch.randn((b, 4, L, L), generator=gen)
+
+    # (a) SD unified: Perp-Neg SDS on one 512^2 render per branch, the vsd dispatch on a 64^2 one
+    sdc = SDUnifiedConfig(**SD_UNIFIED)
+    B = len(PERP_VIEWS["elevation"])
+    view = [torch.tensor(PERP_VIEWS[k]) for k in ("elevation", "azimuth", "distance")]
+    rgb_perp, rgb_vsd = smooth_images(torch, B, 512, 12), smooth_images(torch, 1, 64, 13)
+    cam = torch.randn((1, 16), generator=gen)
+    perp_draws = {"u": torch.tensor([0.37, 0.81, 0.55]), "noise": latent(sdc, B)}
+    vsd_draws = {"u": torch.tensor([0.37]), "noise": latent(sdc, 1), "u2": torch.tensor([0.52]),
+                 "noise2": latent(sdc, 1), "drop": torch.tensor([False])}
+
+    def run_perp(g, dev, lora):
+        prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=dev)()
+        rgb = leaf(rgb_perp, dev)
+        out = g.loss(prompts, rgb, *(v.to(dev) for v in view), 0, **perp_draws)
+        out["loss_sds"].backward()
+        return {k: float(out[k].detach()) for k in ("loss_sds", "grad_norm")}, [rgb.grad]
+
+    def run_sd_vsd(g, dev, lora):
+        prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=dev)()
+        lora, rgb = on_device(lora, dev), leaf(rgb_vsd, dev)
+        out = g.loss(prompts, rgb, *(v[:1].to(dev) for v in view), 0, camera_condition=cam.to(dev), lora=lora,
+                     **vsd_draws)
+        (out["loss_vsd"] + out["loss_lora"]).backward()
+        return ({k: float(out[k].detach()) for k in ("loss_vsd", "loss_lora", "grad_norm")},
+                [rgb.grad] + [v.grad for v in tree_leaves(lora)])
+
+    # (b) Zero123 unified: sds, and vsd with the phi CFG against a zero camera, on 2 renders at 256^2
+    zc = Zero123UnifiedConfig(**Z_UNIFIED)
+    zview = [torch.tensor(v) for v in ([10.0, 35.0], [30.0, -120.0], [1.8, 2.2])]
+    rgb_z, zcam, frames = smooth_images(torch, 2, 256, 14), torch.randn((2, 16), generator=gen), torch.tensor([1, 0])
+    bank = {"c_crossattn": torch.randn((2, zc.context_dim), generator=gen), "c_concat": latent(zc, 2)}
+    z_draws = {"u": torch.tensor([0.3, 0.9]), "noise": latent(zc, 2), "u2": torch.tensor([0.45, 0.12]),
+               "noise2": latent(zc, 2), "drop": torch.tensor([True, False])}
+
+    def run_z(g, dev, lora):
+        args = ({k: v.to(dev) for k, v in bank.items()}, leaf(rgb_z, dev), *(v.to(dev) for v in zview), 0)
+        rgb = args[1]
+        if g.cfg.guidance_type == "sds":
+            out = g.loss(*args, frame_indices=frames.to(dev), u=z_draws["u"], noise=z_draws["noise"])
+            out["loss_sds"].backward()
+            return {k: float(out[k].detach()) for k in ("loss_sds", "grad_norm")}, [rgb.grad]
+        lora = on_device(lora, dev)
+        out = g.loss(*args, frame_indices=frames.to(dev), camera_condition=zcam.to(dev), lora=lora, **z_draws)
+        (out["loss_vsd"] + out["loss_lora"]).backward()
+        return ({k: float(out[k].detach()) for k in ("loss_vsd", "loss_lora", "grad_norm")},
+                [rgb.grad] + [v.grad for v in tree_leaves(lora)])
+
+    return {
+        "sd": ("stable-diffusion-unified-guidance", dict(SD_UNIFIED), [
+            ("sd_perp_neg", {"use_perp_neg": True}, f"SD unified Perp-Neg SDS ({B} renders at 512^2, one per branch)",
+             run_perp),
+            ("sd_vsd", {"guidance_type": "vsd"}, "SD unified vsd dispatch (LoRA rank 8, one 64^2 render)",
+             run_sd_vsd)]),
+        "z": ("zero123-unified-guidance", dict(Z_UNIFIED), [
+            ("z_sds", {}, "Zero123 unified sds (2 renders at 256^2)", run_z),
+            ("z_vsd", {"guidance_type": "vsd", "vsd_guidance_scale_phi": 1.5, "vsd_lora_cfg_training": True},
+             "Zero123 unified vsd (2 renders at 256^2, phi scale 1.5, the camera token, one camera dropped)",
+             run_z)])}
+
+
+class CpuReferences(threading.Thread):
+    """The CPU side of phase 20's guidance checks, computed in a thread
+    that phase 16 starts (it touches no CUDA), so that its minutes of CPU
+    work run beside phases 16–19: per family, the guidance built on the CPU
+    with every weight drawn from a CPU generator (the output convolutions
+    too), each case's LoRA (every B drawn), outputs and gradients, and the
+    weights for the card."""
+
+    def __init__(self, torch, plan):
+        super().__init__(daemon=True)
+        self.torch, self.plan, self.results, self.error = torch, plan, {}, None
+
+    def run(self):
+        torch = self.torch
+        from dreammesh4d_tpu_torch import registry
+
+        try:
+            for family, (name, cfg, cases) in self.plan.items():
+                base = registry.find(name)(cfg, device="cpu")
+                base.modules.init_params(torch.Generator().manual_seed(0), zero_init=False)
+                for case, over, _, run in cases:
+                    t0 = time.perf_counter()
+                    g = registry.find(name)({**cfg, **over}, modules=base.modules, device="cpu")
+                    lora = drawn_lora_tree(torch, g) if g.cfg.guidance_type == "vsd" else None
+                    out, grads = run(g, "cpu", lora)
+                    self.results[case] = {"out": out, "grads": [x.detach() for x in grads], "lora": lora,
+                                          "s": time.perf_counter() - t0}
+                self.results[family] = base.modules.state_dict()
+                del base
+        except BaseException as e:  # noqa: BLE001  (raised again by phase 20)
+            self.error = e
+
+
+def unified_card_vs_cpu(torch, card, refs, device):
+    """Phase 20's guidance checks on the card against ``refs`` (joined): per
+    family the CPU's weights loaded on the card, each case run there from
+    the same inputs, draws and LoRA, held within UNIFIED_TOL (losses) /
+    UNIFIED_GRAD_TOL (gradients), then timed (CUDA events, one call)."""
+    from dreammesh4d_tpu_torch import registry
+
+    refs.join()
+    if refs.error is not None:
+        raise refs.error
+    res = {}
+    for family, (name, cfg, cases) in refs.plan.items():
+        base = registry.find(name)(cfg, device=device)
+        base.modules.load_state_dict(refs.results[family])
+        c = base.cfg
+        for case, over, label, run in cases:
+            g = registry.find(name)({**cfg, **over}, modules=base.modules, device=device)
+            ref = refs.results[case]
+            got, g_card = run(g, device, ref["lora"])
+            want, g_cpu = ref["out"], ref["grads"]
+            errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want}
+            grad_errs = [rel_err(a.cpu(), b) for a, b in zip(g_card, g_cpu)]
+            ms = time_ms(torch, lambda: run(g, device, ref["lora"]), n=3, warmup=1)
+            print(f"[{card}] {label} (UNet {c.model_channels} x {list(c.channel_mult)}, context {c.context_dim}, "
+                  f"VAE {c.vae_ch} at {c.image_size}^2), float32, card vs CPU: " + ", ".join(
+                      f"{k} {got[k]:.8g} vs {want[k]:.8g} (relative {errs[k]:.3g})" for k in want)
+                  + f" (limit {UNIFIED_TOL}); d loss / d rgb max |d| / max {grad_errs[0]:.3g}"
+                  + (f", worst of {len(grad_errs) - 1} LoRA leaves {max(grad_errs[1:]):.3g}"
+                     if len(grad_errs) > 1 else "")
+                  + f" (limit {UNIFIED_GRAD_TOL}); one call (forward + backward) on the card {ms:.2f} ms; the CPU's "
+                  f"side {ref['s']:.1f} s (beside phases 16-19)")
+            check(all(e <= UNIFIED_TOL for e in errs.values()) and max(grad_errs) <= UNIFIED_GRAD_TOL
+                  and min(want.values()) > 0 and len(g_card) == len(g_cpu), f"{label}: card and CPU differ")
+            res[case] = {"ms": ms, "err": max(errs.values()), "grad_err": max(grad_errs), "losses": want,
+                         "cpu_s": ref["s"]}
+        del base
+        torch.cuda.empty_cache()
+    return res
+
+
+def clone_tree(tree, dev, dtype):
+    """A copy of a parameter tree (dicts and lists of tensors) on ``dev`` in
+    ``dtype``, every leaf a fresh leaf that requires grad."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v, dev, dtype) for v in tree]
+    return tree.detach().to(dev, dtype).clone().requires_grad_(True)
+
+
+def component_cases(torch, device):
+    """name → (config, inputs builder) of the 8 material and background
+    names on COMP_POINTS points."""
+    g = torch.Generator().manual_seed(21)
+    n = COMP_POINTS
+
+    def unit():
+        d = torch.randn((n, 3), generator=g)
+        return d / d.norm(dim=-1, keepdim=True)
+
+    x = {"feat8": torch.randn((n, 8), generator=g), "feat7": torch.randn((n, 7), generator=g),
+         "feat4": torch.randn((n, 4), generator=g), "dirs": unit(), "view": unit(), "tangent": unit(),
+         "w": torch.randn((n, 3), generator=g)}
+    return x, {
+        "pbr-material": ({}, "feat8", lambda o, f, t, p: o(f, viewdirs=t["view"], shading_normal=t["dirs"],
+                                                          tangent=t["tangent"], params=p)),
+        "neural-radiance-material": ({}, "feat8", lambda o, f, t, p: o(f, viewdirs=t["dirs"], params=p)),
+        "hybrid-rgb-latent-material": ({}, "feat7", lambda o, f, t, p: o(f)),
+        "sd-latent-adapter-material": ({}, "feat4", lambda o, f, t, p: o(f, params=p)),
+        "neural-environment-map-background": ({}, None, lambda o, f, t, p: o(t["dirs"], params=p)),
+        "gaussian-mvdream-neural-environment-map-background": (
+            {"n_frequencies": 4}, None, lambda o, f, t, p: o(t["dirs"], params=p)),
+        "solid-color-background": ({"learned": True}, None, lambda o, f, t, p: o(params=p).expand(n, 3)),
+        "textured-background": ({}, None, lambda o, f, t, p: o(t["dirs"], params=p)),
+    }
+
+
+def drive_components(torch, np, rb, tb, hc, card, refs, device):
+    """Phase 20, the unified guidance, the materials and backgrounds and
+    Adan, each built as a user builds it (``registry.find(name)(cfg)``, or
+    ``Adan(params)``).  (a) ``stable-diffusion-unified-guidance`` at SD 1.5's
+    widths (float32, every weight drawn on the CPU, the output convolutions
+    too, and loaded on the card):
+    Perp-Neg SDS (``use_perp_neg``) forward + backward on 3 renders at 512²,
+    one in each branch (front-side, side-back, overhead), and the ``vsd``
+    dispatch with a rank-8 LoRA (every B drawn) on one 64² render; (b)
+    ``zero123-unified-guidance`` at Stable Zero123's widths (the CLIP tower's
+    bank given: random ``c_crossattn`` / ``c_concat``): ``sds``, and ``vsd``
+    with ``vsd_guidance_scale_phi`` 1.5, the camera token and
+    ``vsd_lora_cfg_training`` (one view's camera dropped) on 2 renders at
+    256²; each card against CPU on the same weights and draws within
+    UNIFIED_TOL (losses) / UNIFIED_GRAD_TOL (gradients), and timed, the
+    CPU's side from ``refs`` (a ``CpuReferences`` that ran beside phases
+    16–19); (c) the
+    8 material and background names on COMP_POINTS points, forward +
+    backward of a weighted sum, the card's float32 against the CPU's float64
+    within COMP_TOL or COMP_ROUNDING × the CPU's own float32 rounding, timed; (d)
+    Adan, ADAN_STEPS steps over configs/zoo/dreamfusion-sd.yaml's
+    ``implicit-volume`` parameters (corner grid 16 × 2 × 2^19 and its MLPs)
+    with seeded gradients, card against CPU within ADAN_TOL of each leaf's
+    max after every step, ms/step.  No hand-written kernel lies on this path:
+    the launch counts must stay 0."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.config import config_to_primitive, load_config
+    from dreammesh4d_tpu_torch.models.geometry.implicit_volume import init_implicit_volume
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import StableDiffusionPromptProcessor
+    from dreammesh4d_tpu_torch.systems.adan import Adan
+    from dreammesh4d_tpu_torch.systems.assembly import implicit_volume_config
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves
+
+    res = {}
+    for m in (rb, tb, hc):
+        m.reset_launch_counts()
+
+    # (a), (b) the unified guidances, card against the CPU's side computed beside phases 16-19
+    res.update(unified_card_vs_cpu(torch, card, refs, device))
+
+    # (c) the materials and backgrounds on COMP_POINTS points: the card's float32 against the CPU's
+    # float64, within COMP_TOL or COMP_ROUNDING x the CPU's own float32 rounding on these inputs
+    x, cases = component_cases(torch, device)
+    res["components"] = {}
+    for name, (cfg, fkey, call) in cases.items():
+        outs = {}
+        on_card = registry.find(name)(cfg, device=device)
+        for label, dev, dtype in (("card", device, torch.float32), ("cpu", "cpu", torch.float32),
+                                  ("cpu64", "cpu", torch.float64)):
+            obj = on_card if dev == device else registry.find(name)(cfg, device="cpu")
+            params = clone_tree(on_card.params, dev, dtype)
+            t = {k: v.to(dev, dtype) for k, v in x.items()}
+            feat = leaf(x[fkey].to(dtype), dev) if fkey else None
+
+            def fwd_bwd(obj=obj, params=params, t=t, feat=feat):
+                out = call(obj, feat, t, params)
+                (out[..., :3] * t["w"]).sum().backward()
+                return out
+
+            out = fwd_bwd()
+            outs[label] = (out.detach().cpu().double().clone(),
+                           [g.grad.cpu().double().clone() for g in [feat] + tree_leaves(params) if g is not None])
+            if label == "card":
+                ms = time_ms(torch, fwd_bwd, n=5, warmup=1)
+        (o_c, g_c), (o_p, g_p), (o_64, g_64) = outs["card"], outs["cpu"], outs["cpu64"]
+        err = {"fwd": float((o_c - o_64).abs().max()), "grad": max(rel_err(a, b) for a, b in zip(g_c, g_64))}
+        rounding = {"fwd": float((o_p - o_64).abs().max()), "grad": max(rel_err(a, b) for a, b in zip(g_p, g_64))}
+        band = {k: max(COMP_TOL, COMP_ROUNDING * rounding[k]) for k in err}
+        vs_cpu = {"fwd": float((o_c - o_p).abs().max()), "grad": max(rel_err(a, b) for a, b in zip(g_c, g_p))}
+        res["components"][name] = {"ms": ms, "err": err, "rounding": rounding, "vs_cpu": vs_cpu}
+        print(f"[{card}] {name} on {COMP_POINTS} points, forward + backward: {ms:.3f} ms; against the CPU's float64: "
+              f"forward max |d| {err['fwd']:.3g}, gradients ({'features and ' if fkey else ''}"
+              f"{len(g_c) - (1 if fkey else 0)} parameter leaves) max |d| / max {err['grad']:.3g} (limits "
+              f"{band['fwd']:.3g}, {band['grad']:.3g}: {COMP_TOL} or {COMP_ROUNDING} x the CPU's float32 rounding, "
+              f"{rounding['fwd']:.3g} and {rounding['grad']:.3g}); card vs CPU float32 {vs_cpu['fwd']:.3g}, "
+              f"{vs_cpu['grad']:.3g}")
+        check(all(err[k] <= band[k] for k in err) and len(g_c) == len(g_p) == len(g_64) > 0,
+              f"{name}: the card's float32 is off the CPU's float64 by more than the band")
+
+    # (d) Adan over dreamfusion-sd's implicit-volume parameters
+    zoo_cfg = load_config(os.path.join(REPO, "configs", "zoo", "dreamfusion-sd.yaml"),
+                          cli_args=[f"system.prompt_processor.prompt={ZOO_PROMPT}"], makedirs=False)
+    geo_cfg = implicit_volume_config(config_to_primitive(zoo_cfg.system.geometry))
+    init = tree_leaves(init_implicit_volume(geo_cfg, torch.Generator().manual_seed(3), device="cpu"))
+    leaves = {dev: [v.detach().to(dev).clone().requires_grad_(True) for v in init] for dev in (device, "cpu")}
+    opts = {dev: Adan(leaves[dev], lr=1e-2, weight_decay=1e-4) for dev in (device, "cpu")}
+    worst, step_ms, ggen = 0.0, [], torch.Generator().manual_seed(4)
+    for _ in range(ADAN_STEPS):
+        grads = [torch.randn(v.shape, generator=ggen) for v in init]
+        for dev in (device, "cpu"):
+            for p, g in zip(leaves[dev], grads):
+                p.grad = g.to(dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        opts[device].step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        opts["cpu"].step()
+        worst = max([worst] + [rel_err(a.detach().cpu(), b.detach()) for a, b in zip(leaves[device], leaves["cpu"])])
+    n_params = sum(v.numel() for v in init)
+    res["adan"] = {"ms": statistics.median(step_ms[1:]), "err": worst, "n_params": n_params}
+    print(f"[{card}] Adan over dreamfusion-sd's implicit-volume ({n_params} parameters in {len(init)} leaves: corner "
+          f"grid {geo_cfg.hashgrid.n_levels} x {geo_cfg.hashgrid.n_features_per_level} x "
+          f"2^{geo_cfg.hashgrid.log2_hashmap_size}), {ADAN_STEPS} steps: ms/step " + ", ".join(
+              f"{v:.3f}" for v in step_ms) + f" (median after the first {res['adan']['ms']:.3f}); card vs CPU "
+          f"worst leaf after any step {worst:.3g} of its max (limit {ADAN_TOL})")
+    check(worst <= ADAN_TOL, f"Adan: card and CPU differ by {worst:.3g} > {ADAN_TOL}")
+
+    torch.cuda.synchronize()
+    res["launches"] = {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+    check(not any(res["launches"].values()), f"phase 20 launched a hand-written kernel: {res['launches']}")
+    print(f"[{card}] phase 20: no hand-written kernel launched (the unified guidance is cuDNN, cuBLAS and SDPA; "
+          f"the components and Adan elementwise PyTorch)")
+    return res
+
+
 def main():
     import argparse
 
@@ -4566,7 +4919,10 @@ def main():
     gaussian = drive_gaussian_stage(torch, np, rb, card, launcher, dev, launch_tmp.name)
 
     phases.mark("16")
-    # 16. more than one device: the launcher's refusal, two ranks on the card, render_4d
+    # 16. more than one device: the launcher's refusal, two ranks on the card, render_4d;
+    # beside it, and 17-19, the CPU's side of phase 20's guidance checks
+    refs = CpuReferences(torch, unified_plan(torch))
+    refs.start()
     torch.cuda.empty_cache()
     multi = drive_multidevice(torch, np, rb, card, launcher, dev, launch_tmp.name)
 
@@ -4587,6 +4943,11 @@ def main():
                       dev, launch_tmp.name)
     launch_tmp.cleanup()
 
+    phases.mark("20")
+    # 20. the unified guidance, the materials and backgrounds, Adan: card against CPU
+    torch.cuda.empty_cache()
+    components = drive_components(torch, np, rb, tb, hc, card, refs, dev)
+
     phases.mark("end")
     print(f"[{card}] wall seconds per phase: {json.dumps(phases.seconds)}")
 
@@ -4596,7 +4957,8 @@ def main():
         # (phase 13), the Gaussian stage's (phase 14), the two ranks' and
         # render_4d's (phase 16), the zoo's (phases 17 and 18, none: their
         # corner grid, shape loss and VSD are plain PyTorch) and rank mode's
-        # (phase 19: the launcher's rank run and the factory's served views) included
+        # (phase 19: the launcher's rank run and the factory's served views) and
+        # phase 20's (none: the unified guidance, the components and Adan) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
@@ -4604,13 +4966,16 @@ def main():
         n_zoo = zoo["launches"].get(name, 0)
         n_latent = zoo_latent["launches"].get(name, 0)
         n_rank = rank["launches"].get(name, 0)
+        n_components = components["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu,
-                "launches": n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent + n_rank,
+                "launches": (n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent + n_rank
+                             + n_components),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
                 "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
-                "launches_zoo_latent": n_latent, "launches_rank": n_rank, **extra}
+                "launches_zoo_latent": n_latent, "launches_rank": n_rank, "launches_components": n_components,
+                **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"
     hg_src = "dreammesh4d_tpu_torch/csrc/hashgrid_cell.cu"

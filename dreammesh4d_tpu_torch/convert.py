@@ -48,6 +48,15 @@ are read back as Python values.  This module imports no jax.
   ``….attn1.to_q``, ``….to_out.0``; the same (in, r) / (r, out) layout);
   :func:`vsd_checkpoint` — a JAX ``ZooVSDExperiment``'s state (scene, LoRA,
   both Adams' moments) as the port experiment's ``load_state`` dict;
+- the unified guidance: :func:`vsd_lora_params` also maps the JAX
+  ``Zero123UnifiedGuidance.init_lora_params`` tree (the Zero123 UNet has
+  the SD UNet's layout);
+- the materials and backgrounds: :func:`component_params` — the trees of
+  ``PBRMaterial`` (``env_levels``), ``NeuralRadianceMaterial`` (``mlp``),
+  ``SDLatentAdapterMaterial`` (``adapter``), ``NeuralEnvironmentMapBackground``
+  (``layers``), ``SolidColorBackground`` (``color``) and
+  ``TexturedBackground`` (``texture``) as the ``params`` of their port
+  counterparts;
 - evaluation: :func:`perceptual_params` — the LPIPS tree
   ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
@@ -540,8 +549,9 @@ def vsd_lora_params(jax_lora, cfg) -> dict:
     is ``to_out.0``, as in ``_ldm_spatial_transformer``), in the order of the
     port's ``VSDGuidance.lora_targets`` with ``camera_proj`` last; float32
     numpy.  ``cfg``: the port's ``VSDConfig`` (or any object with the UNet's
-    ``channel_mult`` and ``num_res_blocks``).  Also maps trees of the same
-    structure (Adam's ``mu`` / ``nu``)."""
+    ``channel_mult`` and ``num_res_blocks``, e.g. a ``Zero123UnifiedConfig``
+    for that guidance's LoRA, whose UNet has the same layout).  Also maps
+    trees of the same structure (Adam's ``mu`` / ``nu``)."""
     ldm = _ldm_transformer_names(tuple(cfg.channel_mult), int(cfg.num_res_blocks))
     out = {}
     for jname, prefix in ldm.items():
@@ -557,6 +567,17 @@ def vsd_lora_params(jax_lora, cfg) -> dict:
     if len(out) != len(jax_lora):
         raise ValueError(f"LoRA entries not mapped: {sorted(set(jax_lora) - {'camera_proj'})[:4]}…")
     return out
+
+
+def component_params(tree, device="cuda"):
+    """A material's or background's JAX parameter tree (dicts and lists of
+    numpy arrays; MLP layers ``{"w" (in, out), "b"}`` in the port's layout)
+    → the same tree of float32 tensors on ``device`` that require grad."""
+    if isinstance(tree, dict):
+        return {k: component_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [component_params(v, device) for v in tree]
+    return torch.tensor(_np32(tree), device=device).requires_grad_(True)
 
 
 def vsd_checkpoint(src, cfg, lr: float = 0.01, betas=(0.9, 0.99), eps: float = 1e-8) -> dict:

@@ -42,6 +42,56 @@ from .zero123.unet import CrossAttention
 LORA_PROJECTIONS = ("to_q", "to_k", "to_v", "to_out.0")
 
 
+def lora_targets(unet) -> List[Tuple[str, int, int]]:
+    """(module name, in, out) of every attention projection of ``unet``
+    that receives a LoRA adapter, in ``named_modules`` order."""
+    out = []
+    for name, m in unet.named_modules():
+        if isinstance(m, CrossAttention):
+            for proj in LORA_PROJECTIONS:
+                w = m.get_submodule(proj).weight
+                out.append((f"{name}.{proj}", w.shape[1], w.shape[0]))
+    return out
+
+
+def init_lora(targets, rank: int, context_dim: int, generator: torch.Generator,
+              device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The LoRA tree of ``targets`` on ``device``: A ~ N(0, 1/rank) drawn
+    from ``generator`` in the targets' order, B = 0, then ``camera_proj``
+    (w ~ N(0, 0.02²), b = 0); every leaf requires grad."""
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, device=generator.device).to(device) * std
+
+    lora = {name: {"A": normal((d_in, rank), 1.0 / math.sqrt(rank)),
+                   "B": torch.zeros((rank, d_out), device=device)}
+            for name, d_in, d_out in targets}
+    lora["camera_proj"] = {"w": normal((16, context_dim), 0.02), "b": torch.zeros((context_dim,), device=device)}
+    for leaves in lora.values():
+        for v in leaves.values():
+            v.requires_grad_(True)
+    return lora
+
+
+def camera_token(lora, camera_condition: torch.Tensor) -> torch.Tensor:
+    """The flattened camera (zero-padded or cut to 16) through
+    ``camera_proj``: one context token (B, 1, C)."""
+    flat = camera_condition.reshape(camera_condition.shape[0], -1).float()
+    if flat.shape[-1] < 16:
+        flat = torch.nn.functional.pad(flat, (0, 16 - flat.shape[-1]))
+    tok = flat[:, :16] @ lora["camera_proj"]["w"] + lora["camera_proj"]["b"]
+    return tok[:, None, :]
+
+
+def phi_unet(unet, lora, scale: float, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    """``unet`` called with W + (A·B·scale)ᵀ in place of each adapted
+    projection's weight (``torch.func.functional_call``; the float32
+    weights are merged before the layer casts to its compute dtype)."""
+    merged = {f"{name}.weight": unet.get_parameter(f"{name}.weight") + (ab["A"] @ ab["B"] * scale).T
+              for name, ab in lora.items() if name != "camera_proj"}
+    return functional_call(unet, merged, (x, t, context))
+
+
 @dataclass
 class VSDConfig(StableDiffusionConfig):
     guidance_scale: float = 7.5
@@ -67,51 +117,21 @@ class VSDGuidance(StableDiffusionGuidance):
 
     def lora_targets(self) -> List[Tuple[str, int, int]]:
         """(UNet module name, in, out) of every adapted projection."""
-        out = []
-        for name, m in self.modules.unet.named_modules():
-            if isinstance(m, CrossAttention):
-                for proj in LORA_PROJECTIONS:
-                    w = m.get_submodule(proj).weight
-                    out.append((f"{name}.{proj}", w.shape[1], w.shape[0]))
-        return out
+        return lora_targets(self.modules.unet)
 
     def init_lora_params(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
         """A fresh LoRA tree on the guidance's device, drawn from
         ``generator``; every leaf requires grad."""
         cfg: VSDConfig = self.cfg
-        dev = self.modules.device
-        r = cfg.lora_rank
-
-        def normal(shape, std):
-            return torch.randn(shape, generator=generator, device=generator.device).to(dev) * std
-
-        lora = {name: {"A": normal((d_in, r), 1.0 / math.sqrt(r)), "B": torch.zeros((r, d_out), device=dev)}
-                for name, d_in, d_out in self.lora_targets()}
-        lora["camera_proj"] = {"w": normal((16, cfg.context_dim), 0.02),
-                               "b": torch.zeros((cfg.context_dim,), device=dev)}
-        for leaves in lora.values():
-            for v in leaves.values():
-                v.requires_grad_(True)
-        return lora
-
-    def _camera_token(self, lora, camera_condition: torch.Tensor) -> torch.Tensor:
-        flat = camera_condition.reshape(camera_condition.shape[0], -1).float()
-        if flat.shape[-1] < 16:
-            flat = torch.nn.functional.pad(flat, (0, 16 - flat.shape[-1]))
-        tok = flat[:, :16] @ lora["camera_proj"]["w"] + lora["camera_proj"]["b"]
-        return tok[:, None, :]  # (B, 1, C)
+        return init_lora(self.lora_targets(), cfg.lora_rank, cfg.context_dim, generator, self.modules.device)
 
     def phi_eps(self, lora, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 camera_condition: torch.Tensor) -> torch.Tensor:
         """The phi UNet's ε: the frozen UNet with the LoRA merged into its
         attention projections and the camera token appended to ``context``."""
         cfg: VSDConfig = self.cfg
-        unet = self.modules.unet
-        scale = cfg.lora_alpha / cfg.lora_rank
-        merged = {f"{name}.weight": unet.get_parameter(f"{name}.weight") + (ab["A"] @ ab["B"] * scale).T
-                  for name, ab in lora.items() if name != "camera_proj"}
-        ctx = torch.cat([context, self._camera_token(lora, camera_condition).to(context.dtype)], 1)
-        return functional_call(unet, merged, (x, t, ctx))
+        ctx = torch.cat([context, camera_token(lora, camera_condition).to(context.dtype)], 1)
+        return phi_unet(self.modules.unet, lora, cfg.lora_alpha / cfg.lora_rank, x, t, ctx)
 
     # -- the losses ----------------------------------------------------------
 

@@ -13,8 +13,14 @@ The port registers:
 - the guidance and prompts: ``stable-zero123-guidance``,
   ``temporal-stable-zero123-guidance``, ``zero123-guidance``,
   ``stable-diffusion-guidance``, ``stable-diffusion-vsd-guidance``,
+  ``stable-diffusion-unified-guidance``, ``zero123-unified-guidance``,
   ``stable-diffusion-prompt-processor`` and ``dummy-prompt-processor``;
-- the materials ``no-material`` and ``diffuse-with-point-light-material``;
+- the materials ``no-material``, ``diffuse-with-point-light-material``,
+  ``pbr-material``, ``neural-radiance-material``,
+  ``hybrid-rgb-latent-material`` and ``sd-latent-adapter-material``, and
+  the backgrounds ``neural-environment-map-background`` (also
+  ``gaussian-mvdream-neural-environment-map-background``),
+  ``solid-color-background`` and ``textured-background``;
 - the factories of ``models/registry_names.py``, where ``find(name)(cfg)``
   returns a constructed component: ``sugar``, ``dynamic-sugar``,
   ``gaussian-splatting``, ``implicit-volume``,
@@ -33,11 +39,6 @@ __modules__: dict = {}
 
 # the JAX package's names whose modules the port has not got yet: name -> the ROADMAP item
 QUEUED = {
-    **dict.fromkeys(("stable-diffusion-unified-guidance", "zero123-unified-guidance"), "ROADMAP A8.1"),
-    **dict.fromkeys(("pbr-material", "neural-radiance-material", "hybrid-rgb-latent-material",
-                     "sd-latent-adapter-material", "neural-environment-map-background",
-                     "gaussian-mvdream-neural-environment-map-background", "solid-color-background",
-                     "textured-background"), "ROADMAP A8.2"),
     **dict.fromkeys(("implicit-sdf", "neus-volume-renderer", "tetrahedra-sdf-grid", "nvdiff-rasterizer",
                      "patch-renderer", "custom-mesh", "volume-grid", "fantasia3d-system",
                      "textmesh-system", "zero123-simple-system"), "ROADMAP A8.3"),
@@ -84,7 +85,7 @@ def find(name: str):
 def _import_builtin_modules() -> None:
     # imported for their @register side effects
     from .data import image, temporal_image, uncond  # noqa: F401
-    from .models import materials, prompt_processors, registry_names  # noqa: F401
-    from .models.guidance import stable_diffusion  # noqa: F401
+    from .models import background, materials, prompt_processors, registry_names  # noqa: F401
+    from .models.guidance import stable_diffusion, unified  # noqa: F401
     from .models.guidance.zero123 import guidance  # noqa: F401
     from .systems import assembly, assembly_zoo  # noqa: F401

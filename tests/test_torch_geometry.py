@@ -5,8 +5,12 @@ Inputs are made with numpy from a seed and handed to both packages; JAX
 structures cross over through ``dreammesh4d_tpu_torch.convert``.  Tolerance
 atol = rtol = 1e-5 (float32 on the CPU in both; the chains differ only in
 summation order), the deformation graph bit-exact in its indices and 1e-6
-in node positions and weights.
+in node positions and weights.  The JAX references run under ``jax.jit``
+(eagerly every op compiles on first use), and the scenes and fields two
+tests share are built once.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -77,10 +81,12 @@ def test_sh_to_rgb(deg):
     sh = rng.normal(size=(50, 3, (deg + 1) ** 2)).astype(np.float32)
     d = rng.normal(size=(50, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    _close(tsh.sh_to_rgb(deg, _t(sh), _t(d)), jsh.sh_to_rgb(deg, jnp.asarray(sh), jnp.asarray(d)))
+    _close(tsh.sh_to_rgb(deg, _t(sh), _t(d)), jax.jit(jsh.sh_to_rgb, static_argnums=0)(deg, sh, d))
 
 
-def _quat_cases(rng):
+@functools.lru_cache(maxsize=None)
+def _quat_cases():
+    rng = np.random.default_rng(0)
     q, q2 = _quats(rng, 64), _quats(rng, 64)
     p = rng.normal(size=(64, 3)).astype(np.float32)
     t = rng.normal(size=(64, 3)).astype(np.float32) * 0.3
@@ -88,45 +94,52 @@ def _quat_cases(rng):
     w /= w.sum(-1, keepdims=True)
     idx = rng.integers(0, 64, size=(64, 4))
     near_id = np.concatenate([np.ones((64, 1)), 1e-3 * rng.normal(size=(64, 3))], -1).astype(np.float32)
-    R = np.asarray(jq.quat_to_matrix(jnp.asarray(q)))
+    R, dq, dq_idx = jax.jit(lambda q, t, idx: (jq.quat_to_matrix(q), jq.dq_from_quat_translation(q, t),
+                                               jq.dq_from_quat_translation(q[idx], t[idx])))(q, t, idx)
     return {
         "quat_normalize": ((q * 3.0,), {}),
         "quat_multiply": ((q, q2), {}),
         "quat_conjugate": ((q,), {}),
         "quat_apply": ((q, p), {}),
         "quat_to_matrix": ((q,), {}),
-        "matrix_to_quat": ((R,), {}),
+        "matrix_to_quat": ((np.asarray(R),), {}),
         "quat_log": ((np.concatenate([q, near_id]),), {}),
         "quat_exp": ((p,), {}),
         "fuse_rotations": ((idx, w, q), {}),
         "dq_from_quat_translation": ((q, t), {}),
         "dq_normalize": ((np.concatenate([q * 2.0, q2], -1),), {}),
-        "dq_apply": ((np.asarray(jq.dq_from_quat_translation(jnp.asarray(q), jnp.asarray(t))), p), {}),
-        "dq_blend": ((np.asarray(jq.dq_from_quat_translation(jnp.asarray(q[idx]), jnp.asarray(t[idx]))), w), {}),
+        "dq_apply": ((np.asarray(dq), p), {}),
+        "dq_blend": ((np.asarray(dq_idx), w), {}),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_quat_cases(np.random.default_rng(0))))
+@pytest.mark.parametrize("name", sorted(_quat_cases()))
 def test_quaternion_ops(name):
-    args, _ = _quat_cases(np.random.default_rng(0))[name]
-    ref = getattr(jq, name)(*(jnp.asarray(a) for a in args))
+    args, _ = _quat_cases()[name]
+    ref = jax.jit(getattr(jq, name))(*(jnp.asarray(a) for a in args))
     port = getattr(tq, name)(*(_t(a) for a in args))
     _close(port, ref)
 
 
 def test_gs_cameras():
     el, az, dist = np.float32([5.0, 30.0, -20.0]), np.float32([0.0, 75.0, 200.0]), np.float32([3.8, 2.2, 2.5])
-    pos_j = jcam.camera_position_from_spherical(jnp.asarray(el), jnp.asarray(az), jnp.asarray(dist))
+    fov = np.radians(20.0)
+
+    @jax.jit
+    def reference(el, az, dist):
+        pos = jcam.camera_position_from_spherical(el, az, dist)
+        c2w = jcam.look_at_c2w(pos)
+        return (pos, c2w, jcam.get_projection_matrix_gaussian(0.01, 100.0, fov, fov),
+                [jcam.get_cam_info_gaussian(c2w[i], fov, fov, 0.01, 100.0) for i in range(3)])
+
+    pos_j, c2w_j, proj_j, info_j = reference(el, az, dist)
     pos_t = tcam.camera_position_from_spherical(el, az, dist, device=DEV)
     _close(pos_t, pos_j)
-    c2w_j = jcam.look_at_c2w(pos_j)
     c2w_t = tcam.look_at_c2w(pos_t)
     _close(c2w_t, c2w_j)
-    fov = np.radians(20.0)
-    _close(tcam.get_projection_matrix_gaussian(0.01, 100.0, fov, fov, device=DEV),
-           jcam.get_projection_matrix_gaussian(0.01, 100.0, fov, fov))
+    _close(tcam.get_projection_matrix_gaussian(0.01, 100.0, fov, fov, device=DEV), proj_j)
     for i in range(3):
-        ij = jcam.get_cam_info_gaussian(c2w_j[i], fov, fov, 0.01, 100.0)
+        ij = info_j[i]
         it = tcam.get_cam_info_gaussian(c2w_t[i], fov, fov, 0.01, 100.0)
         for a, b in zip(it, ij):
             _close(a, b, atol=2e-5, rtol=1e-5)
@@ -137,7 +150,7 @@ def test_face_normals():
     rng = np.random.default_rng(1)
     v = (mesh.v_pos + 0.05 * rng.normal(size=mesh.v_pos.shape)).astype(np.float32)
     _close(tmesh.face_normals(_t(v), _t(mesh.t_pos_idx).long()),
-           jmesh.face_normals(jnp.asarray(v), jnp.asarray(mesh.t_pos_idx)))
+           jax.jit(jmesh.face_normals)(v, mesh.t_pos_idx))
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +194,7 @@ def test_create_sugar_and_attributes():
     crot = rng.normal(size=jp.complex_rot.shape).astype(np.float32)
     jp2 = jp._replace(points=jnp.asarray(pts), complex_rot=jnp.asarray(crot))
     tp2 = convert.sugar_params(jax.tree.map(np.asarray, jp2), device=DEV)
-    ja = jsugar.gaussian_attributes(jp2, js)
+    ja = jax.jit(lambda p: jsugar.gaussian_attributes(p, js))(jp2)
     ta = tsugar.gaussian_attributes(tp2, ts)
     for a, b in zip(ta, ja):
         _close(a, b)
@@ -207,8 +220,7 @@ def perturbed_deformation(cfg, seed=0, head_scale=1e-2):
     """JAX ``init_deformation`` with every zero-init head filled at
     ``head_scale`` and the time planes moved off 1, from a seeded numpy RNG
     (a fresh field deforms by exactly nothing and ignores time)."""
-    params = jax.tree.map(np.asarray, jax.jit(lambda k: jdef.init_deformation(cfg, k))(
-        jax.random.PRNGKey(seed)))
+    params = jax.tree.map(np.copy, _init_deformation(cfg, seed))
     rng = np.random.default_rng(seed)
     for name in ("head_dx", "head_dstrain", "head_drot", "head_dopacity"):
         for layer in ("res", "out"):
@@ -229,18 +241,35 @@ def test_forward_dynamic_delta():
     # points and times past the bounds exercise the bilinear border clip
     pts = rng.uniform(-1.2, 1.2, size=(3, 40, 3)).astype(np.float32)
     ts = rng.uniform(-1.1, 1.1, size=(3, 40)).astype(np.float32)
-    dj = jdef.forward_dynamic_delta(jax.tree.map(jnp.asarray, params), cfg, jnp.asarray(pts), jnp.asarray(ts))
+    dj = jax.jit(lambda p, x, t: jdef.forward_dynamic_delta(p, cfg, x, t))(params, pts, ts)
     dt = tdef.forward_dynamic_delta(convert.deformation_params(params, DEV), convert.config(cfg),
                                     _t(pts), _t(ts))
     for a, b in zip(dt, dj):
         _close(a, b)
     s = rng.normal(size=(5, 6)).astype(np.float32)
-    _close(tdef.strain_tensor_to_matrix(_t(s)), jdef.strain_tensor_to_matrix(jnp.asarray(s)))
+    _close(tdef.strain_tensor_to_matrix(_t(s)), jax.jit(jdef.strain_tensor_to_matrix)(s))
+
+
+_INITS = {}
+
+
+def _init_deformation(cfg, seed):
+    """The JAX ``init_deformation`` under one jit, as numpy (once per config and seed)."""
+    key = (repr(cfg), seed)
+    if key not in _INITS:
+        _INITS[key] = jax.tree.map(np.asarray, jax.jit(lambda k: jdef.init_deformation(cfg, k))(
+            jax.random.PRNGKey(seed)))
+    return _INITS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _sugar_scene():
+    """The JAX SuGaR of icosphere(1, 0.6), built once."""
+    return jsugar.create_sugar(jsugar.SuGaRConfig(), j_icosphere(1, 0.6))
 
 
 def _dynamic_scene(skinning, use_graph=True, mode="deformation"):
-    mesh = j_icosphere(1, 0.6)
-    jp, js = jsugar.create_sugar(jsugar.SuGaRConfig(), mesh)
+    jp, js = _sugar_scene()
     cfg = jdyn.DynamicSuGaRConfig(n_dg_nodes=12, skinning_method=skinning, use_deform_graph=use_graph,
                                   dynamic_mode=mode, num_frames=4,
                                   deformation=jdef.DeformationConfig(**SMALL_DEFORM))

@@ -64,7 +64,8 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "scripts.render_4d", "models.guidance.stable_diffusion", "models.prompt_processors",
                "systems.threestudio_zoo", "systems.assembly_zoo", "systems.threestudio_zoo2",
                "models.guidance.vsd", "ops.shape_loss", "models.geometry.volume_grid",
-               "models.registry_names", "utils.colormaps")
+               "models.registry_names", "utils.colormaps", "models.guidance.unified", "models.background",
+               "systems.adan", "utils.misc")
 
 
 def test_port_imports_no_jax():

@@ -6,9 +6,12 @@ lights and rays, call for call.
 
 Inputs come from a seeded numpy RNG.  Tolerances: 1e-5 on ray parameters and
 samples, 1e-6 on shading, rays and camera batches (2e-6 on the GS transforms,
-which pass through a 4×4 inverse).
+which pass through a 4×4 inverse).  The JAX functions run under ``jax.jit``
+(eagerly every op compiles on first use); the camera sampler, a host loop
+around small ops, runs as it is.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,24 +56,24 @@ def test_ray_bbox_sample_pdf_composite():
     o, d = make_rays(20)
     d[0] = [0.0, 0.0, 1.0]  # exact zeros in the direction
     o[1] = [5.0, 5.0, 5.0]  # misses the box
-    for a, b in zip(tnr.ray_bbox_intersect(torch.tensor(o), torch.tensor(d), 1.0, 0.05),
-                    jnr.ray_bbox_intersect(jnp.asarray(o), jnp.asarray(d), 1.0, 0.05)):
-        close(a, b, 1e-5)
     rng = np.random.default_rng(5)
     bins = np.sort(rng.uniform(0, 4, (20, 9)), -1).astype(np.float32)
     w = rng.uniform(0, 1, (20, 8)).astype(np.float32)
     w[3] = 0.0
     w[4, :] = 0.0
     w[4, 5] = 1.0
-    close(tnr.sample_pdf(torch.tensor(bins), torch.tensor(w), 16, None),
-          jnr.sample_pdf(jnp.asarray(bins), jnp.asarray(w), 16, None), 1e-5)
     u = rng.uniform(0, 1, (20, 16)).astype(np.float32)
-    got = tnr.sample_pdf(torch.tensor(bins), torch.tensor(w), 16, None, jitter=torch.tensor(u))
-    assert bool((got >= torch.tensor(bins[:, :1])).all() and (got <= torch.tensor(bins[:, -1:])).all())
     dens = rng.uniform(0, 30, (20, 8, 1)).astype(np.float32)
     dt = rng.uniform(0.01, 0.2, (20, 8)).astype(np.float32)
-    for a, b in zip(tnr._composite(torch.tensor(dens), torch.tensor(dt)),
-                    jnr._composite(jnp.asarray(dens), jnp.asarray(dt))):
+    j_box, j_pdf, j_comp = jax.jit(lambda o, d, bins, w, dens, dt: (
+        jnr.ray_bbox_intersect(o, d, 1.0, 0.05), jnr.sample_pdf(bins, w, 16, None), jnr._composite(dens, dt)))(
+            o, d, bins, w, dens, dt)
+    for a, b in zip(tnr.ray_bbox_intersect(torch.tensor(o), torch.tensor(d), 1.0, 0.05), j_box):
+        close(a, b, 1e-5)
+    close(tnr.sample_pdf(torch.tensor(bins), torch.tensor(w), 16, None), j_pdf, 1e-5)
+    got = tnr.sample_pdf(torch.tensor(bins), torch.tensor(w), 16, None, jitter=torch.tensor(u))
+    assert bool((got >= torch.tensor(bins[:, :1])).all() and (got <= torch.tensor(bins[:, -1:])).all())
+    for a, b in zip(tnr._composite(torch.tensor(dens), torch.tensor(dt)), j_comp):
         close(a, b, 1e-6)
 
 
@@ -81,11 +84,13 @@ def test_material_rays_and_bce():
     pos = rng.normal(size=(5, 4, 3)).astype(np.float32)
     light = rng.normal(size=(5, 1, 3)).astype(np.float32) * 3
     jm, tm = JMaterial(), DiffuseWithPointLightMaterial()
-    for kw in ({}, {"ambient_ratio": 0.3}, {"ambient_ratio": 1.0}, {"shading_normal_only": True}):
-        close(tm.shade(*(torch.tensor(a) for a in (albedo, normals, pos, light)), **kw),
-              jm.shade(*(jnp.asarray(a) for a in (albedo, normals, pos, light)), **kw), 1e-6)
     feats = rng.normal(size=(5, 4, 3)).astype(np.float32)
-    close(tm(torch.tensor(feats)), jm(jnp.asarray(feats)), 1e-6)
+    kws = ({}, {"ambient_ratio": 0.3}, {"ambient_ratio": 1.0}, {"shading_normal_only": True})
+    j_shaded, j_albedo = jax.jit(lambda *a: ([jm.shade(*a[:4], **kw) for kw in kws], jm(a[4])))(
+        albedo, normals, pos, light, feats)
+    for kw, want in zip(kws, j_shaded):
+        close(tm.shade(*(torch.tensor(a) for a in (albedo, normals, pos, light)), **kw), want, 1e-6)
+    close(tm(torch.tensor(feats)), j_albedo, 1e-6)
 
     for focal in (20.0, (18.0, 21.0)):
         principal = None if isinstance(focal, float) else (3.2, 2.9)
@@ -96,17 +101,17 @@ def test_material_rays_and_bce():
     dirs = np.asarray(jcam.get_ray_directions(6, 7, 20.0))
     cases = [(dirs.reshape(-1, 3), c2w[0]), (dirs, c2w[0]), (dirs, c2w),
              (np.stack([dirs, 2 * dirs]), c2w)]
+    j_rays = jax.jit(jcam.get_rays, static_argnums=(2, 3))
     for dd, cc in cases:
         for keepdim, normalize in ((False, True), (True, False)):
             got = tcam.get_rays(torch.tensor(dd), torch.tensor(cc), keepdim, normalize)
-            ref = jcam.get_rays(jnp.asarray(dd), jnp.asarray(cc), keepdim, normalize)
+            ref = j_rays(dd, cc, keepdim, normalize)
             for a, b in zip(got, ref):
                 assert tuple(a.shape) == tuple(b.shape)
                 close(a, b, 1e-6)
     p = rng.uniform(0, 1, (50,)).astype(np.float32)
     t = rng.uniform(0, 1, (50,)).astype(np.float32)
-    close(tcam.binary_cross_entropy(torch.tensor(p), torch.tensor(t)),
-          jcam.binary_cross_entropy(jnp.asarray(p), jnp.asarray(t)), 1e-6)
+    close(tcam.binary_cross_entropy(torch.tensor(p), torch.tensor(t)), jax.jit(jcam.binary_cross_entropy)(p, t), 1e-6)
 
 
 def test_random_camera_sampler_matches_jax():

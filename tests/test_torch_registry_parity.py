@@ -56,15 +56,20 @@ EXPECTED = {  # name: (module, class) in the port
     "stable-diffusion-guidance": ("models.guidance.stable_diffusion", "StableDiffusionGuidance"),
     "stable-diffusion-prompt-processor": ("models.guidance.stable_diffusion", "StableDiffusionPromptProcessor"),
     "dummy-prompt-processor": ("models.prompt_processors", "DummyPromptProcessor"),
+    "stable-diffusion-unified-guidance": ("models.guidance.unified", "SDUnifiedGuidance"),
+    "zero123-unified-guidance": ("models.guidance.unified", "Zero123UnifiedGuidance"),
+    "pbr-material": ("models.materials", "PBRMaterial"),
+    "neural-radiance-material": ("models.materials", "NeuralRadianceMaterial"),
+    "hybrid-rgb-latent-material": ("models.materials", "HybridRGBLatentMaterial"),
+    "sd-latent-adapter-material": ("models.materials", "SDLatentAdapterMaterial"),
+    "neural-environment-map-background": ("models.background", "NeuralEnvironmentMapBackground"),
+    "gaussian-mvdream-neural-environment-map-background": ("models.background", "NeuralEnvironmentMapBackground"),
+    "solid-color-background": ("models.background", "SolidColorBackground"),
+    "textured-background": ("models.background", "TexturedBackground"),
 }
 
 
 QUEUED = {  # JAX names the port has not got yet: the ROADMAP item that brings each
-    "stable-diffusion-unified-guidance": "A8.1", "zero123-unified-guidance": "A8.1",
-    "pbr-material": "A8.2", "neural-radiance-material": "A8.2", "hybrid-rgb-latent-material": "A8.2",
-    "sd-latent-adapter-material": "A8.2", "neural-environment-map-background": "A8.2",
-    "gaussian-mvdream-neural-environment-map-background": "A8.2", "solid-color-background": "A8.2",
-    "textured-background": "A8.2",
     "implicit-sdf": "A8.3", "neus-volume-renderer": "A8.3", "tetrahedra-sdf-grid": "A8.3",
     "nvdiff-rasterizer": "A8.3", "patch-renderer": "A8.3", "custom-mesh": "A8.3", "volume-grid": "A8.3",
     "fantasia3d-system": "A8.3", "textmesh-system": "A8.3", "zero123-simple-system": "A8.3",
@@ -119,7 +124,7 @@ def test_launcher_systems_and_unported_names(names):
             "prolificdreamer-system"} <= set(assembly.EXPERIMENTS)
     mixed = registry.find("dreamfusion-system:random-camera-datamodule")
     assert issubclass(mixed, registry.find("dreamfusion-system"))
-    for name in ("textmesh-system", "fantasia3d-system", "stable-diffusion-unified-guidance"):
+    for name in ("textmesh-system", "fantasia3d-system", "deep-floyd-guidance"):
         assert name in jax_names
         with pytest.raises(KeyError):
             registry.find(name)

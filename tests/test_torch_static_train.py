@@ -42,6 +42,8 @@ is ``jnp.gradient``'s); the background inversion is the draw of
 ``draw_uniform``; 16 steps fit the reference colours back.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +64,9 @@ from dreammesh4d_tpu.utils.procedural import make_icosphere
 from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.models.renderers.sugar_rasterizer import depth_to_normal
 from dreammesh4d_tpu_torch.systems import sugar_static as tsys
+
+# XLA's cheaper passes for the JAX step's compile
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 W = 32
 STEP = 5
@@ -166,9 +171,11 @@ def jax_steps(scene):
     """Two JAX steps (steps 5 and 6) from the scene's parameters, the
     kernel's transmittance matmuls in float32."""
     jopt = optax.chain(_grad_keeper(), j_sugar_optimizer(**OPTIMIZER))
-    jstep = jsys.make_train_step(scene["js"], scene["raster"], jopt,
-                                 jsys.SugarStaticLosses(**LOSSES), guidance_fn=_guidance,
-                                 invert_bg_prob=1.0)
+    with pytest.MonkeyPatch.context() as mp:  # the step compiled with XLA's cheaper passes
+        mp.setattr(jsys, "tpu_jit", functools.partial(jax.jit, compiler_options=FAST_COMPILE))
+        jstep = jsys.make_train_step(scene["js"], scene["raster"], jopt,
+                                     jsys.SugarStaticLosses(**LOSSES), guidance_fn=_guidance,
+                                     invert_bg_prob=1.0)
     jbatch = jax.tree.map(jnp.asarray, scene["batch"])
     state0 = jsys.init_state(scene["jp"], jopt)._replace(step=jnp.asarray(STEP, jnp.int32))
     with pytest.MonkeyPatch.context() as mp:

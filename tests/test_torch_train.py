@@ -10,7 +10,7 @@ through ``convert.camera_batch``.
 
 One step from the same parameters and batch, ``invert_bg_prob`` 0 and 1
 (the JAX step jitted once, at 0.5, with a key per case whose background
-draw gives the same inversion):
+draw gives the same inversion; compiled with XLA's cheaper passes):
 - every ``metrics`` key within 2e-3 relative, with a 5e-3 absolute floor for
   the image terms (rgb, mask, psnr) — the TPU kernel's bf16 transmittance;
 - the gradient of every deformation leaf within 1e-2 of that leaf's max |g|
@@ -26,6 +26,8 @@ loss_mask`` below half its first value; a ``guidance_fn`` stand-in is called
 with ``(guidance_state, generator, rgb, batch)`` and enters ``loss_total``
 with ``lambda_sds_zero123``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +57,8 @@ from dreammesh4d_tpu_torch.utils.tree import tree_leaves
 W = 48
 T = 2
 LR = 2e-3
+# XLA's cheaper passes for the JAX step's compile
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 DEF_CFG = jdef.DeformationConfig(base_resolution=(16, 16, 16, 8), multires=(1, 2))
 LOSSES = dict(lambda_rgb=5000.0, lambda_mask=[0, 500.0, 1000.0, 10],
               lambda_normal_consistency=1.0, lambda_laplacian_smoothing=0.5,
@@ -174,6 +178,8 @@ def jax_step(scene):
     with pytest.MonkeyPatch.context() as mp:  # its eager setup jitted
         mp.setattr(jsys, "gaussian_attributes",
                    lambda params, static: jax.jit(lambda p: real_attrs(p, static))(params))
+        # the step compiled with XLA's cheaper passes (a third of the compile time)
+        mp.setattr(jsys, "tpu_jit", functools.partial(jax.jit, compiler_options=FAST_COMPILE))
         jstep = jsys.make_dynamic_train_step(
             scene["jp"], scene["jst"], scene["cfg"].deformation, scene["raster"], keeper,
             jsys.Sugar4DGenLosses(**LOSSES), jnp.asarray(scene["arap_w"]), guidance_fn=None,

@@ -9,7 +9,9 @@ renderer (64 + 64 samples a ray), SD at ``random:0`` with a UNet 16 × [1]
 (2 heads, context 16), a VAE 8 × [1], latents and images 8², prompt
 embeddings 4 × 16.  The JAX guidance's ``init_params`` is replaced by
 seeded numpy draws of the same tree (its eager flax init compiles op by
-op).  The JAX experiment's guidance weights reach the port
+op), and the JAX train step, jitted while the experiment is built, compiles
+with XLA's cheaper passes (but prolificdreamer's: its test sits at a ReLU's
+kink, where the other passes' rounding moves a gradient past its band).  The JAX experiment's guidance weights reach the port
 through ``convert.sd_guidance_params``, its initial state through
 ``convert.zero123_checkpoint``; the prompt embeddings are the hash
 embeddings of the same prompt on both sides.  The random draws (the
@@ -25,6 +27,7 @@ within 1e-6 where |g| ≥ 5 % of the leaf's max.  The helpers here serve
 ``test_torch_zoo_prolificdreamer.py`` too.
 """
 
+import functools
 import os
 
 import jax
@@ -34,6 +37,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_zoo_sd import FAST_COMPILE
 from test_torch_zoo_sd import _seeded_tree as seeded_tree
 
 import dreammesh4d_tpu.models.geometry.implicit_volume as jiv
@@ -90,9 +94,10 @@ def _grad_keeper():
                                         lambda g, state, params=None: (g, g))
 
 
-def build_jax(path, dotlist):
+def build_jax(path, dotlist, fast_compile=True):
     """The JAX experiment of the YAML at ``path`` and the dotlist; its Adam
-    keeps each step's gradient in its first state."""
+    keeps each step's gradient in its first state.  ``fast_compile``: its
+    train step compiled with XLA's cheaper passes."""
     real = optax.adam
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(optax, "adam", lambda *a, **kw: optax.chain(_grad_keeper(), real(*a, **kw)))
@@ -106,6 +111,8 @@ def build_jax(path, dotlist):
                 lambda *b: m(self, *b))(*a))
         init_volume = jiv.init_implicit_volume
         mp.setattr(jiv, "init_implicit_volume", lambda cfg, rng: jax.jit(lambda k: init_volume(cfg, k))(rng))
+        if fast_compile:  # the train step is jitted while the experiment is built
+            mp.setattr(jax, "jit", functools.partial(jax.jit, compiler_options=FAST_COMPILE))
         return jasm.build_experiment(j_load_config(path, cli_args=dotlist))
 
 

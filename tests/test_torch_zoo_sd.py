@@ -23,8 +23,12 @@ to the same tree exactly.  Bands (float32):
 ``rgb_as_latents`` and the vanilla ``zero123-guidance`` are held in
 ``test_torch_zoo_sd_latents.py``.
 
-Each JAX function runs under one ``jax.jit``.
+Each JAX function runs under one ``jax.jit`` (the three weightings' UNet
+applies under one shared inner ``jax.jit``, the whole compiled with XLA's
+cheaper passes).
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +58,19 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# XLA's cheaper passes for the references' compiles
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def shared_unet(guidances):
+    """The JAX guidances' ``unet.apply`` (one architecture) through one
+    shared ``jax.jit``: each batch shape is traced once for all of them."""
+    guidances = list(guidances)
+    apply = jax.jit(guidances[0].unet.apply)
+    for g in guidances:
+        g.unet = types.SimpleNamespace(apply=apply)
 
 
 def _seeded_tree(shapes, seed):
@@ -132,6 +149,7 @@ def jax_sds_outputs(sd_pair, draws, as_latents: bool) -> dict:
     prompts = jsd.PromptEmbeddings(jnp.asarray(d["cond"]), jnp.asarray(d["uncond"]), pcfg)
     guids = {w: jsd.StableDiffusionGuidance(jsd.StableDiffusionConfig(**ARCH, **SCHED, weighting_strategy=w))
              for w in WEIGHTINGS}
+    shared_unet(guids.values())
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.random, "uniform", lambda key, shape, *a, **k: jnp.asarray(d["u"]))
@@ -147,7 +165,8 @@ def jax_sds_outputs(sd_pair, draws, as_latents: bool) -> dict:
                 res[w] = jax.value_and_grad(loss, has_aux=True)(rgb)
             return res
 
-        for w, ((_, o), grad) in jax.jit(all_weightings)(d["rgb4" if as_latents else "rgb3"]).items():
+        rgb = d["rgb4" if as_latents else "rgb3"]
+        for w, ((_, o), grad) in jax.jit(all_weightings).lower(rgb).compile(FAST_COMPILE)(rgb).items():
             out[w] = ({k: float(v) for k, v in o.items()}, np.asarray(grad))
     return out
 

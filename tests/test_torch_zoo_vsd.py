@@ -13,7 +13,8 @@ step tests: ``loss_vsd``, ``loss_lora`` and ``grad_norm`` within 1e-4
 relative; d loss_vsd/d rgb and d loss_lora/d LoRA (every leaf) within 1e-3
 of each one's max |g|.  The port's ``loss_vsd`` gives the LoRA no
 gradient and its ``loss_lora`` gives the render none.  The JAX function
-runs under one ``jax.jit``.
+runs under one ``jax.jit`` (its UNet applies under an inner one,
+compiled with XLA's cheaper passes).
 """
 
 import jax
@@ -21,7 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_zoo_sd import ARCH, SCHED, _close, _one_torch_thread, _seeded_tree  # noqa: F401
+from test_torch_zoo_sd import (ARCH, SCHED, FAST_COMPILE, _close, _one_torch_thread, _seeded_tree,  # noqa: F401
+                               shared_unet)
 
 from dreammesh4d_tpu.models.guidance import stable_diffusion as jsd
 from dreammesh4d_tpu.models.guidance import vsd as jvsd
@@ -78,6 +80,7 @@ def test_lora_targets_and_init(setup):
 def _jax_outputs(setup, scale_lora):
     jparams, jlora, _, _, d = setup
     g = jvsd.VSDGuidance(jvsd.VSDConfig(**ARCH, **SCHED, guidance_scale_lora=scale_lora))
+    shared_unet([g])
     prompts = jsd.PromptEmbeddings(jnp.asarray(d["cond"]), jnp.asarray(d["uncond"]),
                                    jsd.PromptProcessorConfig(context_dim=ARCH["context_dim"], seq_len=SEQ))
     uniforms = [d["u"], d["u2"]]
@@ -91,8 +94,8 @@ def _jax_outputs(setup, scale_lora):
             o = g.vsd_loss(jparams, lora, prompts, jax.random.PRNGKey(0), rgb, d["el"], d["az"], d["cam"], STEP)
             return o["loss_vsd"] + o["loss_lora"], o
 
-        (_, out), (g_rgb, g_lora) = jax.jit(jax.value_and_grad(both, argnums=(0, 1), has_aux=True))(
-            d["rgb"], jlora)
+        fn = jax.value_and_grad(both, argnums=(0, 1), has_aux=True)
+        (_, out), (g_rgb, g_lora) = jax.jit(fn).lower(d["rgb"], jlora).compile(FAST_COMPILE)(d["rgb"], jlora)
     return {k: float(v) for k, v in out.items()}, np.asarray(g_rgb), jax.tree.map(np.asarray, g_lora)
 
 
