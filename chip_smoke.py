@@ -113,7 +113,8 @@ Phases, each of which fails the run on a failed check:
 10. CUDA-event times (median of 30 after warm-up; a kernel's ``ms`` as the
     earlier versions of this script took it: B1-B3 one launch per event
     pair, B4-B7 ten, and B1-B3 also ``ms_r10``), every kernel's device time
-    from ``torch.profiler`` (``device_ms``), ms per train step, peak memory
+    from ``torch.profiler`` (``device_ms``; CUDA events over 30 launches in
+    a row where no trace kept half of the records), ms per train step, peak memory
     and profiles of one render and one train step of each stage; B6's main
     views also through B1/B2's entries, which cull their rows
     (``quadrant_kept_plain``); with ``--parent DIR`` (an unpacked parent
@@ -271,9 +272,26 @@ Phases, each of which fails the run on a failed check:
     configs/zoo/dreamfusion-sd.yaml's implicit-volume parameters (corner
     grid 16 × 2 × 2^19), ADAN_STEPS steps with seeded gradients, card
     against CPU within ADAN_TOL, ms/step; no hand-written kernel launched;
+21. the SDF and mesh geometries (``drive_zoo_mesh``, run after 20, before
+    the lines of 15), built through ``registry.find``: the fantasia3d
+    geometry and texture steps and the magic3d refine step on
+    ``tetrahedra-sdf-grid`` at resolution 64 (3,145,728 face slots) and
+    ``nvdiff-rasterizer``, 4 views at ZMESH_HW² (512² is refused by the
+    binning's int32 key, as in the JAX package), and the textmesh step on
+    ``implicit-sdf`` with ``neus-volume-renderer`` (64 + 64 samples) at the
+    largest of ZMESH_TEXTMESH_HW the card holds, SD 1.5 at ``random:0`` in
+    float32, ZMESH_STEPS steps each: ms/step, the SDS term alone, peak
+    memory; one view's rasterization with every slot against the real faces
+    alone; one step of each card against CPU at ZMESH_CHECK's widths, both
+    in float64, within ZMESH_TOL / ZMESH_GRAD_TOL and face maps apart on at
+    most ZMESH_FLIP_SHARE of their pixels (the CPU's side in the thread of
+    phase 20's);
+    ``export_mesh`` and ``export_sdf_grid`` at ZMESH_EXPORT_RES³ with
+    mc-cpu, timed; no hand-written kernel launched;
 15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
     ``launches_multidevice``, ``launches_zoo``, ``launches_zoo_latent``,
-    ``launches_rank`` and ``launches_components`` too; B1/B2 also their rank-mode device times), the
+    ``launches_rank``, ``launches_components`` and ``launches_zoo_mesh`` too;
+    B1/B2 also their rank-mode device times), the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
@@ -412,10 +430,14 @@ def time_ms(torch, fn, n=N_TIMED, warmup=3, reps=1):
 def device_ms(torch, fn, key, n=N_TIMED, required=True):
     """Device milliseconds per launch of the kernels whose name holds
     ``key`` over ``n`` calls of ``fn``, from ``torch.profiler``: no host
-    time in it.  The profiler may drop a few records; the mean is over those
-    it kept, and a trace that kept none of them is taken again (twice at
-    most); no record, or more than ``n``, fails the run, or, where not
-    ``required``, gives None (not measured)."""
+    time in it.  The profiler drops records: one or two of 30 in most
+    traces, and all or most of them in some (phase 19's first, while the
+    CPU references' thread runs).  The mean is over the records a trace
+    kept; a trace that kept fewer than half of ``n`` is taken again (three
+    traces at most).  More records than calls fails the run.  Where no
+    trace kept half, the time is the CUDA events' over ``n`` launches in a
+    row, per launch (the host enqueues ahead of the card), and a line says
+    so; where not ``required``, None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -428,13 +450,16 @@ def device_ms(torch, fn, key, n=N_TIMED, required=True):
         events = [e for e in prof.key_averages() if key in e.key]
         total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in events)
         count = sum(e.count for e in events)
-        if count:
-            break
-        print(f"device time of {key}: the trace kept no record of {n} calls, taken again")
-    if not required and not 0 < count <= n:
+        check(count <= n, f"device time of {key}: {count} kernel records for {n} calls")
+        if 2 * count >= n:
+            return total / 1e3 / count
+        print(f"device time of {key}: the trace kept {count} records of {n} calls, taken again")
+    if not required:
         return None
-    check(0 < count <= n, f"device time of {key}: {count} kernel records for {n} calls")
-    return total / 1e3 / count
+    ms = time_ms(torch, fn, n=1, warmup=1, reps=n)
+    print(f"device time of {key}: no trace kept half of {n} records; CUDA events over {n} launches in a "
+          f"row instead: {ms:.4f} ms per launch")
+    return ms
 
 
 def moving_deformation(torch, dcfg, seed, device):
@@ -4321,16 +4346,27 @@ def unified_plan(torch):
 
 
 class CpuReferences(threading.Thread):
-    """The CPU side of phase 20's guidance checks, computed in a thread
-    that phase 16 starts (it touches no CUDA), so that its minutes of CPU
-    work run beside phases 16–19: per family, the guidance built on the CPU
-    with every weight drawn from a CPU generator (the output convolutions
-    too), each case's LoRA (every B drawn), outputs and gradients, and the
-    weights for the card."""
+    """The CPU sides of phase 20's guidance checks and phase 21's step
+    checks, computed in a thread that phase 16 starts (it touches no CUDA),
+    so that their minutes of CPU work run beside phases 16–19: per family,
+    the guidance built on the CPU with every weight drawn from a CPU
+    generator (the output convolutions too), each case's LoRA (every B
+    drawn), outputs and gradients, and the weights for the card; then one
+    step of each of phase 21's four (``zmesh_check_side``).  ``wait(part)``
+    returns when ``"unified"`` or ``"zmesh"`` is done (or the thread failed)."""
 
     def __init__(self, torch, plan):
         super().__init__(daemon=True)
         self.torch, self.plan, self.results, self.error = torch, plan, {}, None
+        self.done = {part: threading.Event() for part in ("unified", "zmesh")}
+
+    def wait(self, part):
+        while not self.done[part].wait(timeout=1.0):
+            if not self.is_alive():
+                break
+        if self.error is not None:
+            raise self.error
+        check(self.done[part].is_set(), f"the CPU references' {part} part did not finish")
 
     def run(self):
         torch = self.torch
@@ -4349,20 +4385,22 @@ class CpuReferences(threading.Thread):
                                           "s": time.perf_counter() - t0}
                 self.results[family] = base.modules.state_dict()
                 del base
-        except BaseException as e:  # noqa: BLE001  (raised again by phase 20)
+            self.done["unified"].set()
+            self.results["zmesh"] = zmesh_check_side(torch, "cpu")
+            self.results["zmesh64"] = zmesh_check_side(torch, "cpu", torch.float64)
+            self.done["zmesh"].set()
+        except BaseException as e:  # noqa: BLE001  (raised again by phases 20 and 21)
             self.error = e
 
 
 def unified_card_vs_cpu(torch, card, refs, device):
-    """Phase 20's guidance checks on the card against ``refs`` (joined): per
+    """Phase 20's guidance checks on the card against ``refs`` (its unified part): per
     family the CPU's weights loaded on the card, each case run there from
     the same inputs, draws and LoRA, held within UNIFIED_TOL (losses) /
     UNIFIED_GRAD_TOL (gradients), then timed (CUDA events, one call)."""
     from dreammesh4d_tpu_torch import registry
 
-    refs.join()
-    if refs.error is not None:
-        raise refs.error
+    refs.wait("unified")
     res = {}
     for family, (name, cfg, cases) in refs.plan.items():
         base = registry.find(name)(cfg, device=device)
@@ -4545,6 +4583,378 @@ def drive_components(torch, np, rb, tb, hc, card, refs, device):
     check(not any(res["launches"].values()), f"phase 20 launched a hand-written kernel: {res['launches']}")
     print(f"[{card}] phase 20: no hand-written kernel launched (the unified guidance is cuDNN, cuBLAS and SDPA; "
           f"the components and Adan elementwise PyTorch)")
+    return res
+
+
+
+# --- phase 21: the SDF and mesh geometries (fantasia3d, magic3d refine, textmesh) ------------
+ZMESH_STEPS = 2  # steps of each of the four steps at full width
+ZMESH_VIEWS = 4  # data.random_camera.batch_size
+# the rasterized steps' render side: the random-camera datamodule's 512^2 is refused by both
+# packages at isosurface_resolution 64 (3,145,728 face slots need 22 rank bits; 512^2 has 1024
+# 16-px tiles, 11 bits: past the int32 key's 31), so the largest side the key holds, 256^2
+ZMESH_HW = 256
+ZMESH_REFUSED_HW = 512
+ZMESH_TEXTMESH_HW = (64, 128, 256)  # textmesh: the largest of these that the card holds
+# card vs CPU, one step of each, both in float64 (zmesh_card_vs_cpu): every metric (relative)
+# within ZMESH_TOL, every parameter leaf's gradient (of its max |value|) within ZMESH_GRAD_TOL,
+# and the views' face maps before the step apart on at most ZMESH_FLIP_SHARE of their pixels
+ZMESH_TOL = 1e-4
+ZMESH_GRAD_TOL = 1e-3
+ZMESH_FLIP_SHARE = 1e-3
+ZMESH_EXPORT_RES = 256  # export_sdf_grid before mc-cpu
+# the card-vs-CPU check, to keep the CPU's side short: the default hash grids and MLPs, the tet
+# grid at resolution 32 and 2 views at 128^2 (textmesh 32^2, 32 + 32 samples), a deterministic
+# guidance term in place of SD
+ZMESH_CHECK = {"res": 32, "hw": 128, "views": 2, "textmesh_hw": 32, "samples": 32}
+# the full width: the dataclasses' defaults (hash grids 16 x 2 x 2^19, 64-wide MLPs, 64 + 64 samples)
+ZMESH_FULL = {"res": 64, "hw": ZMESH_HW, "views": ZMESH_VIEWS, "textmesh_hw": ZMESH_TEXTMESH_HW[0], "samples": 64}
+
+
+def zmesh_batch(torch, hw, views, seed, device):
+    """A random-camera batch (the datamodule's sampler at ``hw``², ``views``
+    views) with the per-view ``GSCameraInfo`` list and camera positions the
+    rasterized steps read."""
+    from dreammesh4d_tpu_torch.data.uncond import RandomCameraConfig, RandomCameraSampler
+    from dreammesh4d_tpu_torch.ops.cameras import GSCameraInfo
+
+    batch = RandomCameraSampler(RandomCameraConfig(height=hw, width=hw, batch_size=views), seed=seed,
+                                device=device).sample()
+    rc = batch["rand_cameras"]
+    batch["cameras"] = [GSCameraInfo(rc.world_view[i], rc.full_proj[i], rc.camera_center[i]) for i in range(views)]
+    batch["camera_positions"] = rc.camera_center
+    return batch
+
+
+def zmesh_steps(torch, guidance, device, c):
+    """The four steps: name -> (make(geo params) -> (train_step, state), the
+    parameters' factory name and config, the batch's (hw, views)), at the
+    sizes of ``c`` (ZMESH_FULL or ZMESH_CHECK; a ``hashgrid`` entry narrows
+    the grids); ``guidance(rgb_as_latents)`` gives each step's guidance
+    closure."""
+    from dreammesh4d_tpu_torch.models.geometry.dmtet import TetSDFGridConfig
+    from dreammesh4d_tpu_torch.models.geometry.implicit_sdf import ImplicitSDFConfig
+    from dreammesh4d_tpu_torch.models.renderers.mesh_rasterizer import MeshRasterizer
+    from dreammesh4d_tpu_torch.models.renderers.neus_volume_renderer import NeuSRendererConfig
+    from dreammesh4d_tpu_torch.ops.hashgrid import HashGridConfig
+    from dreammesh4d_tpu_torch.systems import threestudio_zoo2 as z2
+    from dreammesh4d_tpu_torch.systems.threestudio_zoo import init_scene_state
+
+    grid = HashGridConfig(**c.get("hashgrid", {}))
+    geo = TetSDFGridConfig(isosurface_resolution=c["res"], hashgrid=grid)
+    hw, views = c["hw"], c["views"]
+    sdf_cfg = ImplicitSDFConfig(hashgrid=grid)
+    rcfg = NeuSRendererConfig(num_samples_coarse=c["samples"], num_samples_fine=c["samples"])
+    raster = MeshRasterizer(device=device)
+
+    def state(p):
+        return init_scene_state(p, lr=1e-2, betas=(0.9, 0.99), eps=1e-15, device=device)
+
+    return {
+        "fantasia3d-geometry": (lambda p: (z2.make_fantasia3d_train_step(
+            geo, z2.Fantasia3DLosses(), guidance(True), raster, texture=False, H=hw, W=hw, device=device), state(p)),
+            "tetrahedra-sdf-grid", geo, (hw, views)),
+        "fantasia3d-texture": (lambda p: (z2.make_fantasia3d_train_step(
+            geo, z2.Fantasia3DLosses(), guidance(False), raster, texture=True, H=hw, W=hw, device=device),
+            state(p)), "tetrahedra-sdf-grid", geo, (hw, views)),
+        "magic3d-refine": (lambda p: (z2.make_magic3d_refine_train_step(
+            geo, z2.Magic3DLosses(), guidance(False), raster, H=hw, W=hw, device=device), state(p)),
+            "tetrahedra-sdf-grid", geo, (hw, views)),
+        "textmesh": (lambda p: (z2.make_textmesh_train_step(sdf_cfg, rcfg, z2.TextMeshLosses(), guidance(False),
+                                                            device=device), state(p)),
+                     "implicit-sdf", sdf_cfg, (c["textmesh_hw"], views)),
+    }
+
+
+def zmesh_params(torch, name, cfg, seed):
+    """Seeded parameters on the CPU: the factory's init, the hash tables
+    drawn in ±0.05 and (tet grid) the SDF and deformation perturbed, so that
+    every term has a gradient; ``{"geo", "var"}`` for textmesh."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.models.renderers.neus_volume_renderer import NeuSRendererConfig, init_neus_variance
+
+    p = registry.find(name)(dataclasses.asdict(cfg) | {"seed": seed}, device="cpu").state
+    gen = torch.Generator().manual_seed(seed + 1)
+    p["encoding"]["tables"] = (torch.rand(p["encoding"]["tables"].shape, generator=gen) * 2 - 1) * 0.05
+    if name == "tetrahedra-sdf-grid":
+        p["sdf"] = p["sdf"] + 0.01 * torch.randn(p["sdf"].shape, generator=gen)
+        p["deform"] = 0.3 * torch.randn(p["deform"].shape, generator=gen)
+        return p
+    return {"geo": p, "var": init_neus_variance(NeuSRendererConfig(), device="cpu")}
+
+
+def zmesh_check_side(torch, device, dtype=None):
+    """One step of each of the four at ZMESH_CHECK's widths on ``device``
+    from the same seeded parameters and batch, the renderer's draws from a
+    CPU generator, and a deterministic guidance term in place of SD (a
+    weighted squared distance of the image to a seeded target; SD's own
+    card-vs-CPU band is phase 17's): {name: (metrics, gradients on the CPU,
+    seconds, the views' face maps before the step)}.  ``dtype`` float64
+    runs the parameters, rays, rasterizer and guidance in double."""
+    from dreammesh4d_tpu_torch.models.geometry.dmtet import isosurface
+    from dreammesh4d_tpu_torch.ops.cameras import GSCameraInfo
+    from dreammesh4d_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    dtype = dtype or torch.float32
+
+    def guidance(latents):
+        def fn(generator, img, batch):
+            g = torch.Generator().manual_seed(7)
+            target = torch.rand(img.shape, generator=g).to(img.device, img.dtype)
+            wts = (0.5 + torch.rand(img.shape, generator=g)).to(img.device, img.dtype)
+            return ((img - target) ** 2 * wts).sum() / img.shape[0]  # SDS's scale: a sum per view
+        return fn
+
+    out = {}
+    for name, (make, geo_name, geo_cfg, (hw, views)) in zmesh_steps(torch, guidance, device, ZMESH_CHECK).items():
+        step, state = make(tree_map(lambda x: x.to(dtype), zmesh_params(torch, geo_name, geo_cfg, 3)))
+        # drawn on the CPU and copied: the card's own float32 camera arithmetic moves the rays
+        # and view matrices by an ulp, enough to move hash-grid queries across cells
+        batch = zmesh_batch(torch, hw, views, 5, "cpu")
+        batch["cameras"] = [GSCameraInfo(*(x.to(device) for x in cam)) for cam in batch["cameras"]]
+        batch.update({k: v.to(device) for k, v in batch.items() if torch.is_tensor(v)})
+        batch.update({k: batch[k].to(dtype) for k in ("rays_o", "rays_d")})
+        face_idx = None
+        if geo_name == "tetrahedra-sdf-grid":  # the views' face maps before the step (discrete decisions)
+            with torch.no_grad():
+                surf = isosurface(state.geo_params, geo_cfg)
+                face_idx = torch.stack([rasterize_mesh(surf.verts, surf.faces, cam, hw, hw).face_idx.cpu()
+                                        for cam in batch["cameras"]])
+        t0 = time.perf_counter()
+        # the renderer's draws from a CPU generator on both sides
+        state, metrics = step(state, batch, torch.Generator().manual_seed(9))
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     [None if x.grad is None else x.grad.detach().cpu().double() for x in
+                      tree_leaves(state.geo_params)],
+                     time.perf_counter() - t0, face_idx)
+    return out
+
+
+def zmesh_card_vs_cpu(torch, card, refs, device):
+    """Phase 21 (c): the same steps on the card against the CPU's side from
+    ``refs``, both in float64: every metric within ZMESH_TOL (relative),
+    every gradient leaf within ZMESH_GRAD_TOL of its max, and the views'
+    face maps before the step apart on at most ZMESH_FLIP_SHARE of their
+    pixels.  In float64 (the rasterizer's screen geometry too) a position's
+    rounding no longer moves a hash-grid query into another cell, which in
+    float32 puts the tables' gradients 1e-2 apart on the CPU itself.  The float32 steps of both sides are printed beside
+    them, each against its own device's float64 (``log_s``, one scalar
+    summed over every sample, is the leaf where float32 drifts most)."""
+    refs.wait("zmesh")
+    cpu32, cpu64 = refs.results["zmesh"], refs.results["zmesh64"]
+    card32, card64 = zmesh_check_side(torch, device), zmesh_check_side(torch, device, torch.float64)
+
+    def rel(x, y):
+        return abs(x - y) / max(abs(y), 1e-12)
+
+    res = {}
+    for name, (m_64, g_64, s_64, f_64) in cpu64.items():
+        m_card, g_card, _, f_card = card64[name]
+        m_32, g_32, s_32, _ = cpu32[name]
+        m_c32, g_c32, _, _ = card32[name]
+        check(sorted(m_card) == sorted(m_64) == sorted(m_32) == sorted(m_c32), f"{name}: metrics differ in their keys")
+        check(all((a is None) == (b is None) for a, b in zip(g_card, g_64)), f"{name}: gradients differ in presence")
+        pairs = [(a, b) for a, b in zip(g_card, g_64) if b is not None]
+        check(all(torch.isfinite(a).all() for a, _ in pairs), f"{name}: a gradient on the card is not finite")
+        m_err = max(rel(m_card[k], v) for k, v in m_64.items())
+        g_err = [rel_err(a, b) for a, b in pairs]
+        pixels = None if f_64 is None else f_64.numel()
+        flips = None if f_64 is None else int((f_64 != f_card).sum())
+        # the float32 witnesses: each device's float32 against its own float64
+        w_card = [rel_err(a, b) for a, b in zip(g_c32, g_card) if b is not None]
+        w_cpu = [rel_err(a, b) for a, b in zip(g_32, g_64) if b is not None]
+        res[name] = {"metric_err": m_err, "grad_err": g_err, "face_flips": flips, "pixels": pixels,
+                     "card32_vs_card64": w_card, "cpu32_vs_cpu64": w_cpu, "cpu_s": s_32, "cpu64_s": s_64}
+        print(f"[{card}] {name} at ZMESH_CHECK's widths, the card's float64 against the CPU's float64: metrics max "
+              f"relative {m_err:.3g} (limit {ZMESH_TOL:g}); {len(pairs)} gradient leaves max |d| / max "
+              + ", ".join(f"{e:.3g}" for e in g_err) + f" (limit {ZMESH_GRAD_TOL:g}); face_idx differs on "
+              f"{flips} of {pixels} pixels before the step (limit {ZMESH_FLIP_SHARE:g} of them); float32 against "
+              f"float64 on the card " + ", ".join(f"{e:.3g}" for e in w_card) + ", on the CPU "
+              + ", ".join(f"{e:.3g}" for e in w_cpu) + f"; loss_total {m_64['loss_total']:.6g}; the CPU's steps "
+              f"{s_32:.1f} s, float64 {s_64:.1f} s")
+        check(m_err <= ZMESH_TOL and all(e <= ZMESH_GRAD_TOL for e in g_err),
+              f"{name}: the card's float64 is off the CPU's float64 by more than ZMESH_TOL / ZMESH_GRAD_TOL")
+        check(flips is None or flips <= ZMESH_FLIP_SHARE * pixels,
+              f"{name}: the card's face maps differ from the CPU's on {flips} of {pixels} pixels")
+    return res
+
+
+def step_ms(torch, train_step, state, batch, gen):
+    """One step, timed with CUDA events -> (state, metrics, ms)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = train_step(state, batch, gen)
+    end.record()
+    end.synchronize()
+    return state, metrics, start.elapsed_time(end)
+
+
+def drive_zoo_mesh(torch, np, rb, tb, hc, card, refs, device):
+    """Phase 21, the SDF and mesh geometries with their renderers and steps,
+    each built through ``registry.find``: (a) the four steps at full width
+    (``tetrahedra-sdf-grid`` at resolution 64 with the default hash grid,
+    ``nvdiff-rasterizer`` at capacity 256 and 64 tiles a face, 4 views at
+    ZMESH_HW² for the three rasterized steps; ``implicit-sdf`` 16 × 2 ×
+    2^19 with 64 × 2 MLPs and ``neus-volume-renderer`` 64 + 64 samples for
+    textmesh, at the largest of ZMESH_TEXTMESH_HW whose peak the card holds)
+    with SD 1.5 at ``random:0`` in float32, ZMESH_STEPS steps each: ms per
+    step, the SDS term alone, peak memory; the refusal at 512²; (b) one
+    view's rasterization with the 3,145,728 face slots against the real
+    faces alone (time, memory, the pixels the masked slots cost through the
+    tile capacity); (c) card against CPU (``zmesh_card_vs_cpu``); (d)
+    ``export_mesh`` at resolution 64 and ``export_sdf_grid`` at
+    ZMESH_EXPORT_RES³ then ``mesh-exporter`` (mc-cpu).  No hand-written
+    kernel lies on this path: the launch counts must stay 0."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.models.geometry.dmtet import export_mesh, isosurface
+    from dreammesh4d_tpu_torch.models.geometry.implicit_sdf import export_sdf_grid
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import (StableDiffusionGuidance,
+                                                                       StableDiffusionPromptProcessor)
+    from dreammesh4d_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from dreammesh4d_tpu_torch.utils.tree import tree_map
+
+    res = {"steps": {}}
+    for m in (rb, tb, hc):
+        m.reset_launch_counts()
+    sd = StableDiffusionGuidance(ZOO_SD, device=device)
+    sd.modules.init_params(torch.Generator(device=device).manual_seed(0), zero_init=sd.cfg.zero_init)
+    prompts = StableDiffusionPromptProcessor({"prompt": ZOO_PROMPT}, device=device)()
+    def sds(latents):
+        def fn(generator, img, batch):
+            return sd.sds_loss(prompts, img, batch["elevation"], batch["azimuth"], batch["camera_distances"], 0,
+                               generator, rgb_as_latents=latents)["loss_sds"]
+        return fn
+
+    steps = zmesh_steps(torch, sds, device, ZMESH_FULL)
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def sds_alone_ms(shape, latents, batch):
+        img0 = torch.rand(shape, generator=gen, device=device)
+
+        def run():
+            img = img0.clone().requires_grad_(True)
+            sd.sds_loss(prompts, img, batch["elevation"], batch["azimuth"], batch["camera_distances"], 0, gen,
+                        rgb_as_latents=latents)["loss_sds"].backward()
+
+        return time_ms(torch, run, n=3, warmup=1)
+
+    def run_steps(name, hw):
+        make, geo_name, geo_cfg, (_, views) = steps[name]
+        params = tree_map(lambda x: x.to(device), zmesh_params(torch, geo_name, geo_cfg, 3))
+        batch = zmesh_batch(torch, hw, views, 5, device)
+        train_step, state = make(params)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], None
+        for _ in range(ZMESH_STEPS):
+            state, metrics, t = step_ms(torch, train_step, state, batch, gen)
+            ms.append(t)
+            check(all(np.isfinite(float(v)) for v in metrics.values()), f"{name}: a metric is not finite: {metrics}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(float(metrics["loss_sds"]) > 0, f"{name}: no SDS term")
+        channels = 4 if name == "fantasia3d-geometry" else 3
+        sds = sds_alone_ms((views, hw, hw, channels), name == "fantasia3d-geometry", batch)
+        res["steps"][f"{name}@{hw}"] = {"ms": ms, "sds_ms": sds, "peak_gib": peak,
+                                        "metrics": {k: float(v) for k, v in metrics.items()}}
+        print(f"[{card}] {name}: {views} views at {hw}^2, ms/step " + ", ".join(f"{v:.1f}" for v in ms)
+              + f"; the SDS term alone (SD 1.5, float32, forward + backward) {sds:.1f} ms; peak "
+              f"{peak:.2f} GiB; " + ", ".join(f"{k} {float(v):.5g}" for k, v in metrics.items()))
+        del state, train_step
+        torch.cuda.empty_cache()
+        return peak
+
+    # (a) the three rasterized steps at full width, then textmesh at the largest side the card holds
+    for name in ("fantasia3d-geometry", "fantasia3d-texture", "magic3d-refine"):
+        run_steps(name, ZMESH_FULL["hw"])
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    sides = [s for s in ZMESH_TEXTMESH_HW if s >= ZMESH_FULL["textmesh_hw"]]
+    side = sides.pop(0)
+    peak = run_steps("textmesh", side)
+    # every sample of every ray is held at once: the peak grows with the pixels
+    while sides and peak * (sides[0] / side) ** 2 < 0.9 * total:
+        side_next = sides.pop(0)
+        peak = run_steps("textmesh", side_next)
+        side = side_next
+    res["textmesh_hw"] = side
+    print(f"[{card}] textmesh: the largest of {list(ZMESH_TEXTMESH_HW)} run is {side}^2 ({peak:.2f} GiB of "
+          f"{total:.1f}; the next would take ~{peak * 4:.1f} GiB by the pixel count)")
+
+    # the datamodule's 512^2 is refused, as the JAX package's int32 key refuses it
+    geo_cfg = steps["magic3d-refine"][2]
+    tet = registry.find("tetrahedra-sdf-grid")(dataclasses.asdict(geo_cfg), device=device)
+    surf = isosurface(tet.state, geo_cfg)
+    faces = surf.faces  # the masked slots are (0, 0, 0)
+    hw = ZMESH_FULL["hw"]
+    batch = zmesh_batch(torch, hw, 1, 6, device)
+    refused = None
+    try:
+        rasterize_mesh(surf.verts, faces, batch["cameras"][0], ZMESH_REFUSED_HW, ZMESH_REFUSED_HW)
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "overflow" in refused, f"{ZMESH_REFUSED_HW}^2 was not refused")
+    print(f"[{card}] {ZMESH_REFUSED_HW}^2 with {faces.shape[0]} face slots refused, as by the JAX package: {refused}")
+
+    # (b) one view with every slot against the real faces alone
+    real = faces[surf.face_mask]
+    cam = batch["cameras"][0]
+    out = {}
+    for label, f in (("slots", faces), ("real", real)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(torch, lambda f=f: rasterize_mesh(surf.verts.detach(), f, cam, hw, hw), n=3, warmup=1)
+        r = rasterize_mesh(surf.verts.detach(), f, cam, hw, hw)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out[label] = (ms, peak, r.face_idx)
+    fid_slots, fid_real = out["slots"][2], out["real"][2]
+    hit_real = int((fid_real >= 0).sum())
+    lost = int(((fid_real >= 0) & (fid_slots < 0)).sum())
+    res["masked_slots"] = {"slots": faces.shape[0], "real": real.shape[0], "ms": out["slots"][0],
+                           "ms_real": out["real"][0], "gib": out["slots"][1], "gib_real": out["real"][1],
+                           "pixels_lost": lost, "pixels_hit": hit_real}
+    print(f"[{card}] one view at {hw}^2: {faces.shape[0]} face slots ({real.shape[0]} real) "
+          f"{out['slots'][0]:.2f} ms, {out['slots'][1]:.2f} GiB over the baseline; the real faces alone "
+          f"{out['real'][0]:.2f} ms, {out['real'][1]:.3f} GiB; pixels the real faces cover that the slots' render "
+          f"loses to the tile capacity: {lost} of {hit_real}")
+    del surf, faces, real, out, fid_slots, fid_real
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU, the CPU's side computed beside phases 16-20
+    res["check"] = zmesh_card_vs_cpu(torch, card, refs, device)
+
+    # (d) the exports
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, f = export_mesh(tet.state, geo_cfg)
+    res["export_mesh_s"] = time.perf_counter() - t0
+    check(len(f) > 1000 and np.isfinite(v).all(), "export_mesh: no surface")
+    sdf = registry.find("implicit-sdf")({"hashgrid": ZMESH_FULL.get("hashgrid", {})}, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = export_sdf_grid(sdf.state, sdf.cfg, ZMESH_EXPORT_RES)
+    t1 = time.perf_counter()
+    r = sdf.cfg.radius
+    mesh = registry.find("mesh-exporter")({"isosurface_threshold": 0.0}, device=device)(
+        grid, bbox_min=(-r, -r, -r), bbox_max=(r, r, r))
+    t2 = time.perf_counter()
+    radii = np.linalg.norm(mesh.v_pos, axis=-1)
+    res["export_sdf_s"], res["mc_s"] = t1 - t0, t2 - t1
+    print(f"[{card}] export_mesh at resolution {geo_cfg.isosurface_resolution}: {res['export_mesh_s']:.2f} s, "
+          f"{len(v)} vertices, {len(f)} faces; export_sdf_grid at {ZMESH_EXPORT_RES}^3: {t1 - t0:.2f} s, then "
+          f"mc-cpu {t2 - t1:.2f} s: {len(mesh.v_pos)} vertices, {len(mesh.t_pos_idx)} faces, radius "
+          f"{radii.min():.3f}-{radii.max():.3f} (the init sphere's {sdf.cfg.shape_init_params})")
+    check(len(mesh.t_pos_idx) > 1000 and abs(float(np.median(radii)) - sdf.cfg.shape_init_params) < 0.05,
+          "export_sdf_grid + mc-cpu: not the init sphere")
+
+    torch.cuda.synchronize()
+    res["launches"] = {**rb.launch_counts, **tb.launch_counts, **hc.launch_counts}
+    check(not any(res["launches"].values()), f"phase 21 launched a hand-written kernel: {res['launches']}")
+    print(f"[{card}] phase 21: no hand-written kernel launched (the corner hash grid, the mesh z-buffer, "
+          f"marching tets and NeuS are plain PyTorch)")
     return res
 
 
@@ -4948,6 +5358,11 @@ def main():
     torch.cuda.empty_cache()
     components = drive_components(torch, np, rb, tb, hc, card, refs, dev)
 
+    phases.mark("21")
+    # 21. the SDF and mesh geometries: fantasia3d, magic3d refine and textmesh at full width, card against CPU
+    torch.cuda.empty_cache()
+    zoo_mesh = drive_zoo_mesh(torch, np, rb, tb, hc, card, refs, dev)
+
     phases.mark("end")
     print(f"[{card}] wall seconds per phase: {json.dumps(phases.seconds)}")
 
@@ -4957,8 +5372,9 @@ def main():
         # (phase 13), the Gaussian stage's (phase 14), the two ranks' and
         # render_4d's (phase 16), the zoo's (phases 17 and 18, none: their
         # corner grid, shape loss and VSD are plain PyTorch) and rank mode's
-        # (phase 19: the launcher's rank run and the factory's served views) and
-        # phase 20's (none: the unified guidance, the components and Adan) included
+        # (phase 19: the launcher's rank run and the factory's served views),
+        # phase 20's (none: the unified guidance, the components and Adan) and
+        # phase 21's (none: the SDF and mesh geometries and their steps) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
@@ -4967,14 +5383,16 @@ def main():
         n_latent = zoo_latent["launches"].get(name, 0)
         n_rank = rank["launches"].get(name, 0)
         n_components = components["launches"].get(name, 0)
+        n_zoo_mesh = zoo_mesh["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu,
                 "launches": (n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent + n_rank
-                             + n_components),
+                             + n_components + n_zoo_mesh),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
                 "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
                 "launches_zoo_latent": n_latent, "launches_rank": n_rank, "launches_components": n_components,
+                "launches_zoo_mesh": n_zoo_mesh,
                 **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"

@@ -57,6 +57,14 @@ are read back as Python values.  This module imports no jax.
   (``layers``), ``SolidColorBackground`` (``color``) and
   ``TexturedBackground`` (``texture``) as the ``params`` of their port
   counterparts;
+- the SDF and mesh geometries: :func:`geometry_config` — a JAX
+  ``ImplicitSDFConfig``, ``TetSDFGridConfig``, ``CustomMeshConfig``,
+  ``VolumeGridConfig`` or ``NeuSRendererConfig`` as the port's class of the
+  same name (the hash grid's too); :func:`geometry_params` — the trees of
+  ``init_implicit_sdf`` (``encoding``, ``sdf_mlp``, ``feature_mlp``),
+  ``init_tet_sdf_grid`` (``sdf``, ``deform``, ``encoding``,
+  ``feature_mlp``), ``init_custom_mesh``, ``init_volume_grid`` (``grid``)
+  and ``init_neus_variance`` (``log_s``) as float32 tensors;
 - evaluation: :func:`perceptual_params` — the LPIPS tree
   ``{"stages": [[{w HWIO, b}, …], …], "lins": […]}`` with OIHW convolutions.
 """
@@ -198,6 +206,27 @@ def zero123_losses(src) -> Zero123Losses:
 
 def implicit_volume_params(tree, device="cuda"):
     """The ``init_implicit_volume`` tree as float32 tensors (same nesting)."""
+    return deformation_params(tree, device)
+
+
+def geometry_config(src):
+    """A JAX SDF / mesh geometry or NeuS renderer config as the port's."""
+    from .models.geometry import custom_mesh, dmtet, implicit_sdf, volume_grid
+    from .models.renderers import neus_volume_renderer
+
+    classes = {"ImplicitSDFConfig": implicit_sdf.ImplicitSDFConfig, "TetSDFGridConfig": dmtet.TetSDFGridConfig,
+               "CustomMeshConfig": custom_mesh.CustomMeshConfig, "VolumeGridConfig": volume_grid.VolumeGridConfig,
+               "NeuSRendererConfig": neus_volume_renderer.NeuSRendererConfig}
+    cls = classes[type(src).__name__]
+    fields = dataclasses.asdict(src)
+    if "hashgrid" in fields:
+        fields["hashgrid"] = HashGridConfig(**fields["hashgrid"])
+    return cls(**fields)
+
+
+def geometry_params(tree, device="cuda"):
+    """An SDF / mesh geometry's or the NeuS variance's JAX tree as the same
+    tree of float32 tensors (0-d ``log_s`` included)."""
     return deformation_params(tree, device)
 
 

@@ -12,15 +12,12 @@ are not the JAX package's ``PRNGKey`` draws; carry those across with
 
 Bound here, as the JAX ``register_reference_names`` binds them: ``sugar``,
 ``dynamic-sugar``, ``gaussian-splatting``, ``implicit-volume``,
+``implicit-sdf``, ``custom-mesh``, ``tetrahedra-sdf-grid``, ``volume-grid``,
 ``diff-sugar-rasterizer-{normal,temporal,shading}``,
-``nerf-volume-renderer``, ``mesh-exporter``, ``gaussian-mesh-exporter``,
-``gaussian-splatting-io``, ``perceptual-loss`` and ``dummy-exporter``
-(``models/materials.py`` registers ``no-material`` and
-``diffuse-with-point-light-material``, as the JAX package's does).  The
-JAX package's ``implicit-sdf``, ``custom-mesh``, ``tetrahedra-sdf-grid``,
-``volume-grid`` and ``neus-volume-renderer`` come with their modules
-(``registry.QUEUED``: ``registry.find`` raises ``KeyError`` naming ROADMAP
-A8.3).
+``nerf-volume-renderer``, ``neus-volume-renderer``, ``mesh-exporter``,
+``gaussian-mesh-exporter``, ``gaussian-splatting-io``, ``perceptual-loss``
+and ``dummy-exporter`` (``models/materials.py`` registers ``no-material``
+and ``diffuse-with-point-light-material``, as the JAX package's does).
 """
 
 from __future__ import annotations
@@ -122,6 +119,41 @@ def make_implicit_volume(cfg: Optional[Dict[str, Any]] = None, device="cuda") ->
                      forward_field=partial(m.forward_field, params, c))
 
 
+def make_implicit_sdf(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
+    from .geometry import implicit_sdf as m
+
+    c = _dc(m.ImplicitSDFConfig, cfg)
+    params = m.init_implicit_sdf(c, _gen(cfg, device), device=device)
+    return Component(cfg=c, state=params, forward_sdf=partial(m.forward_sdf, params, c),
+                     sdf_normal=partial(m.sdf_normal, params, c))
+
+
+def make_volume_grid(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
+    from .geometry import volume_grid as m
+
+    c = _dc(m.VolumeGridConfig, cfg)
+    params = m.init_volume_grid(c, _gen(cfg, device), device=device)
+    return Component(cfg=c, state=params, forward_density=partial(m.forward_density, params, c),
+                     forward_field=partial(m.forward_field, params, c))
+
+
+def make_tet_sdf_grid(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
+    from .geometry import dmtet as m
+
+    c = _dc(m.TetSDFGridConfig, cfg)
+    params = m.init_tet_sdf_grid(c, _gen(cfg, device), device=device)
+    return Component(cfg=c, state=params, isosurface=partial(m.isosurface, params, c))
+
+
+def make_custom_mesh(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
+    """The feature network; the mesh itself is ``custom_mesh.load_and_normalize(cfg)``."""
+    from .geometry import custom_mesh as m
+
+    c = _dc(m.CustomMeshConfig, cfg)
+    params = m.init_custom_mesh(c, _gen(cfg, device), device=device)
+    return Component(cfg=c, state=params, forward_features=partial(m.forward_features, params, c))
+
+
 def make_gaussian_splatting(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
     from .geometry import gaussian as m
 
@@ -200,6 +232,24 @@ def make_nerf_volume_renderer(cfg: Optional[Dict[str, Any]] = None, device="cuda
     return Component(cfg=rc, state=occ, render_rays=render)
 
 
+def make_neus_volume_renderer(cfg: Optional[Dict[str, Any]] = None, device="cuda") -> Component:
+    """``state`` is the variance ``{"log_s"}``; ``render_rays(geo_params,
+    rays_o, rays_d, bg_color, var_params=None, **kw)``."""
+    from .geometry import implicit_sdf as gm
+    from .renderers import neus_volume_renderer as m
+
+    cfg = dict(cfg or {})
+    c = _dc(m.NeuSRendererConfig, cfg)
+    geo_cfg = _dc(gm.ImplicitSDFConfig, cfg.get("geometry"))
+    variance = m.init_neus_variance(c, device=device)
+
+    def render(geo_params, rays_o, rays_d, bg_color, var_params=None, **kw):
+        return m.render_rays_neus(geo_params, variance if var_params is None else var_params, geo_cfg, c,
+                                  rays_o, rays_d, bg_color, **kw)
+
+    return Component(cfg=c, state=variance, render_rays=render, neus_alphas=m.neus_alphas)
+
+
 # ---------------------------------------------------------------------------
 # Exporter / IO / loss factories
 # ---------------------------------------------------------------------------
@@ -271,11 +321,16 @@ def register_reference_names() -> None:
     _bind("dynamic-sugar", make_dynamic_sugar)
     _bind("gaussian-splatting", make_gaussian_splatting)
     _bind("implicit-volume", make_implicit_volume)
+    _bind("implicit-sdf", make_implicit_sdf)
+    _bind("custom-mesh", make_custom_mesh)
+    _bind("tetrahedra-sdf-grid", make_tet_sdf_grid)
+    _bind("volume-grid", make_volume_grid)
     # renderers
     _bind("diff-sugar-rasterizer-normal", _make_sugar_rasterizer)
     _bind("diff-sugar-rasterizer-temporal", _make_sugar_rasterizer)
     _bind("diff-sugar-rasterizer-shading", _make_sugar_rasterizer)
     _bind("nerf-volume-renderer", make_nerf_volume_renderer)
+    _bind("neus-volume-renderer", make_neus_volume_renderer)
     # exporters / IO / losses
     _bind("mesh-exporter", make_mesh_exporter)
     _bind("gaussian-mesh-exporter", make_gaussian_mesh_exporter)

@@ -96,33 +96,79 @@ def _hash_corner(ix, iy, iz, res: int, table_size: int) -> torch.Tensor:
     return _spatial_hash(ix, iy, iz, table_size)
 
 
+def _corner_level(x: torch.Tensor, res: int, table_size: int):
+    """One level's 8 corner rows (N, 8) int64, trilinear weights (N, 8) and
+    their d/d fraction (N, 8, 3), corner order dx | dy<<1 | dz<<2."""
+    xs = x * res
+    x0f = torch.clamp(torch.floor(xs), 0, res - 1).detach()
+    f = xs - x0f
+    x0 = x0f.long()
+    idx, w, dw = [], [], []
+    for corner in range(8):
+        d = (corner & 1, (corner >> 1) & 1, (corner >> 2) & 1)
+        idx.append(_hash_corner(x0[:, 0] + d[0], x0[:, 1] + d[1], x0[:, 2] + d[2], res, table_size))
+        fa = [f[:, a] if d[a] else 1 - f[:, a] for a in range(3)]
+        s = [1.0 if d[a] else -1.0 for a in range(3)]
+        w.append(fa[0] * fa[1] * fa[2])
+        dw.append(torch.stack([s[0] * fa[1] * fa[2], fa[0] * s[1] * fa[2], fa[0] * fa[1] * s[2]], -1))
+    return torch.stack(idx, 1), torch.stack(w, 1), torch.stack(dw, 1)
+
+
+class _CornerEncode(torch.autograd.Function):
+    """The corner encode, keeping only the points and the tables for its
+    backward and recomputing the corner rows and weights there: a query
+    costs its inputs and output, not the ~3 KB of 16 levels × 8 corners of
+    gathers and products that autograd would keep (a NeuS step at full
+    width queries ~15 M points).  The table gradients are ``index_add``
+    (atomics on CUDA, where indexing's backward would sort).  The backward
+    is written in differentiable operations, so a double backward (an
+    analytic normal inside a loss) works."""
+
+    @staticmethod
+    def forward(ctx, tables, x, level_mask, levels):
+        T, F = tables.shape[1], tables.shape[2]
+        cols = []
+        for l, res in enumerate(levels):
+            idx, w, _ = _corner_level(x, res, T)
+            rows = tables[l][idx] * w[..., None]  # (N, 8, F)
+            acc = rows[:, 0]
+            for c in range(1, 8):  # the corners summed in order, as the JAX package sums them
+                acc = acc + rows[:, c]
+            cols.append(acc if level_mask is None else acc * level_mask[l])
+        ctx.save_for_backward(tables, x, level_mask)
+        ctx.levels = levels
+        return torch.cat(cols, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tables, x, level_mask = ctx.saved_tensors
+        want_tables, want_x = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        _, T, F = tables.shape
+        d_tables, d_x = [], torch.zeros_like(x) if want_x else None
+        for l, res in enumerate(ctx.levels):
+            g_l = g[:, l * F:(l + 1) * F]
+            if level_mask is not None:
+                g_l = g_l * level_mask[l]
+            idx, w, dw = _corner_level(x, res, T)
+            if want_tables:
+                d_tables.append(torch.zeros((T, F), dtype=tables.dtype, device=tables.device).index_add(
+                    0, idx.reshape(-1), (w[..., None] * g_l[:, None, :]).reshape(-1, F).to(tables.dtype)))
+            if want_x:
+                rows_g = (tables[l][idx] * g_l[:, None, :]).sum(-1, keepdim=True)  # (N, 8, 1)
+                d_x = d_x + (dw * rows_g).sum(1).to(x.dtype) * res
+        return torch.stack(d_tables) if want_tables else None, d_x, None, None
+
+
 def hashgrid_encode(params: Dict[str, torch.Tensor], cfg: HashGridConfig, x: torch.Tensor,
                     level_mask=None) -> torch.Tensor:
     """Corner layout.  x: (..., 3) in [0, 1] -> (..., L·F); ``level_mask``
     (L,) multiplies each level's features.  Differentiable in the tables
-    and, through the trilinear weights, in ``x``."""
-    tables = params["tables"]
-    T, F = tables.shape[1], tables.shape[2]
+    and, through the trilinear weights, in ``x``, to the second order
+    (:class:`_CornerEncode`)."""
     shape = x.shape[:-1]
-    xf = x.reshape(-1, 3)
-    cols = []
-    for l, res in enumerate(cfg.level_resolutions()):
-        xs = xf * res
-        x0f = torch.clamp(torch.floor(xs), 0, res - 1).detach()
-        f = xs - x0f
-        x0 = x0f.long()
-        acc = 0.0
-        for corner in range(8):
-            dx, dy, dz = corner & 1, (corner >> 1) & 1, (corner >> 2) & 1
-            idx = _hash_corner(x0[:, 0] + dx, x0[:, 1] + dy, x0[:, 2] + dz, res, T)
-            w = ((f[:, 0] if dx else 1 - f[:, 0])
-                 * (f[:, 1] if dy else 1 - f[:, 1])
-                 * (f[:, 2] if dz else 1 - f[:, 2]))
-            acc = acc + tables[l][idx] * w[:, None]
-        if level_mask is not None:
-            acc = acc * level_mask[l]
-        cols.append(acc)
-    return torch.cat(cols, -1).reshape(shape + (cfg.out_dim,))
+    lm = None if level_mask is None else torch.as_tensor(level_mask, dtype=x.dtype, device=x.device)
+    out = _CornerEncode.apply(params["tables"], x.reshape(-1, 3), lm, tuple(cfg.level_resolutions()))
+    return out.reshape(shape + (cfg.out_dim,))
 
 
 def progressive_level_mask(cfg: HashGridConfig, step: int) -> np.ndarray:

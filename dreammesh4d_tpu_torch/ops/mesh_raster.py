@@ -34,14 +34,16 @@ class MeshRasterOutput(NamedTuple):
 def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor, camera: GSCameraInfo, W: int, H: int,
                    tile_capacity: int = 256, max_tiles_per_face: int = 64) -> MeshRasterOutput:
     """Index-rasterize ``verts`` (V, 3) world / ``faces`` (F, 3) from
-    ``camera`` at (H, W); everything on ``verts``' device."""
+    ``camera`` at (H, W); everything on ``verts``' device, in float32, or in
+    float64 where ``verts`` are float64."""
     dev = verts.device
-    verts = verts.to(torch.float32)
+    dtype = torch.float64 if verts.dtype == torch.float64 else torch.float32
+    verts = verts.to(dtype)
     faces = faces.long()
     F = faces.shape[0]
     hom = torch.cat([verts, torch.ones_like(verts[:, :1])], -1)
-    p_view = hom @ camera.world_view_transform[:, :3]  # (V, 3)
-    p_hom = hom @ camera.full_proj_transform
+    p_view = hom @ camera.world_view_transform[:, :3].to(dtype)  # (V, 3)
+    p_hom = hom @ camera.full_proj_transform.to(dtype)
     p_w = 1.0 / (p_hom[:, 3:4] + 1e-7)
     ndc = p_hom[:, :3] * p_w
     px = ((ndc[:, 0] + 1.0) * W - 1.0) * 0.5
@@ -49,8 +51,12 @@ def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor, camera: GSCameraInf
     pix = torch.stack([px, py], -1)  # (V, 2)
     z = p_view[:, 2]
 
-    tri_pix = pix[faces]  # (F, 3, 2)
-    tri_z = z[faces]  # (F, 3)
+    # gathered with index_select: its backward adds with atomics, where
+    # indexing's sorts its indices (seconds on CUDA when millions of faces
+    # share a vertex, as a marching-tets surface's masked slots do)
+    flat = faces.reshape(-1)
+    tri_pix = torch.index_select(pix, 0, flat).reshape(F, 3, 2)  # (F, 3, 2)
+    tri_z = torch.index_select(z, 0, flat).reshape(F, 3)  # (F, 3)
     center = tri_pix.mean(1)
     radius = torch.ceil(torch.linalg.norm(tri_pix - center[:, None, :], dim=-1).amax(1)).int() + 1
     valid = (tri_z > 0.05).all(-1)
@@ -62,16 +68,16 @@ def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor, camera: GSCameraInf
     tiles_x, tiles_y = num_tiles(W, H)
 
     # sentinel triangle F: degenerate, never hits
-    tri_pix_p = torch.cat([tri_pix, torch.full((1, 3, 2), 1e9, device=dev)], 0)
-    tri_z_p = torch.cat([tri_z, torch.full((1, 3), float("inf"), device=dev)], 0)
+    tri_pix_p = torch.cat([tri_pix, torch.full((1, 3, 2), 1e9, dtype=dtype, device=dev)], 0)
+    tri_z_p = torch.cat([tri_z, torch.full((1, 3), float("inf"), dtype=dtype, device=dev)], 0)
     v_pix = tri_pix_p[g]  # (T, K, 3, 2)
     v_z = tri_z_p[g]  # (T, K, 3)
 
     t_idx = torch.arange(T, device=dev)
     tx, ty = t_idx % tiles_x, t_idx // tiles_x
-    xs = torch.arange(TILE, dtype=torch.float32, device=dev)
-    px_row = tx[:, None].float() * TILE + xs[None, :]  # (T, 16)
-    py_row = ty[:, None].float() * TILE + xs[None, :]
+    xs = torch.arange(TILE, dtype=dtype, device=dev)
+    px_row = tx[:, None].to(dtype) * TILE + xs[None, :]  # (T, 16)
+    py_row = ty[:, None].to(dtype) * TILE + xs[None, :]
     # pixel order within a tile is (y, x) row-major, matching untile below
     P = TILE * TILE
     pix_x = px_row[:, None, :].expand(T, TILE, TILE).reshape(T, P)
@@ -125,6 +131,7 @@ def interpolate_attribute(out: MeshRasterOutput, faces: torch.Tensor,
     """Per-vertex attributes (V, C) interpolated at the hits → (H, W, C),
     0 on the background."""
     f = torch.clamp(out.face_idx, min=0)
-    tri_attr = vert_attr[faces.long()[f]]  # (H, W, 3, C)
+    idx = faces.long()[f]  # (H, W, 3)
+    tri_attr = torch.index_select(vert_attr, 0, idx.reshape(-1)).reshape(idx.shape + vert_attr.shape[1:])
     val = (out.bary[..., None] * tri_attr).sum(-2)
     return torch.where((out.face_idx >= 0)[..., None], val, torch.zeros_like(val))

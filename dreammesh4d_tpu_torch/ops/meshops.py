@@ -15,15 +15,29 @@ from .quaternion import cross, quat_apply
 
 def face_normals(verts: torch.Tensor, faces: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     """Per-face normals (..., F, 3), counter-clockwise winding; ``verts`` may
-    carry leading batch dims (..., V, 3)."""
-    v0 = verts[..., faces[:, 0], :]
-    v1 = verts[..., faces[:, 1], :]
-    v2 = verts[..., faces[:, 2], :]
+    carry leading batch dims (..., V, 3).  The corners are gathered with
+    ``index_select``, whose backward adds into the vertices with atomics:
+    indexing's backward sorts its indices, which on CUDA takes seconds when
+    millions of faces share a vertex (a marching-tets surface's masked slots)."""
+    faces = faces.long()
+    v0 = torch.index_select(verts, -2, faces[:, 0])
+    v1 = torch.index_select(verts, -2, faces[:, 1])
+    v2 = torch.index_select(verts, -2, faces[:, 2])
     n = cross(v1 - v0, v2 - v0)
     if normalize:
         # rsqrt(|n|²+eps): finite at zero-area faces
         n = n * torch.rsqrt((n * n).sum(-1, keepdim=True) + 1e-20)
     return n
+
+
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted vertex normals (V, 3) by scatter-add (``vertex_normals``
+    :42); rsqrt(|n|²+eps) keeps vertices without a face finite."""
+    fn = face_normals(verts, faces, normalize=False)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn = vn.index_add(-2, faces[:, k].long(), fn)
+    return vn * torch.rsqrt((vn * vn).sum(-1, keepdim=True) + 1e-20)
 
 
 class EdgeAdjacency(NamedTuple):

@@ -7,7 +7,9 @@ The port registers:
   ``sugar-4dgen-system`` and the zoo's ``dreamfusion-system``,
   ``magic3d-system``, ``efficient-dreamfusion-system``, ``magic123-system``,
   ``image-condition-dreamfusion-system``, ``latentnerf-system``,
-  ``sjc-system`` and ``prolificdreamer-system``;
+  ``sjc-system`` and ``prolificdreamer-system``, and ``fantasia3d-system``,
+  ``textmesh-system`` and ``zero123-simple-system`` (classes that hold
+  their config, as the JAX package's);
 - the data modules ``single-image-datamodule``,
   ``temporal-image-datamodule`` and ``random-camera-datamodule``;
 - the guidance and prompts: ``stable-zero123-guidance``,
@@ -21,11 +23,14 @@ The port registers:
   the backgrounds ``neural-environment-map-background`` (also
   ``gaussian-mvdream-neural-environment-map-background``),
   ``solid-color-background`` and ``textured-background``;
+- the renderers ``nvdiff-rasterizer`` and ``patch-renderer``;
 - the factories of ``models/registry_names.py``, where ``find(name)(cfg)``
   returns a constructed component: ``sugar``, ``dynamic-sugar``,
-  ``gaussian-splatting``, ``implicit-volume``,
+  ``gaussian-splatting``, ``implicit-volume``, ``implicit-sdf``,
+  ``custom-mesh``, ``tetrahedra-sdf-grid``, ``volume-grid``,
   ``diff-sugar-rasterizer-{normal,temporal,shading}``,
-  ``nerf-volume-renderer``, ``mesh-exporter``, ``gaussian-mesh-exporter``,
+  ``nerf-volume-renderer``, ``neus-volume-renderer``, ``mesh-exporter``,
+  ``gaussian-mesh-exporter``,
   ``gaussian-splatting-io``, ``perceptual-loss`` and ``dummy-exporter``.
 
 ``find`` imports the modules that register them on first use, so importing
@@ -39,9 +44,6 @@ __modules__: dict = {}
 
 # the JAX package's names whose modules the port has not got yet: name -> the ROADMAP item
 QUEUED = {
-    **dict.fromkeys(("implicit-sdf", "neus-volume-renderer", "tetrahedra-sdf-grid", "nvdiff-rasterizer",
-                     "patch-renderer", "custom-mesh", "volume-grid", "fantasia3d-system",
-                     "textmesh-system", "zero123-simple-system"), "ROADMAP A8.3"),
     **dict.fromkeys(("stable-diffusion-controlnet-guidance", "stable-diffusion-instructpix2pix-guidance",
                      "deep-floyd-guidance", "deep-floyd-prompt-processor"), "ROADMAP A8.5"),
     **dict.fromkeys(("instructnerf2nerf-system", "control4d-system", "control4d-multiview-system",
@@ -88,4 +90,5 @@ def _import_builtin_modules() -> None:
     from .models import background, materials, prompt_processors, registry_names  # noqa: F401
     from .models.guidance import stable_diffusion, unified  # noqa: F401
     from .models.guidance.zero123 import guidance  # noqa: F401
-    from .systems import assembly, assembly_zoo  # noqa: F401
+    from .models.renderers import mesh_rasterizer  # noqa: F401
+    from .systems import assembly, assembly_zoo, threestudio_zoo2  # noqa: F401

@@ -1,5 +1,7 @@
-"""The threestudio zoo's latentnerf and sjc train steps (counterpart of
-``dreammesh4d_tpu/systems/threestudio_zoo2.py``, :139-212 and :219-284).
+"""The threestudio zoo's latentnerf, sjc, fantasia3d, magic3d-refine and
+textmesh train steps (counterpart of
+``dreammesh4d_tpu/systems/threestudio_zoo2.py``, :46-135, :139-212,
+:219-284, :293-334 and :347-419).
 
 - ``latentnerf-system``: the field's feature head emits 4 channels that
   the renderer composites over a zero background (its channel count is the
@@ -11,13 +13,25 @@
 - ``sjc-system``: a white background, the emptiness term
   log(1 + s·w) averaged over the ray weights and, with ``lambda_depth``,
   the centre-against-border depth contrast.
+- ``fantasia3d-system``: the DMTet surface (``models/geometry/dmtet.py``)
+  rasterized per view (``models/renderers/mesh_rasterizer.py``); the
+  geometry phase feeds the normal map and the opacity to the guidance, the
+  texture phase (``texture=True``) the rgb of the feature head; plus the
+  normal consistency of the two face slots of each tet.
+- ``magic3d-system``'s refine stage: rgb SDS on the rasterized DMTet
+  surface plus the same normal consistency.
+- ``textmesh-system``: SDS on a NeuS render of the implicit SDF
+  (``models/renderers/neus_volume_renderer.py``), the eikonal term, the
+  scheduled orientation term, sparsity and opacity; the state's tree is
+  ``{"geo": the SDF's parameters, "var": {"log_s"}}``.
 
-The fantasia3d and magic3d-refine steps of the JAX module (DMTet) are not
-ported yet (ROADMAP A8).  The steps share ``_rand_render``, ``_total``,
-``_regularizers`` and ``_make_step`` with ``threestudio_zoo.py``: one
-``torch.Generator`` draws the samples' jitter, the guidance's draws and
-the shape term's points; the guidance closure takes ``(generator, image,
-batch, rgb_as_latents)``.
+The steps share ``_rand_render``, ``_total``, ``_regularizers`` and
+``_make_step`` with ``threestudio_zoo.py``: Adam lives in the state, one
+``torch.Generator`` draws the renderer's numbers and then the guidance's
+(and the shape term's points); the guidance closure takes ``(generator,
+image, batch)`` (latentnerf's also ``rgb_as_latents``).  The classes
+registered as ``fantasia3d-system``, ``textmesh-system`` and
+``zero123-simple-system`` hold their config, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -27,8 +41,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..models.geometry.dmtet import TetSDFGridConfig, forward_features, isosurface
 from ..models.geometry.implicit_volume import ImplicitVolumeConfig, forward_density
+from ..models.renderers.mesh_rasterizer import MeshRasterizer
 from ..models.renderers.nerf_volume_renderer import NeRFRendererConfig
+from ..ops.meshops import face_normals
+from ..ops.safe_math import safe_normalize
+from ..registry import register
 from .threestudio_zoo import _make_step, _rand_render, _regularizers, _total
 
 
@@ -119,3 +138,134 @@ def make_sjc_train_step(geo_cfg: ImplicitVolumeConfig, rcfg: NeRFRendererConfig,
         return _total(terms, weights, step, dev)
 
     return _make_step(loss_fn, dev)
+
+
+# ---------------------------------------------------------------------------
+# fantasia3d-system and magic3d's refine stage (the DMTet surface)
+# ---------------------------------------------------------------------------
+
+
+def _dmtet_normal_consistency(verts: torch.Tensor, faces: torch.Tensor, fmask: torch.Tensor) -> torch.Tensor:
+    """Mean (1 − cos) between the two face slots of each tet (rows 2i and
+    2i + 1 share an edge whenever both are real).  The normals divide by
+    rsqrt(|n|² + eps), so a masked zero-area face gets a zero gradient, not
+    a NaN."""
+    n = safe_normalize(face_normals(verts, faces, normalize=False))  # (2T, 3)
+    both = (fmask[0::2] & fmask[1::2]).float()
+    cos = (n[0::2] * n[1::2]).sum(-1)
+    return ((1.0 - cos) * both).sum() / torch.clamp(both.sum(), min=1.0)
+
+
+def _render_dmtet_views(geo_params, geo_cfg: TetSDFGridConfig, cameras, camera_positions, H: int, W: int,
+                        raster: MeshRasterizer, with_rgb: bool):
+    """Every view of the current surface, its masked slots as (0, 0, 0)
+    faces; returns (outputs, (verts, faces, face_mask))."""
+    surf = isosurface(geo_params, geo_cfg)
+    feature_fn = (lambda p: forward_features(geo_params, geo_cfg, p)) if with_rgb else None
+    out = raster(surf.verts, surf.faces, cameras, camera_positions, H, W, feature_fn=feature_fn)
+    return out, (surf.verts, surf.faces, surf.face_mask)
+
+
+@dataclass
+class Fantasia3DLosses:
+    lambda_sds: Any = 1.0
+    lambda_normal_consistency: Any = 10000.0
+
+
+def make_fantasia3d_train_step(geo_cfg: TetSDFGridConfig, losses: Fantasia3DLosses, guidance_fn: Callable,
+                               raster: Optional[MeshRasterizer] = None, texture: bool = False, H: int = 64,
+                               W: int = 64, device="cuda"):
+    """``batch``: ``cameras`` (a list of ``GSCameraInfo``), ``camera_positions``
+    (B, 3) and what the guidance reads.  The geometry phase
+    (``texture=False``) hands the guidance the normal map in [0, 1] with the
+    opacity (B, H, W, 4); the texture phase the rgb (B, H, W, 3)."""
+    dev = torch.device(device)
+    raster = raster or MeshRasterizer(device=dev)
+    weights = {"sds": losses.lambda_sds, "normal_consistency": losses.lambda_normal_consistency}
+
+    def loss_fn(geo_params, batch, generator, step):
+        out, (verts, faces, fmask) = _render_dmtet_views(
+            geo_params, geo_cfg, batch["cameras"], batch["camera_positions"], H, W, raster, with_rgb=texture)
+        image = out["comp_rgb"] if texture else torch.cat([out["comp_normal"], out["opacity"]], -1)
+        terms = {"sds": guidance_fn(generator, image, batch),
+                 "normal_consistency": _dmtet_normal_consistency(verts, faces, fmask)}
+        return _total(terms, weights, step, dev)
+
+    return _make_step(loss_fn, dev)
+
+
+@dataclass
+class Magic3DLosses:
+    lambda_sds: Any = 1.0
+    lambda_normal_consistency: Any = 1000.0
+
+
+def make_magic3d_refine_train_step(geo_cfg: TetSDFGridConfig, losses: Magic3DLosses, guidance_fn: Callable,
+                                   raster: Optional[MeshRasterizer] = None, H: int = 64, W: int = 64,
+                                   device="cuda"):
+    """Rgb SDS on the rasterized DMTet surface plus normal consistency;
+    ``batch`` as the fantasia3d step's."""
+    dev = torch.device(device)
+    raster = raster or MeshRasterizer(device=dev)
+    weights = {"sds": losses.lambda_sds, "normal_consistency": losses.lambda_normal_consistency}
+
+    def loss_fn(geo_params, batch, generator, step):
+        out, (verts, faces, fmask) = _render_dmtet_views(
+            geo_params, geo_cfg, batch["cameras"], batch["camera_positions"], H, W, raster, with_rgb=True)
+        terms = {"sds": guidance_fn(generator, out["comp_rgb"], batch),
+                 "normal_consistency": _dmtet_normal_consistency(verts, faces, fmask)}
+        return _total(terms, weights, step, dev)
+
+    return _make_step(loss_fn, dev)
+
+
+# ---------------------------------------------------------------------------
+# textmesh-system (the NeuS-rendered implicit SDF)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TextMeshLosses:
+    lambda_sds: Any = 1.0
+    lambda_orient: Any = field(default_factory=lambda: [0, 10.0, 1000.0, 5000])
+    lambda_sparsity: Any = 1.0
+    lambda_opaque: Any = 0.0
+    lambda_eikonal: Any = 1000.0
+
+
+def make_textmesh_train_step(geo_cfg, rcfg, losses: TextMeshLosses, guidance_fn: Callable,
+                             bg_color=(1.0, 1.0, 1.0), device="cuda"):
+    """``batch``: ``rays_o`` / ``rays_d`` (B, H, W, 3) and what the guidance
+    reads; the state's tree is ``{"geo", "var"}`` (``init_scene_state`` of
+    it).  The surface exports through ``implicit_sdf.export_sdf_grid`` and
+    the mc-cpu isosurface."""
+    from ..models.renderers.neus_volume_renderer import render_rays_neus
+
+    dev = torch.device(device)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    weights = {"sds": losses.lambda_sds, "eikonal": losses.lambda_eikonal, "orient": losses.lambda_orient,
+               "sparsity": losses.lambda_sparsity, "opaque": losses.lambda_opaque}
+
+    def loss_fn(params, batch, generator, step):
+        B, H, W = batch["rays_o"].shape[:3]
+        out = render_rays_neus(params["geo"], params["var"], geo_cfg, rcfg, batch["rays_o"].reshape(-1, 3),
+                               batch["rays_d"].reshape(-1, 3), bg, generator)
+        terms = {"sds": guidance_fn(generator, out["comp_rgb"].reshape(B, H, W, 3), batch),
+                 "eikonal": out["eikonal"]}
+        _regularizers(out, terms)
+        return _total(terms, weights, step, dev)
+
+    return _make_step(loss_fn, dev)
+
+
+@register("fantasia3d-system")
+@register("textmesh-system")
+@register("zero123-simple-system")
+class ConfigSystem:
+    """The systems that only hold their config, as in the JAX package: their
+    steps are the ``make_*_train_step`` above (the simplified zero123's is
+    ``zero123_system``'s); registered for the configs' names."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)

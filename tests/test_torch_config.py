@@ -223,6 +223,7 @@ def test_registry_resolves_the_stages_names():
     from dreammesh4d_tpu_torch.systems.assembly import (Sugar4DGenExperiment, SugarStaticExperiment,
                                                         Zero123Experiment)
     from dreammesh4d_tpu_torch.systems.assembly_zoo import ZooVSDExperiment
+    from dreammesh4d_tpu_torch.systems.threestudio_zoo2 import ConfigSystem
 
     assert registry.find("sugar-static-system") is SugarStaticExperiment
     assert registry.find("sugar-4dgen-system") is Sugar4DGenExperiment
@@ -232,8 +233,9 @@ def test_registry_resolves_the_stages_names():
     assert issubclass(mixed, SugarStaticExperiment) and issubclass(mixed, SingleImageDataModule)
     assert registry.find("zero123-system") is Zero123Experiment
     assert registry.find("prolificdreamer-system") is ZooVSDExperiment
+    assert registry.find("fantasia3d-system") is ConfigSystem
     with pytest.raises(KeyError):
-        registry.find("fantasia3d-system")  # not ported yet (ROADMAP A8)
+        registry.find("control4d-system")  # not ported yet (ROADMAP A8)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

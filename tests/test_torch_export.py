@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import _cheap_xla  # noqa: F401
+
 import dreammesh4d_tpu.models.geometry.deformation as jdef
 import dreammesh4d_tpu.models.geometry.dynamic_sugar as jdyn
 import dreammesh4d_tpu.ops.gs as jgs

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import jit_fast
+
 import dreammesh4d_tpu.ops.hashgrid as jhg
 from dreammesh4d_tpu.ops.hashgrid_pallas import encode_cell_with_grad as j_encode_cell
 from dreammesh4d_tpu_torch import convert
@@ -225,19 +227,20 @@ def test_corner_layout_and_frequency_encode():
     tables = rng.uniform(-0.1, 0.1, (4, 1 << 10, 2)).astype(np.float32)
     x = rng.uniform(0, 1, (5, 40, 3)).astype(np.float32)
     mask = np.float32([1, 1, 1, 0])
-    ref = jhg.hashgrid_encode({"tables": jnp.asarray(tables)}, jcfg, jnp.asarray(x), jnp.asarray(mask))
+    ref = jit_fast(lambda t, p, m: jhg.hashgrid_encode({"tables": t}, jcfg, p, m))(
+        jnp.asarray(tables), jnp.asarray(x), jnp.asarray(mask))
     xt = torch.tensor(x, requires_grad=True)
     got = thg.hashgrid_encode({"tables": torch.tensor(tables)}, cfg, xt, torch.tensor(mask))
     assert got.shape == (5, 40, 8)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
     w = rng.normal(size=(5, 40, 8)).astype(np.float32)
-    g_ref = jax.jit(jax.grad(lambda p: (jhg.hashgrid_encode({"tables": jnp.asarray(tables)}, jcfg, p)
-                                        * jnp.asarray(w)).sum()))(jnp.asarray(x))
+    g_ref = jit_fast(jax.grad(lambda p: (jhg.hashgrid_encode({"tables": jnp.asarray(tables)}, jcfg, p)
+                                         * jnp.asarray(w)).sum()))(jnp.asarray(x))
     (thg.hashgrid_encode({"tables": torch.tensor(tables)}, cfg, xt) * torch.tensor(w)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_ref), rtol=1e-4, atol=1e-4)
 
     np.testing.assert_allclose(thg.frequency_encode(torch.tensor(x), 4).numpy(),
-                               np.asarray(jhg.frequency_encode(jnp.asarray(x), 4)),
+                               np.asarray(jit_fast(lambda p: jhg.frequency_encode(p, 4))(jnp.asarray(x))),
                                rtol=1e-5, atol=1e-5)
     pj = jhg.HashGridConfig(n_levels=8, progressive=True, start_level=2, update_steps=100)
     for step in (0, 250, 10000):

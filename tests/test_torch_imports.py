@@ -65,7 +65,9 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "systems.threestudio_zoo", "systems.assembly_zoo", "systems.threestudio_zoo2",
                "models.guidance.vsd", "ops.shape_loss", "models.geometry.volume_grid",
                "models.registry_names", "utils.colormaps", "models.guidance.unified", "models.background",
-               "systems.adan", "utils.misc")
+               "systems.adan", "utils.misc", "models.geometry.implicit_sdf", "models.geometry.dmtet",
+               "models.geometry.custom_mesh", "models.renderers.neus_volume_renderer",
+               "models.renderers.mesh_rasterizer")
 
 
 def test_port_imports_no_jax():

@@ -49,6 +49,8 @@ import optax
 import pytest
 import torch
 
+from jax_compile import _cheap_xla  # noqa: F401
+
 import dreammesh4d_tpu.models.geometry.deformation as jdef
 import dreammesh4d_tpu.systems.sugar_4dgen as jsys
 from dreammesh4d_tpu.config import load_config as j_load_config

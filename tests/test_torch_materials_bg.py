@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import FAST_COMPILE
+
 from dreammesh4d_tpu.models import background as jbg
 from dreammesh4d_tpu.models import materials as jmat
 from dreammesh4d_tpu.utils.misc import get_activation as jax_activation
@@ -37,8 +39,6 @@ from dreammesh4d_tpu_torch.registry import find
 from dreammesh4d_tpu_torch.utils.misc import get_activation
 
 N = 48
-# XLA's cheaper passes for the references' compiles
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 @pytest.fixture(scope="module", autouse=True)

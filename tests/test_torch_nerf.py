@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import jit_fast
+
 import dreammesh4d_tpu.models.geometry.implicit_volume as jiv
 import dreammesh4d_tpu.models.renderers.nerf_volume_renderer as jnr
 from dreammesh4d_tpu.models.materials import DiffuseWithPointLightMaterial as JMaterial
@@ -110,17 +112,19 @@ def test_implicit_volume_matches_jax(layout, normal_type):
     tparams = convert.implicit_volume_params(params, "cpu")
     pts = np.random.default_rng(1).uniform(-0.95, 0.95, (7, 9, 3)).astype(np.float32)
     mask = np.float32([1, 1, 0])
+    j_fwn = jit_fast(lambda p, x, lm: jiv.forward_with_normal(p, jgeo, x, lm))
+    j_density = jit_fast(lambda p, x, lm: jiv.forward_density(p, jgeo, x, lm))
     for lm in (None, mask):
         jlm = None if lm is None else jnp.asarray(lm)
         tlm = None if lm is None else torch.tensor(lm)
-        jd, jf, jn = jiv.forward_with_normal(to_jax(params), jgeo, jnp.asarray(pts), jlm)
+        jd, jf, jn = j_fwn(to_jax(params), jnp.asarray(pts), jlm)
         d, f, n = tiv.forward_with_normal(tparams, geo, torch.tensor(pts), tlm)
         assert d.shape == (7, 9, 1) and f.shape == (7, 9, 3) and n.shape == (7, 9, 3)
         close(d, jd, 2e-5)
         close(f, jf, 2e-5)
         close(n, jn, 2e-4, rtol=1e-4)
         close(tiv.forward_density(tparams, geo, torch.tensor(pts), tlm),
-              jiv.forward_density(to_jax(params), jgeo, jnp.asarray(pts), jlm), 2e-5)
+              j_density(to_jax(params), jnp.asarray(pts), jlm), 2e-5)
         d2, f2 = tiv.forward_field(tparams, geo, torch.tensor(pts), tlm)
         close(d2, jd, 2e-5)
         close(f2, jf, 2e-5)
@@ -161,8 +165,9 @@ def test_density_bias_and_activations(bias, act):
     geo = convert.implicit_volume_config(jgeo)
     params = make_params(jgeo)
     pts = np.random.default_rng(4).uniform(-0.9, 0.9, (30, 3)).astype(np.float32)
-    close(tiv.density_bias(geo, torch.tensor(pts)), jiv.density_bias(jgeo, jnp.asarray(pts)), 1e-5)
-    jd, _, jn = jiv.forward_with_normal(to_jax(params), jgeo, jnp.asarray(pts))
+    jbias, (jd, _, jn) = jit_fast(lambda p, x: (jiv.density_bias(jgeo, x), jiv.forward_with_normal(p, jgeo, x)))(
+        to_jax(params), jnp.asarray(pts))
+    close(tiv.density_bias(geo, torch.tensor(pts)), jbias, 1e-5)
     d, _, n = tiv.forward_with_normal(convert.implicit_volume_params(params, "cpu"), geo,
                                       torch.tensor(pts))
     close(d, jd, 2e-5, rtol=2e-5)
@@ -199,9 +204,9 @@ def _loss(out, case, lib):
 
 @functools.lru_cache(maxsize=None)
 def render_pair(estimator):
-    """One JAX evaluation per estimator — outputs, loss and (occgrid only:
-    the eager gradient costs as much again) parameter gradients — and the
-    port's on the same inputs and the same noise."""
+    """One JAX evaluation per estimator — outputs, loss and (occgrid only)
+    parameter gradients, under one ``jax.jit`` — and the port's on the same
+    inputs and the same noise."""
     case = _render_case(estimator)
     jrcfg = dataclasses.replace(JRCFG, estimator=estimator)
 
@@ -219,9 +224,9 @@ def render_pair(estimator):
         mp.setattr(jax.random, "normal", lambda key, shape, *a, **k: jnp.asarray(case["noise"]))
         mp.setattr(tnr, "draw_normal", lambda rng, shape, device: torch.tensor(case["noise"]))
         if estimator == "occgrid":
-            (jval, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(to_jax(case["params"]))
+            (jval, jout), jgrads = jit_fast(jax.value_and_grad(jloss, has_aux=True))(to_jax(case["params"]))
         else:
-            (jval, jout), jgrads = jloss(to_jax(case["params"])), None
+            (jval, jout), jgrads = jit_fast(jloss)(to_jax(case["params"])), None
         tcell.reset_launch_counts()
         out = tnr.render_rays(tparams, convert.implicit_volume_config(JGEO),
                               convert.nerf_renderer_config(jrcfg), torch.tensor(case["o"]),

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import _cheap_xla  # noqa: F401
+
 from dreammesh4d_tpu.ops.cameras import camera_position_from_spherical, get_cam_info_gaussian, look_at_c2w
 from dreammesh4d_tpu.ops.gs import RasterizerConfig as JRasterizerConfig
 from dreammesh4d_tpu.ops.gs import rasterize as j_rasterize

@@ -34,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import _cheap_xla  # noqa: F401
+
 import dreammesh4d_tpu.ops.mesh_raster as jmr
 from dreammesh4d_tpu.export import mesh_io as jio
 from dreammesh4d_tpu.ops import cameras as jcam

@@ -2,7 +2,7 @@
 ``find(name)(cfg)`` of ``models/registry_names.py`` in both packages, from
 the configs of ``tests/test_registry_parity.py``'s construction tests.
 
-For each of the 13 factory names: the constructed component's state has the
+For each of the 13 older factory names: the constructed component's state has the
 JAX component's tree structure and leaf shapes (the perceptual network's
 against ``convert.perceptual_params`` of it, whose convolutions are OIHW),
 its bound attributes exist, and one forward on the JAX parameters carried
@@ -20,7 +20,11 @@ functions read) agrees within the band of that module's parity test:
   numpy parameters (an eager VGG16 init costs seconds);
 - ``mesh-exporter``: equal meshes; ``gaussian-mesh-exporter`` and
   ``gaussian-splatting-io``: byte-equal files; ``dummy-exporter``: ``[]``.
-The two materials construct from no arguments and shade within 1e-6.
+The two materials construct from no arguments and shade within 1e-6.  The
+five SDF and mesh factories (``implicit-sdf``, ``custom-mesh``,
+``tetrahedra-sdf-grid``, ``volume-grid``, ``neus-volume-renderer``) build
+the JAX component's config, state structure and leaf shapes and its bound
+callables; their forwards are held in their modules' parity tests.
 Every factory takes ``device=``, whose default is ``"cuda"``.
 """
 
@@ -44,7 +48,8 @@ from dreammesh4d_tpu_torch.ops.cameras import GSCameraInfo
 FACTORIES = ("sugar", "dynamic-sugar", "gaussian-splatting", "implicit-volume",
              "diff-sugar-rasterizer-normal", "diff-sugar-rasterizer-temporal",
              "diff-sugar-rasterizer-shading", "nerf-volume-renderer", "mesh-exporter",
-             "gaussian-mesh-exporter", "gaussian-splatting-io", "perceptual-loss", "dummy-exporter")
+             "gaussian-mesh-exporter", "gaussian-splatting-io", "perceptual-loss", "dummy-exporter",
+             "implicit-sdf", "custom-mesh", "tetrahedra-sdf-grid", "volume-grid", "neus-volume-renderer")
 GRID = {"n_neurons": 8, "n_hidden_layers": 1, "hashgrid": {"n_levels": 2, "log2_hashmap_size": 8}}
 
 
@@ -323,7 +328,28 @@ def test_materials():
 
 
 def test_queued_names_raise_naming_their_roadmap_item():
-    for name in ("implicit-sdf", "custom-mesh", "tetrahedra-sdf-grid", "volume-grid", "neus-volume-renderer"):
-        assert registry.QUEUED[name] == "ROADMAP A8.3"
-        with pytest.raises(KeyError, match="ROADMAP A8"):
+    assert registry.QUEUED and not set(registry.QUEUED) & set(FACTORIES)
+    for name, item in registry.QUEUED.items():
+        with pytest.raises(KeyError, match=item):
             registry.find(name)
+
+
+SDF_MESH_CFGS = {  # the SDF and mesh factories (their forwards: test_torch_sdf_neus.py, _dmtet.py, _mesh_renderer.py)
+    "implicit-sdf": dict(GRID, radius=1.0),
+    "custom-mesh": dict(GRID, n_feature_dims=8),
+    "tetrahedra-sdf-grid": dict(GRID, isosurface_resolution=6),
+    "volume-grid": {"grid_size": (4, 5, 6), "n_feature_dims": 2},
+    "neus-volume-renderer": {"num_samples_coarse": 8, "geometry": dict(GRID)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SDF_MESH_CFGS))
+def test_sdf_and_mesh_factories_match_jax_structure(name):
+    jc, pc = _build(name, SDF_MESH_CFGS[name])
+    assert dataclasses.asdict(pc.cfg) == dataclasses.asdict(jc.cfg)
+    shapes = lambda tree: jax.tree.map(lambda v: tuple(np.shape(v)), tree)  # noqa: E731
+    want = shapes(jax.tree.map(np.asarray, jc.state))
+    assert shapes(jax.tree.map(lambda t: t.numpy(), pc.state, is_leaf=torch.is_tensor)) == want
+    for attr in vars(jc):
+        if attr not in ("cfg", "state", "_call") and getattr(jc, attr) is not None:
+            assert callable(getattr(pc, attr)), (name, attr)

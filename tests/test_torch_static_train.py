@@ -51,6 +51,8 @@ import optax
 import pytest
 import torch
 
+from jax_compile import FAST_COMPILE
+
 import dreammesh4d_tpu.models.geometry.sugar as jsugar
 import dreammesh4d_tpu.ops.gs.pallas_blend as jblend
 import dreammesh4d_tpu.systems.sugar_static as jsys
@@ -65,8 +67,6 @@ from dreammesh4d_tpu_torch import convert
 from dreammesh4d_tpu_torch.models.renderers.sugar_rasterizer import depth_to_normal
 from dreammesh4d_tpu_torch.systems import sugar_static as tsys
 
-# XLA's cheaper passes for the JAX step's compile
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 W = 32
 STEP = 5

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import _cheap_xla  # noqa: F401
+
 import dreammesh4d_tpu.ops.gs.pallas_blend as jblend
 from dreammesh4d_tpu.ops.cameras import camera_position_from_spherical, get_cam_info_gaussian, look_at_c2w
 from dreammesh4d_tpu.ops.gs import RasterizerConfig as JRasterizerConfig

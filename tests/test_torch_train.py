@@ -36,6 +36,8 @@ import optax
 import pytest
 import torch
 
+from jax_compile import FAST_COMPILE, _cheap_xla  # noqa: F401
+
 import dreammesh4d_tpu.models.geometry.deformation as jdef
 import dreammesh4d_tpu.models.geometry.dynamic_sugar as jdyn
 import dreammesh4d_tpu.models.geometry.sugar as jsugar
@@ -57,8 +59,6 @@ from dreammesh4d_tpu_torch.utils.tree import tree_leaves
 W = 48
 T = 2
 LR = 2e-3
-# XLA's cheaper passes for the JAX step's compile
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 DEF_CFG = jdef.DeformationConfig(base_resolution=(16, 16, 16, 8), multires=(1, 2))
 LOSSES = dict(lambda_rgb=5000.0, lambda_mask=[0, 500.0, 1000.0, 10],
               lambda_normal_consistency=1.0, lambda_laplacian_smoothing=0.5,

@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_compile import FAST_COMPILE
 from test_torch_zoo_sd import _close, _one_torch_thread, _seeded_tree  # noqa: F401
 
 from dreammesh4d_tpu.models.guidance import stable_diffusion as jsd
@@ -89,10 +90,6 @@ def inner_jit_unet(holder):
     losses give the UNet is traced once."""
     holder.unet = types.SimpleNamespace(apply=jax.jit(holder.unet.apply))
     return holder
-
-
-# XLA's cheaper passes: the references compile in about half the time
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def jit_run(fn, *args):

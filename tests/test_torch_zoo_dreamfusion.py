@@ -36,8 +36,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-
-from test_torch_zoo_sd import FAST_COMPILE
+from jax_compile import FAST_COMPILE, _cheap_xla  # noqa: F401
 from test_torch_zoo_sd import _seeded_tree as seeded_tree
 
 import dreammesh4d_tpu.models.geometry.implicit_volume as jiv

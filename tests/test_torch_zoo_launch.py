@@ -19,8 +19,9 @@ Stable Zero123 likewise, without CLIP) and with ``none``:
 - ``none``: ``--train`` for 2 steps, the SDS term zero (the zoo's systems
   keep it in the metrics, as in the JAX package) or absent (zero123-system);
 - refusals: ``trainer.devices=2`` on a zoo system raises ``RuntimeError``
-  naming ROADMAP A8 before any process starts; a system that is not ported
-  (``fantasia3d-system``) raises ``KeyError``; ``system.scheduler`` is no
+  naming ROADMAP A8 before any process starts; a system that no launcher
+  builds (``fantasia3d-system``: in neither package's table) raises
+  ``KeyError``; ``system.scheduler`` is no
   longer refused (it builds latentnerf's schedule), and an unknown
   scheduler name raises ``NotImplementedError``; a ``guide_shape`` that
   names no file drops the shape term.

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+from jax_compile import FAST_COMPILE
+
 from dreammesh4d_tpu.models.guidance import stable_diffusion as jsd
 from dreammesh4d_tpu.models.guidance.zero123.convert import convert_sd_state_dict
 from dreammesh4d_tpu.utils.schedule import C_jax
@@ -58,10 +60,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-# XLA's cheaper passes for the references' compiles
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def shared_unet(guidances):
