@@ -288,9 +288,27 @@ Phases, each of which fails the run on a failed check:
     phase 20's);
     ``export_mesh`` and ``export_sdf_grid`` at ZMESH_EXPORT_RES³ with
     mc-cpu, timed; no hand-written kernel launched;
+22. the guidance zoo and the editing systems (``drive_editing``, run after
+    21, before the lines of 15), built through ``registry.find``, float32,
+    every guidance at ``random:0`` with its zero-initialised layers drawn:
+    ControlNet (SD 1.5's UNet and the ControlNet copy, VAE 128 at 512²) SDS
+    with a normal and a canny hint, InstructPix2Pix ``edit_loss`` and one
+    ``ip2p_edit_images`` at its defaults, DeepFloyd at its defaults, each on
+    EDIT_VIEWS renders at 512², forward + backward, CUDA events;
+    instructnerf2nerf over configs/stable-zero123.yaml's geometry and
+    renderer (the cell grid: B4/B5 every step, held to ``in2n_predicted``)
+    on one 512² view, L1 + the perceptual net, IN2N_STEPS steps with a fresh
+    edit every IN2N_EDIT_EVERY; control4d, the GAN renderer at its defaults
+    (512² over a 128² base of the same grid, 11 feature channels) with the
+    PatchGAN and two Adams at ``generator_level`` 0, 1 and 2, the
+    discriminator's gradient held to its own term's; one call of each
+    guidance and one step of each system at EDIT_CHECK's widths card against
+    CPU in float64 within EDIT_TOL / EDIT_GRAD_TOL (the CPU's side in the
+    thread of phase 20's);
 15. a ``{"kernels": [...]}`` line (every kernel's ``launches_gaussian``,
     ``launches_multidevice``, ``launches_zoo``, ``launches_zoo_latent``,
-    ``launches_rank``, ``launches_components`` and ``launches_zoo_mesh`` too;
+    ``launches_rank``, ``launches_components``, ``launches_zoo_mesh`` and
+    ``launches_editing`` too;
     B1/B2 also their rank-mode device times), the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -4352,13 +4370,14 @@ class CpuReferences(threading.Thread):
     the guidance built on the CPU with every weight drawn from a CPU
     generator (the output convolutions too), each case's LoRA (every B
     drawn), outputs and gradients, and the weights for the card; then one
-    step of each of phase 21's four (``zmesh_check_side``).  ``wait(part)``
-    returns when ``"unified"`` or ``"zmesh"`` is done (or the thread failed)."""
+    step of each of phase 21's four (``zmesh_check_side``); then phase 22's
+    (``editing_check_side``).  ``wait(part)`` returns when ``"unified"``,
+    ``"zmesh"`` or ``"editing"`` is done (or the thread failed)."""
 
     def __init__(self, torch, plan):
         super().__init__(daemon=True)
         self.torch, self.plan, self.results, self.error = torch, plan, {}, None
-        self.done = {part: threading.Event() for part in ("unified", "zmesh")}
+        self.done = {part: threading.Event() for part in ("unified", "zmesh", "editing")}
 
     def wait(self, part):
         while not self.done[part].wait(timeout=1.0):
@@ -4389,7 +4408,9 @@ class CpuReferences(threading.Thread):
             self.results["zmesh"] = zmesh_check_side(torch, "cpu")
             self.results["zmesh64"] = zmesh_check_side(torch, "cpu", torch.float64)
             self.done["zmesh"].set()
-        except BaseException as e:  # noqa: BLE001  (raised again by phases 20 and 21)
+            self.results["editing"] = editing_check_side(torch, "cpu")
+            self.done["editing"].set()
+        except BaseException as e:  # noqa: BLE001  (raised again by phases 20, 21 and 22)
             self.error = e
 
 
@@ -4958,6 +4979,461 @@ def drive_zoo_mesh(torch, np, rb, tb, hc, card, refs, device):
     return res
 
 
+# phase 22: the guidance zoo (ControlNet, InstructPix2Pix, DeepFloyd) and the editing systems
+EDIT_PROMPT = "turn it into a bronze statue"
+EDIT_HW = 512  # every render: the edit decodes at image_size, and the L1 needs equal sizes
+EDIT_VIEWS = 4  # renders of each guidance's loss at full width
+IN2N_STEPS = 4
+IN2N_EDIT_EVERY = 2  # a fresh ip2p_edit_images before steps 0, 2, …: the caller's dataset update
+C4D_STEPS = 2  # steps at each generator_level
+# card vs CPU at EDIT_CHECK's widths, both sides in float64 (the hash grid on the corner layout:
+# B4/B5 are float32 kernels): every metric relative, every gradient leaf of its max
+EDIT_TOL = 1e-8
+EDIT_GRAD_TOL = 1e-6
+EDIT_SD = {}  # the full-width guidances: SD 1.5's UNet 320 x [1,2,4,4] and VAE 128 at 512^2 (the defaults)
+EDIT_FLOYD = {}  # DeepFloyd at DeepFloydConfig's defaults (320 x [1,2,4,4], context 4096, 64^2 pixels)
+EDIT_FULL = {"gan": {}, "disc": {}}  # the GAN renderer (ch 64, (1,2,4), z 4) and the PatchGAN at their defaults
+EDIT_CHECK = {"hw": 32, "gan_hw": 64, "hashgrid": {"n_levels": 8, "log2_hashmap_size": 14, "layout": "corner"},
+              "sd": dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, num_heads=4, context_dim=64,
+                         vae_ch=16, vae_ch_mult=(1, 2, 4, 4), vae_num_res_blocks=1, image_size=64, latent_size=8),
+              "floyd": dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, num_heads=4, context_dim=64,
+                            image_size=32, latent_size=32),
+              "gan": {"ch": 16}, "disc": {"ndf": 16}}
+EDIT_GUIDANCES = ("stable-diffusion-controlnet-guidance", "stable-diffusion-instructpix2pix-guidance",
+                  "deep-floyd-guidance")
+
+
+def editing_scene(torch, device, n_feature_dims=3, hashgrid=None, seed=0):
+    """configs/stable-zero123.yaml's ``system.geometry`` (``n_feature_dims``
+    as given; ``hashgrid`` overrides its grid) through ``implicit-volume`` and
+    its ``system.renderer`` through ``nerf-volume-renderer``."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.config import load_config
+    from dreammesh4d_tpu_torch.systems.assembly import implicit_volume_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "stable-zero123.yaml"), makedirs=False,
+                      cli_args=["data.image_path=/nonexistent/ref_rgba.png"])
+    geo = dataclasses.asdict(implicit_volume_config(dict(cfg.system.geometry), n_feature_dims=n_feature_dims))
+    geo["hashgrid"].update(hashgrid or {})
+    volume = registry.find("implicit-volume")({**geo, "seed": seed}, device=device)
+    renderer = registry.find("nerf-volume-renderer")({**dict(cfg.system.renderer), "geometry": geo}, device=device)
+    return volume, renderer
+
+
+def editing_rays(torch, hw, device, dtype=None):
+    """The reference camera of stage 1 (elevation 5°, distance 3.8, fovy 20°)
+    at ``hw``²: flat rays (hw², 3) computed on the CPU and copied, and the
+    sphere's reference image (1, hw, hw, 3) as the edit's condition image."""
+    from dreammesh4d_tpu_torch.ops.cameras import make_c2w_numpy
+
+    ref = sphere_reference(torch, torch.as_tensor(make_c2w_numpy(5.0, 0.0, 3.8)), hw, 20.0, "cpu")
+    dt = dtype or torch.float32
+    return (ref["ref_rays_o"].to(device, dt), ref["ref_rays_d"].to(device, dt),
+            ref["ref_rgb"].reshape(1, hw, hw, 3).to(device, dt))
+
+
+def nerf_render_fn(torch, renderer, hw, channels):
+    """``render_fn(geo, batch, generator)``: the batch's flat rays through the
+    NeRF renderer (no material; the background sets ``channels``: white rgb,
+    zero latent moments) → (B, h, w, channels); rays may come as (B, h, w, 3)."""
+
+    def render(geo, rays_o, rays_d, generator):
+        shape = rays_o.shape[:-1]
+        ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        bg = torch.cat([torch.ones(3), torch.zeros(channels - 3)]).to(ro)
+        out = renderer.render_rays(geo, ro, rd, torch.zeros_like(ro), bg, rng=generator)
+        return out["comp_rgb"].reshape(*(shape if len(shape) > 1 else (1, hw, hw)), channels)
+
+    return render
+
+
+def gan_render_fn(torch, gan, base_render, level, with_noise=False):
+    """control4d's ``render_fn(scene, batch, generator)``: the GAN renderer
+    (through ``functional_call`` on ``scene["gan"]``) around the NeRF base."""
+    from torch.func import functional_call
+
+    def render(scene, batch, generator):
+        def base(lo, ld):
+            return {"comp_rgb": base_render(scene["geo"], lo, ld, generator)}
+        kw = {"gt_rgb": batch["edited_rgb"], "generator_level": level, "generator": generator}
+        if with_noise:
+            kw["noise"] = batch["noise"]
+        return functional_call(gan, scene["gan"], (base, batch["rays_o"], batch["rays_d"]), kw)
+
+    return render
+
+
+def double_guidance(torch, name, cfg, seed, device):
+    """``name`` at ``cfg``'s widths on ``device`` with every weight drawn
+    from a CPU generator (the zero-initialised layers too), in float64."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.models.guidance.zero123.unet import set_compute_dtype
+
+    g = registry.find(name)(cfg, device=device)
+    g.modules.init_params(torch.Generator().manual_seed(seed), zero_init=False)
+    g.modules.double()
+    set_compute_dtype(g.modules, torch.float64)
+    return g
+
+
+def guidance_call(torch, g, name, rgb, normals, views, draws, prompts):
+    """One loss of ``g`` (ControlNet: SDS with the given hint, canny without;
+    InstructPix2Pix: ``edit_loss`` with the renders' flipped copy as the
+    condition; DeepFloyd: SDS), forward and backward: (loss, grad_norm, d / d rgb)."""
+    el, az, dist = views
+    if name == "stable-diffusion-instructpix2pix-guidance":
+        out = g.edit_loss(prompts, rgb, rgb.detach().flip(2), el, az, 0, **draws)
+    elif name == "stable-diffusion-controlnet-guidance":
+        hint = None if normals is None else g.make_hint(rgb, normals)
+        out = g.sds_loss(prompts, rgb, el, az, dist, 0, hint=hint, **draws)
+    else:
+        out = g.sds_loss(prompts, rgb, el, az, dist, 0, **draws)
+    out["loss_sds"].backward()
+    return float(out["loss_sds"].detach()), float(out["grad_norm"]), rgb.grad
+
+
+def editing_check_side(torch, device):
+    """Phase 22 (d), one side: at EDIT_CHECK's widths in float64, one call
+    of each guidance (2 renders at 64²), one in2n step (32², the corner
+    grid, the perceptual net) and one control4d step (64² over a 16² base,
+    ``generator_level`` 1 with the posterior's draw given), every input and
+    draw made on the CPU and copied: {"guidance": {name: (loss, grad_norm,
+    d / d rgb)}, "in2n": (metrics, gradients), "control4d": (metrics,
+    gradients)}, gradients on the CPU."""
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import StableDiffusionPromptProcessor
+    from dreammesh4d_tpu_torch.models.renderers.gan_volume_renderer import GANVolumeRenderer
+    from dreammesh4d_tpu_torch.systems import editing
+    from dreammesh4d_tpu_torch.utils.gan import DiscriminatorConfig, init_discriminator
+    from dreammesh4d_tpu_torch.utils.perceptual import init_perceptual
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    f64 = torch.float64
+    c = EDIT_CHECK
+    t0 = time.perf_counter()
+    res = {"guidance": {}}
+    gen = torch.Generator().manual_seed(31)
+    views = [torch.tensor(v, dtype=torch.float32).to(device) for v in ([10.0, 40.0], [20.0, -150.0], [3.8, 3.8])]
+    rgb0 = smooth_images(torch, 2, 64, 32).double()
+    normals = (smooth_images(torch, 2, 64, 33).double() * 2 - 1)
+    for i, name in enumerate(EDIT_GUIDANCES):
+        floyd = name == "deep-floyd-guidance"
+        cfg = dict(c["floyd"] if floyd else c["sd"], control_type="normal")
+        g = double_guidance(torch, name, cfg, 40 + i, device)
+        S = cfg["image_size"] if floyd else cfg["image_size"] // 8
+        draws = {"u": torch.tensor([0.31, 0.77]), "noise": torch.randn((2, 3 if floyd else 4, S, S), generator=gen)}
+        prompts = StableDiffusionPromptProcessor({"prompt": EDIT_PROMPT, "context_dim": cfg["context_dim"]},
+                                                 device=device)()
+        loss, norm, grad = guidance_call(torch, g, name, leaf(rgb0, device), normals.to(device) if i == 0 else None,
+                                         views, draws, prompts)
+        res["guidance"][name] = (loss, norm, grad.cpu())
+        del g
+    # one in2n step
+    volume, renderer = editing_scene(torch, "cpu", 3, c["hashgrid"], seed=5)
+    geo = tree_map(lambda x: x.to(device, f64), volume.state)
+    _, renderer = editing_scene(torch, device, 3, c["hashgrid"], seed=5)
+    net = init_perceptual(torch.Generator().manual_seed(6), device=device).double()
+    ro, rd, _ = editing_rays(torch, c["hw"], device, f64)
+    batch = {"rays_o": ro, "rays_d": rd, "edited_rgb": smooth_images(torch, 1, c["hw"], 34).to(device, f64)}
+    render = nerf_render_fn(torch, renderer, c["hw"], 3)
+    step = editing.make_in2n_train_step(lambda p, b, g: render(p, b["rays_o"], b["rays_d"], g),
+                                        editing.In2NLosses(), net, device=device)
+    state = editing.init_in2n_state(geo, device=device)
+    state, metrics = step(state, batch, torch.Generator().manual_seed(7))
+    res["in2n"] = ({k: float(v) for k, v in metrics.items()}, [p.grad.cpu() for p in tree_leaves(state.geo_params)])
+    # one control4d step
+    volume, _ = editing_scene(torch, "cpu", 11, c["hashgrid"], seed=8)
+    _, renderer = editing_scene(torch, device, 11, c["hashgrid"], seed=8)
+    gan_cpu = GANVolumeRenderer(c["gan"], device="cpu")
+    gan = GANVolumeRenderer(c["gan"], device=device)
+    gan.load_state_dict(gan_cpu.state_dict())
+    gan.double()
+    scene = {"geo": tree_map(lambda x: x.to(f64), volume.state),
+             "gan": {k: v.to(f64) for k, v in gan_cpu.state_dict().items()}}
+    disc = tree_map(lambda x: x.detach().to(f64),
+                    init_discriminator(DiscriminatorConfig(**c["disc"]), torch.Generator().manual_seed(9), "cpu"))
+    hw = c["gan_hw"]
+    ro, rd, _ = editing_rays(torch, hw, "cpu", f64)
+    lr_hw = hw // gan.scale
+    batch = {"rays_o": ro.reshape(1, hw, hw, 3), "rays_d": rd.reshape(1, hw, hw, 3),
+             "edited_rgb": smooth_images(torch, 1, hw, 35).double(),
+             "noise": torch.randn((1, lr_hw, lr_hw, 4), generator=gen, dtype=f64)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    base = nerf_render_fn(torch, renderer, lr_hw, 11)
+    step = editing.make_control4d_train_step(gan_render_fn(torch, gan, base, 1, with_noise=True),
+                                             editing.Control4DLosses(), net, device=device)
+    state = editing.init_control4d_state(scene, disc, device=device)
+    state, metrics = step(state, batch, torch.Generator().manual_seed(10))
+    res["control4d"] = ({k: float(v) for k, v in metrics.items()},
+                        [None if p.grad is None else p.grad.cpu() for p in
+                         tree_leaves(state.scene_params) + tree_leaves(state.disc_params)])
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def editing_card_vs_cpu(torch, card, refs, device):
+    """Phase 22 (d): ``editing_check_side`` on the card against the CPU's,
+    from ``refs`` (computed beside phases 16–21), both in float64."""
+    refs.wait("editing")
+    cpu = refs.results["editing"]
+    t0 = time.perf_counter()
+    got = editing_check_side(torch, device)
+    card_s = time.perf_counter() - t0
+
+    def rel(x, y):
+        return abs(x - y) / max(abs(y), 1e-300)
+
+    out = {}
+    for name, (loss, norm, grad) in cpu["guidance"].items():
+        g_loss, g_norm, g_grad = got["guidance"][name]
+        m_err, g_err = max(rel(g_loss, loss), rel(g_norm, norm)), rel_err(g_grad.double(), grad.double())
+        out[name] = (m_err, [g_err], 0)
+    for part in ("in2n", "control4d"):
+        m_cpu, g_cpu = cpu[part]
+        m_card, g_card = got[part]
+        check(sorted(m_card) == sorted(m_cpu), f"{part}: the metrics differ in their keys")
+        check(all((a is None) == (b is None) for a, b in zip(g_card, g_cpu)), f"{part}: gradients differ in presence")
+        check(all(math.isfinite(v) and v != 0 for k, v in m_cpu.items() if k != "loss_D"), f"{part}: a zero metric")
+        # a bias before a norm with one channel a group (the PatchGAN's) has no gradient but
+        # rounding: such leaves (≤ 1e-10 of the largest leaf's max on the CPU) are held to that size
+        pairs = [(a, b) for a, b in zip(g_card, g_cpu) if b is not None]
+        top = max(float(b.abs().max()) for _, b in pairs)
+        noise = [float(b.abs().max()) <= 1e-10 * top for _, b in pairs]
+        check(all(float(a.abs().max()) <= 1e-10 * top for (a, _), n in zip(pairs, noise) if n),
+              f"{part}: a leaf without gradient has one on the card")
+        out[part] = (max(rel(m_card[k], v) for k, v in m_cpu.items()),
+                     [rel_err(a, b) for (a, b), n in zip(pairs, noise) if not n], sum(noise))
+    for part, (m_err, g_errs, n_noise) in out.items():
+        print(f"[{card}] phase 22 (d) {part} at EDIT_CHECK's widths, float64, card vs CPU: metrics max relative "
+              f"{m_err:.3g} (limit {EDIT_TOL:g}); {len(g_errs)} gradient leaves max |d| / max {max(g_errs):.3g} "
+              f"(limit {EDIT_GRAD_TOL:g})" + (f"; {n_noise} leaves with rounding only, both sides within 1e-10 of "
+                                              f"the largest leaf's max" if n_noise else ""))
+        check(m_err <= EDIT_TOL and max(g_errs) <= EDIT_GRAD_TOL, f"phase 22 (d) {part}: card and CPU differ")
+    print(f"[{card}] phase 22 (d): the CPU's side {cpu['s']:.1f} s (beside phases 16-21), the card's {card_s:.1f} s")
+    return {k: {"metric_err": v[0], "grad_err": max(v[1])} for k, v in out.items()} | {"cpu_s": cpu["s"],
+                                                                                      "card_s": card_s}
+
+
+def in2n_predicted(n_rays, chunk, with_edit):
+    """B4 / B5 launches of one in2n step over ``n_rays`` rays (stage 1's
+    count for a reference view: an encode per chunk, run again when the chunk
+    is rematerialised, and one backward), plus, with the dataset update, the
+    edit's render (no gradient: one encode per chunk)."""
+    fwd, bwd = stage1_predicted((n_rays, 0), False)
+    return fwd + (-(-n_rays // chunk) if with_edit else 0), bwd
+
+
+def drive_editing(torch, np, rb, tb, hc, card, refs, device):
+    """Phase 22, the guidance zoo and the editing systems, each built through
+    ``registry.find``, float32, every guidance at ``random:0`` with its
+    zero-initialised layers drawn.  (a) ControlNet (SD 1.5's UNet and the
+    ControlNet copy, VAE 128 at 512²) SDS on EDIT_VIEWS renders at 512² with
+    a normal and a canny hint; InstructPix2Pix ``edit_loss`` on as many and
+    one ``ip2p_edit_images`` at its defaults (20 DDIM steps from 0.7) on one
+    view; DeepFloyd at its defaults: forward + backward each, CUDA events.
+    (b) instructnerf2nerf over stage 1's geometry and renderer
+    (configs/stable-zero123.yaml: the cell hash grid, so B4/B5 launch in
+    every step) on one 512² view: L1 + the perceptual net, IN2N_STEPS steps,
+    the edited target replaced by a fresh edit every IN2N_EDIT_EVERY steps;
+    the launches against ``in2n_predicted``.  (c) control4d: the GAN renderer
+    at its defaults (512² over a 128² base of the same grid with 11 feature
+    channels), the PatchGAN, two Adams, ``generator_level`` 0, 1 and 2 in
+    turn; the discriminator's gradient against its term's alone.  (d) card
+    against CPU in float64 (``editing_card_vs_cpu``).  Returns the launches
+    and the numbers printed."""
+    from dreammesh4d_tpu_torch import registry
+    from dreammesh4d_tpu_torch.models.guidance.stable_diffusion import StableDiffusionPromptProcessor
+    from dreammesh4d_tpu_torch.systems import editing
+    from dreammesh4d_tpu_torch.utils.gan import DiscriminatorConfig, discriminator_loss, init_discriminator
+    from dreammesh4d_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    res = {"guidance": {}}
+    for m in (rb, tb, hc):
+        m.reset_launch_counts()
+    gen = torch.Generator(device=device).manual_seed(22)
+    views = [torch.tensor(v[:EDIT_VIEWS], device=device)
+             for v in ([5.0, 20.0, 35.0, 70.0], [0.0, 90.0, -100.0, 180.0], [3.8] * 4)]
+    rgb0 = smooth_images(torch, EDIT_VIEWS, EDIT_HW, 36).to(device)
+    normals = (smooth_images(torch, EDIT_VIEWS, EDIT_HW, 37) * 2 - 1).to(device)
+
+    def build(name, cfg, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = registry.find(name)(cfg, device=device)
+        g.modules.init_params(torch.Generator(device=device).manual_seed(seed), zero_init=False)
+        prompts = StableDiffusionPromptProcessor({"prompt": EDIT_PROMPT, "context_dim": g.cfg.context_dim},
+                                                 device=device)()
+        torch.cuda.synchronize()
+        return g, prompts, time.perf_counter() - t0
+
+    # (a) the three guidances at full width
+    ip2p = None
+    for i, (name, cfg) in enumerate(zip(EDIT_GUIDANCES, (EDIT_SD, EDIT_SD, EDIT_FLOYD))):
+        g, prompts, build_s = build(name, cfg, i)
+        n_params = sum(p.numel() for p in g.modules.parameters())
+        hints = [("normal", normals), ("canny", None)] if i == 0 else [("", None)]
+        for label, hint in hints:
+            torch.cuda.reset_peak_memory_stats()
+
+            def call():
+                return guidance_call(torch, g, name, leaf(rgb0, device), hint, views, {"generator": gen}, prompts)
+
+            loss, norm, grad = call()
+            ms = time_ms(torch, call, n=3, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(math.isfinite(loss) and loss > 0 and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
+                  f"{name} {label}: no finite loss or gradient")
+            key = f"{name}{'/' + label if label else ''}"
+            res["guidance"][key] = {"ms": ms, "peak_gib": peak, "loss": loss, "build_s": build_s, "params": n_params}
+            c = g.cfg
+            print(f"[{card}] {key}: UNet {c.model_channels} x {list(c.channel_mult)}, context {c.context_dim}, "
+                  f"{'pixels' if g.modules.vae is None else f'VAE {c.vae_ch}'} at {c.image_size}^2, {n_params} "
+                  f"parameters (built in {build_s:.2f} s); {EDIT_VIEWS} renders at {EDIT_HW}^2, forward + backward "
+                  f"{ms:.2f} ms (median of 3 after the first); loss {loss:.6g}, grad_norm {norm:.6g}; peak {peak:.2f} GiB")
+        if name == "stable-diffusion-instructpix2pix-guidance":
+            ip2p = (g, prompts)
+        else:
+            del g
+        torch.cuda.empty_cache()
+
+    # (b) instructnerf2nerf over stage 1's geometry
+    g, prompts = ip2p
+    volume, renderer = editing_scene(torch, device, 3)
+    ro, rd, cond = editing_rays(torch, EDIT_HW, device)
+    view = [v[:1] for v in views]
+    render = nerf_render_fn(torch, renderer, EDIT_HW, 3)
+    perceptual = registry.find("perceptual-loss")({}, device=device)
+    step = editing.make_in2n_train_step(lambda p, b, gg: render(p, b["rays_o"], b["rays_d"], gg),
+                                        editing.In2NLosses(), perceptual, device=device)
+    state = editing.init_in2n_state(volume.state, device=device)
+    before = [p.detach().clone() for p in tree_leaves(state.geo_params)]
+    batch = {"rays_o": ro, "rays_d": rd}
+    hc.reset_launch_counts()
+    want = [0, 0]
+    ms, edit_s, metrics_hist = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    for i in range(IN2N_STEPS):
+        edit = i % IN2N_EDIT_EVERY == 0
+        if edit:  # the caller's dataset update: the current render, edited toward the instruction
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                current = render(state.geo_params, ro, rd, gen)
+            batch["edited_rgb"] = editing.ip2p_edit_images(g, prompts, current, cond, *view[:2], generator=gen)
+            torch.cuda.synchronize()
+            edit_s.append(time.perf_counter() - t0)
+        state, metrics, t = step_ms(torch, step, state, batch, gen)
+        ms.append(t)
+        metrics_hist.append({k: float(v) for k, v in metrics.items()})
+        fwd, bwd = in2n_predicted(ro.shape[0], renderer.cfg.ray_chunk_train, edit)
+        want[0] += fwd
+        want[1] += bwd
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v for k, v in hc.launch_counts.items()}
+    moved = [float((a.detach() - b).abs().max()) for a, b in zip(tree_leaves(state.geo_params), before)]
+    share = sum(edit_s) / loop_s
+    res["in2n"] = {"ms": ms, "edit_s": edit_s, "share": share, "peak_gib": peak, "launches": launches,
+                   "predicted": want, "metrics": metrics_hist[-1]}
+    print(f"[{card}] in2n: {IN2N_STEPS} steps on one {EDIT_HW}^2 view ({ro.shape[0]} rays), ms/step "
+          + ", ".join(f"{t:.1f}" for t in ms) + f"; {len(edit_s)} edits (ip2p_edit_images, 20 DDIM steps) "
+          + ", ".join(f"{s:.2f}" for s in edit_s) + f" s, {share:.3f} of the loop's {loop_s:.2f} s; peak {peak:.2f} GiB; "
+          f"B4/B5 launches {json.dumps(launches)}, predicted {want}; plain {json.dumps(hc.plain_counts)}; "
+          + ", ".join(f"{k} {v:.5g}" for k, v in metrics_hist[-1].items())
+          + f"; parameters moved {min(moved):.3g}..{max(moved):.3g}")
+    check(launches["hashgrid_cell_fwd"] == want[0] and launches["hashgrid_cell_bwd"] == want[1],
+          "in2n: B4/B5 launches != predicted")
+    check(sum(hc.plain_counts.values()) == 0, "in2n: the plain hash grid ran on the card")
+    check(all(math.isfinite(v) for m in metrics_hist for v in m.values()), "in2n: a metric is not finite")
+    check(min(moved) > 0, "in2n: a parameter leaf did not move")
+    res["launches"] = dict(launches)
+    edited = batch["edited_rgb"]
+    del ip2p, g, state, step, volume
+    torch.cuda.empty_cache()
+
+    # (c) control4d: the GAN renderer over the same grid with 11 feature channels
+    volume, renderer = editing_scene(torch, device, 11)
+    gan = registry.find("gan-volume-renderer")(EDIT_FULL["gan"], device=device)
+    lr_hw = EDIT_HW // gan.scale
+    base = nerf_render_fn(torch, renderer, lr_hw, 3 + 2 * gan.cfg.z_channels)
+    scene = {"geo": volume.state, "gan": {k: v.detach() for k, v in gan.state_dict().items()}}
+    disc = init_discriminator(DiscriminatorConfig(**EDIT_FULL["disc"]), torch.Generator(device=device).manual_seed(3),
+                              device=device)
+    state = editing.init_control4d_state(scene, disc, device=device)
+    c4d_batch = {"rays_o": ro.reshape(1, EDIT_HW, EDIT_HW, 3), "rays_d": rd.reshape(1, EDIT_HW, EDIT_HW, 3),
+                 "edited_rgb": edited}
+    steps = {lvl: editing.make_control4d_train_step(gan_render_fn(torch, gan, base, lvl), editing.Control4DLosses(),
+                                                    perceptual, device=device) for lvl in (0, 1, 2)}
+    # the discriminator's gradient in one step against its own term's alone, on the step's own fake images
+    d_before = tree_map(lambda p: p.detach().clone(), state.disc_params)
+    seen = []
+    render1 = gan_render_fn(torch, gan, base, 1)
+
+    def keeping(scene, batch, generator):
+        out = render1(scene, batch, generator)
+        seen.append(out["comp_gan_rgb"].detach().clone())
+        return out
+
+    scene_before = [p.detach().clone() for p in tree_leaves(state.scene_params)]
+    # cuDNN's deterministic algorithms for both backwards: its others sum a weight gradient in
+    # an order that varies from call to call (~7e-7 of max apart on the same inputs)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    state, _ = editing.make_control4d_train_step(keeping, editing.Control4DLosses(), perceptual, device=device)(
+        state, c4d_batch, gen)
+    d_params = tree_map(lambda p: p.clone().requires_grad_(True), d_before)
+    (editing.Control4DLosses().lambda_D * discriminator_loss(d_params, edited, seen[0])).backward()
+    torch.backends.cudnn.deterministic = deterministic
+    d_err = max(rel_err(a.grad, b.grad) for a, b in zip(tree_leaves(state.disc_params), tree_leaves(d_params)))
+    check(d_err <= 1e-6, f"control4d: the discriminator's gradient is not its D term's alone ({d_err:.3g})")
+    hc.reset_launch_counts()
+    ms = {}
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for lvl in (0, 1, 2):
+        ms[lvl] = []
+        for _ in range(C4D_STEPS):
+            state, metrics, t = step_ms(torch, steps[lvl], state, c4d_batch, gen)
+            ms[lvl].append(t)
+            hist.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    c4d_launches = dict(hc.launch_counts)
+    n_steps = 3 * C4D_STEPS
+    c4d_want = [n_steps * x for x in stage1_predicted((lr_hw * lr_hw, 0), False)]
+    moved_scene = [float((a.detach() - b).abs().max()) for a, b in zip(tree_leaves(state.scene_params), scene_before)]
+    moved_disc = [float((a.detach() - b).abs().max()) for a, b in zip(tree_leaves(state.disc_params),
+                                                                       tree_leaves(d_before))]
+    res["control4d"] = {"ms": ms, "peak_gib": peak, "launches": c4d_launches, "predicted": c4d_want,
+                        "d_err": d_err, "metrics": hist[-1]}
+    print(f"[{card}] control4d: GAN renderer ch {gan.cfg.ch} x {list(gan.cfg.ch_mult)}, z {gan.cfg.z_channels} "
+          f"({sum(v.numel() for v in scene['gan'].values())} parameters), {EDIT_HW}^2 over a {lr_hw}^2 base; "
+          f"PatchGAN ndf {DiscriminatorConfig(**EDIT_FULL['disc']).ndf}; ms/step "
+          + "; ".join(f"level {k} " + ", ".join(f"{t:.1f}" for t in v) for k, v in ms.items())
+          + f"; peak {peak:.2f} GiB; B4/B5 launches {json.dumps(c4d_launches)}, predicted {c4d_want}; the "
+          f"discriminator's gradient vs its D term's alone max |d| / max {d_err:.3g} (limit 1e-6); "
+          + ", ".join(f"{k} {v:.5g}" for k, v in hist[-1].items())
+          + f"; moved: scene {min(moved_scene):.3g}.., discriminator {min(moved_disc):.3g}..")
+    check(c4d_launches["hashgrid_cell_fwd"] == c4d_want[0] and c4d_launches["hashgrid_cell_bwd"] == c4d_want[1],
+          "control4d: B4/B5 launches != predicted")
+    check(all(math.isfinite(v) for m in hist for v in m.values()), "control4d: a metric is not finite")
+    # every scene leaf moved: the local encoder too (level 2)
+    check(min(moved_scene) > 0 and min(moved_disc) > 0, "control4d: a parameter leaf did not move")
+    for k, v in c4d_launches.items():
+        res["launches"][k] = res["launches"].get(k, 0) + v
+    del state, steps, gan, volume, disc, perceptual
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU in float64
+    res["check"] = editing_card_vs_cpu(torch, card, refs, device)
+    launched = {**rb.launch_counts, **tb.launch_counts}
+    check(not any(launched.values()), f"phase 22 launched a compositing kernel: {launched}")
+    print(f"[{card}] phase 22: B4/B5 launches on the editing path {json.dumps(res['launches'])} (in2n "
+          f"{json.dumps(res['in2n']['launches'])}, control4d {json.dumps(c4d_launches)})")
+    return res
+
+
 def main():
     import argparse
 
@@ -5363,6 +5839,11 @@ def main():
     torch.cuda.empty_cache()
     zoo_mesh = drive_zoo_mesh(torch, np, rb, tb, hc, card, refs, dev)
 
+    phases.mark("22")
+    # 22. the guidance zoo and the editing systems: in2n and control4d over stage 1's grid, card against CPU
+    torch.cuda.empty_cache()
+    editing = drive_editing(torch, np, rb, tb, hc, card, refs, dev)
+
     phases.mark("end")
     print(f"[{card}] wall seconds per phase: {json.dumps(phases.seconds)}")
 
@@ -5373,8 +5854,9 @@ def main():
         # render_4d's (phase 16), the zoo's (phases 17 and 18, none: their
         # corner grid, shape loss and VSD are plain PyTorch) and rank mode's
         # (phase 19: the launcher's rank run and the factory's served views),
-        # phase 20's (none: the unified guidance, the components and Adan) and
-        # phase 21's (none: the SDF and mesh geometries and their steps) included
+        # phase 20's (none: the unified guidance, the components and Adan),
+        # phase 21's (none: the SDF and mesh geometries and their steps) and
+        # phase 22's (B4/B5: in2n and control4d over stage 1's grid) included
         n_recipe = recipe_launches.get(name, 0)
         n_guided = guided["launches"].get(name, 0)
         n_gaussian = gaussian["launches"].get(name, 0)
@@ -5384,15 +5866,16 @@ def main():
         n_rank = rank["launches"].get(name, 0)
         n_components = components["launches"].get(name, 0)
         n_zoo_mesh = zoo_mesh["launches"].get(name, 0)
+        n_editing = editing["launches"].get(name, 0)
         return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
                 "tpu": tpu,
                 "launches": (n_launches + n_recipe + n_guided + n_gaussian + n_multi + n_zoo + n_latent + n_rank
-                             + n_components + n_zoo_mesh),
+                             + n_components + n_zoo_mesh + n_editing),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "launches_recipe": n_recipe, "launches_guided": n_guided,
                 "launches_gaussian": n_gaussian, "launches_multidevice": n_multi, "launches_zoo": n_zoo,
                 "launches_zoo_latent": n_latent, "launches_rank": n_rank, "launches_components": n_components,
-                "launches_zoo_mesh": n_zoo_mesh,
+                "launches_zoo_mesh": n_zoo_mesh, "launches_editing": n_editing,
                 **extra}
 
     bwd_src = "dreammesh4d_tpu_torch/csrc/resident_bwd.cu"

@@ -42,7 +42,14 @@ are read back as Python values.  This module imports no jax.
   ``VisionTransformer`` state dict;
 - the Stable Diffusion guidance: :func:`sd_guidance_params` — the JAX SD
   param tree (UNet and VAE) as the port's ``StableDiffusionModules`` state
-  dict;
+  dict; also the InstructPix2Pix tree (8 input channels), DeepFloyd's
+  (no VAE) and ControlNet's (its ``controlnet`` entry through
+  :func:`controlnet_params`, keyed ``control_model.*``);
+- the editing systems: :func:`discriminator_params` — the PatchGAN tree
+  (HWIO → OIHW); :func:`gan_renderer_params` — a ``GANVolumeRenderer``'s
+  flax tree (``generator``, ``local_encoder``, ``global_encoder`` under
+  flax's automatic names ``Conv_k``, ``_ResBlock_k``, ``GroupNorm_k``,
+  ``Dense_0``) as the port renderer's state dict;
 - VSD: :func:`vsd_lora_params` — the JAX LoRA tree (keys the flax paths
   ``…/attn1/to_q``) as the port's (keys the UNet's module names
   ``….attn1.to_q``, ``….to_out.0``; the same (in, r) / (r, out) layout);
@@ -399,8 +406,9 @@ def _ldm_spatial_transformer(sd, key, p):
         i += 1
 
 
-def _ldm_unet(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions=(4, 2, 1)):
-    """``convert_unet``'s walk, writing the LDM keys under ``pre``."""
+def _ldm_down_and_mid(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions=(4, 2, 1)):
+    """The time embedding, the down path and the middle block (the UNet's
+    and a ControlNet's) under ``pre``; returns the downsample factor reached."""
     _ldm_dense(sd, f"{pre}time_embed.0", p["time_embed_0"])
     _ldm_dense(sd, f"{pre}time_embed.2", p["time_embed_2"])
     _ldm_conv(sd, f"{pre}input_blocks.0.0", p["conv_in"])
@@ -418,6 +426,12 @@ def _ldm_unet(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions=(4
     _ldm_res_block(sd, f"{pre}middle_block.0", p["mid_res1"])
     _ldm_spatial_transformer(sd, f"{pre}middle_block.1", p["mid_attn"])
     _ldm_res_block(sd, f"{pre}middle_block.2", p["mid_res2"])
+    return ds
+
+
+def _ldm_unet(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions=(4, 2, 1)):
+    """``convert_unet``'s walk, writing the LDM keys under ``pre``."""
+    ds = _ldm_down_and_mid(sd, pre, p, channel_mult, num_res_blocks, attention_resolutions)
     idx = 0
     for level in reversed(range(len(channel_mult))):
         for i in range(num_res_blocks + 1):
@@ -538,8 +552,108 @@ def sd_guidance_params(jax_params, cfg) -> dict:
     sd: dict = {}
     _ldm_unet(sd, "model.diffusion_model.", jax_params["unet"], tuple(cfg.channel_mult),
               int(cfg.num_res_blocks))
-    _ldm_vae(sd, "first_stage_model.", jax_params["vae"], tuple(cfg.vae_ch_mult),
-             int(cfg.vae_num_res_blocks))
+    if "vae" in jax_params:  # DeepFloyd has none
+        _ldm_vae(sd, "first_stage_model.", jax_params["vae"], tuple(cfg.vae_ch_mult),
+                 int(cfg.vae_num_res_blocks))
+    if "controlnet" in jax_params:
+        sd.update(controlnet_params(jax_params["controlnet"], cfg))
+    return sd
+
+
+def _numbered(p, prefix: str) -> list:
+    """The entries ``{prefix}0``, ``{prefix}1``, … of ``p``, in order."""
+    n = 0
+    while f"{prefix}{n}" in p:
+        n += 1
+    return [p[f"{prefix}{i}"] for i in range(n)]
+
+
+def controlnet_params(tree, cfg, pre: str = "control_model.") -> dict:
+    """The JAX ``ControlNetModel`` tree (``hint_{i}``, ``hint_out``,
+    ``conv_in``, ``time_embed_{0,2}``, ``down_*``, ``mid_*``, ``zero_{i}``)
+    → the port's ``ControlNetModel`` state dict under ``pre``: the hint
+    convolutions at ``input_hint_block.{2i}`` (SiLU between), ``hint_out``
+    last, ``zero_{i}`` → ``zero_convs.{i}.0`` and the last one →
+    ``middle_block_out.0``."""
+    sd: dict = {}
+    _ldm_down_and_mid(sd, pre, tree, tuple(cfg.channel_mult), int(cfg.num_res_blocks))
+    hints = _numbered(tree, "hint_")
+    for i, h in enumerate(hints):
+        _ldm_conv(sd, f"{pre}input_hint_block.{2 * i}", h)
+    _ldm_conv(sd, f"{pre}input_hint_block.{2 * len(hints)}", tree["hint_out"])
+    zeros = _numbered(tree, "zero_")
+    for i, z in enumerate(zeros[:-1]):
+        _ldm_conv(sd, f"{pre}zero_convs.{i}.0", z)
+    _ldm_conv(sd, f"{pre}middle_block_out.0", zeros[-1])
+    return sd
+
+
+# --- the editing systems: the discriminator and the GAN renderer -------------
+
+
+def discriminator_params(tree, device="cuda") -> dict:
+    """The JAX PatchGAN tree ``{"layers": [{w HWIO, b}, …], "head"}`` →
+    the port's (``utils/gan.py``: OIHW) as float32 tensors on ``device``."""
+    def conv(p):
+        return {"w": _f32(np.asarray(p["w"]).transpose(3, 2, 0, 1), device), "b": _f32(p["b"], device)}
+
+    return {"layers": [conv(p) for p in tree["layers"]], "head": conv(tree["head"])}
+
+
+def _flax_conv(sd, key, p):
+    sd[f"{key}.weight"] = _np32(p["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{key}.bias"] = _np32(p["bias"])
+
+
+def _flax_norm(sd, key, p):
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = _np32(p["scale"]), _np32(p["bias"])
+
+
+def _gan_res_block(sd, key, p):
+    """A flax ``_ResBlock``: ``GroupNorm_0`` → ``norm1``, ``film_s`` /
+    ``film_b``, ``Conv_0`` → ``conv1``, ``GroupNorm_1`` → ``norm2``,
+    ``Conv_1`` → ``conv2``, ``Conv_2`` → ``skip``."""
+    _flax_norm(sd, f"{key}.norm1", p["GroupNorm_0"])
+    _flax_norm(sd, f"{key}.norm2", p["GroupNorm_1"])
+    for flax_name, name in (("Conv_0", "conv1"), ("Conv_1", "conv2"), ("Conv_2", "skip")):
+        if flax_name in p:
+            _flax_conv(sd, f"{key}.{name}", p[flax_name])
+    for name in ("film_s", "film_b"):
+        if name in p:
+            _ldm_dense(sd, f"{key}.{name}", p[name])
+    if len(p) != 4 + ("Conv_2" in p) + 2 * ("film_s" in p):
+        raise ValueError(f"{key}: unexpected entries {sorted(p)}")
+
+
+def gan_renderer_params(tree) -> dict:
+    """A JAX ``GANVolumeRenderer.init_params`` tree → the port renderer's
+    state dict (float32 numpy).  The flax names are numbered in creation
+    order: the generator's ``Conv_0`` is its input convolution, ``Conv_1``…
+    the convolutions after each upsample, the last its output; the local
+    encoder's ``Conv_0`` its input, ``Conv_1``… the stride-2 convolutions,
+    the last its output."""
+    sd: dict = {}
+    g = tree["generator"]
+    convs, blocks = _numbered(g, "Conv_"), _numbered(g, "_ResBlock_")
+    _flax_conv(sd, "generator.conv_in", convs[0])
+    for i, c in enumerate(convs[1:-1]):
+        _flax_conv(sd, f"generator.ups.{i}", c)
+    _flax_conv(sd, "generator.conv_out", convs[-1])
+    for i, b in enumerate(blocks):
+        _gan_res_block(sd, f"generator.blocks.{i}", b)
+    _flax_norm(sd, "generator.norm_out", g["GroupNorm_0"])
+    e = tree["local_encoder"]
+    convs, blocks = _numbered(e, "Conv_"), _numbered(e, "_ResBlock_")
+    _flax_conv(sd, "local_encoder.conv_in", convs[0])
+    for i, c in enumerate(convs[1:-1]):
+        _flax_conv(sd, f"local_encoder.downs.{i}", c)
+    _flax_conv(sd, "local_encoder.conv_out", convs[-1])
+    for i, b in enumerate(blocks):
+        _gan_res_block(sd, f"local_encoder.blocks.{i}", b)
+    ge = tree["global_encoder"]
+    for i, c in enumerate(_numbered(ge, "Conv_")):
+        _flax_conv(sd, f"global_encoder.convs.{i}", c)
+    _ldm_dense(sd, "global_encoder.dense", ge["Dense_0"])
     return sd
 
 

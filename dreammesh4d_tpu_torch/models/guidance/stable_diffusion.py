@@ -130,8 +130,11 @@ def _hash_probe(prompt: str) -> np.ndarray:
 
 
 @register("stable-diffusion-prompt-processor")
+@register("deep-floyd-prompt-processor")
 class StableDiffusionPromptProcessor:
-    """``processor()`` → :class:`PromptEmbeddings` on ``device``."""
+    """``processor()`` → :class:`PromptEmbeddings` on ``device``.  Also
+    ``deep-floyd-prompt-processor``, as in the JAX package (DeepFloyd's
+    YAMLs set ``context_dim: 4096``)."""
 
     _DEBIAS_VIEWS = ("side", "front", "back", "overhead")
 
@@ -262,20 +265,23 @@ class StableDiffusionConfig:
 
 
 class StableDiffusionModules(nn.Module):
-    """The UNet (4 latent channels in, text context) and the VAE on
+    """The UNet (``in_channels`` in, ``out_channels`` out: 4 and 4 for
+    Stable Diffusion; text context) and, with ``vae``, the VAE on
     ``device``, frozen; ``state_dict()`` is the SD LDM checkpoint's layout
     for these two.  Uninitialised until :meth:`init_params` or a load."""
 
-    def __init__(self, cfg: StableDiffusionConfig, device="cuda"):
+    def __init__(self, cfg: StableDiffusionConfig, device="cuda", in_channels: int = 4, out_channels: int = 4,
+                 vae: bool = True):
         super().__init__()
         self.cfg = cfg
         with torch.device("meta"):
-            unet = UNetModel(in_channels=4, out_channels=4, model_channels=cfg.model_channels,
+            unet = UNetModel(in_channels=in_channels, out_channels=out_channels, model_channels=cfg.model_channels,
                              channel_mult=cfg.channel_mult, num_res_blocks=cfg.num_res_blocks,
                              num_heads=cfg.num_heads, context_dim=cfg.context_dim)
             self.model = _Holder(diffusion_model=unet)
-            self.first_stage_model = AutoencoderKL(embed_dim=4, ch=cfg.vae_ch, ch_mult=cfg.vae_ch_mult,
-                                                   num_res_blocks=cfg.vae_num_res_blocks)
+            if vae:
+                self.first_stage_model = AutoencoderKL(embed_dim=4, ch=cfg.vae_ch, ch_mult=cfg.vae_ch_mult,
+                                                       num_res_blocks=cfg.vae_num_res_blocks)
         self.to_empty(device=torch.device(device))
         self.requires_grad_(False)
         set_compute_dtype(self, cfg.dtype)
@@ -286,8 +292,8 @@ class StableDiffusionModules(nn.Module):
         return self.model.diffusion_model
 
     @property
-    def vae(self) -> AutoencoderKL:
-        return self.first_stage_model
+    def vae(self) -> Optional[AutoencoderKL]:
+        return getattr(self, "first_stage_model", None)
 
     @property
     def device(self) -> torch.device:
@@ -307,10 +313,19 @@ class StableDiffusionModules(nn.Module):
 
     def encode_images(self, rgb: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] → latents (B, 4, L, L) × 0.18215, the
-        posterior mean, differentiable in ``rgb``."""
+        posterior mean, differentiable in ``rgb`` (float32, or float64 where
+        the VAE computes in float64)."""
         S = self.cfg.image_size
         img = (resize_hw(rgb, S, S, "bilinear") * 2.0 - 1.0).permute(0, 3, 1, 2)
-        return (self.vae.encode_moments(img)[0] * LATENT_SCALE).float()
+        latents = self.vae.encode_moments(img)[0] * LATENT_SCALE
+        return latents if latents.dtype == torch.float64 else latents.float()
+
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """(B, 4, L, L) latents × 0.18215 → (B, S, S, 3) images clipped to
+        [0, 1]."""
+        img = self.vae.decode(latents / LATENT_SCALE)
+        img = img if img.dtype == torch.float64 else img.float()
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
 
 
 @register("stable-diffusion-guidance")
@@ -322,7 +337,13 @@ class StableDiffusionGuidance:
         self.cfg = cfg or StableDiffusionConfig()
         if self.cfg.use_text_encoder:
             raise RuntimeError(f"guidance.use_text_encoder: the CLIP text tower is {A8}")
-        self.modules = modules if modules is not None else StableDiffusionModules(self.cfg, device=device)
+        self.modules = modules if modules is not None else self.make_modules(self.cfg, device)
+
+    @staticmethod
+    def make_modules(cfg: StableDiffusionConfig, device) -> StableDiffusionModules:
+        """The guidance's networks (the UNet and the VAE here; a subclass
+        with other networks overrides this)."""
+        return StableDiffusionModules(cfg, device=device)
 
     def encode_tokens(self, input_ids):
         raise RuntimeError(f"encode_tokens: the CLIP text tower is {A8}")

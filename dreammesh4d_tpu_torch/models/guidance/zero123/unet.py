@@ -12,11 +12,17 @@ are.
 Precision follows flax's ``dtype=`` with float32 parameters, which is what
 the JAX package runs: every convolution and dense layer rounds its input and
 its weights to ``compute_dtype`` (:func:`set_compute_dtype`; float32 or
-bfloat16) and returns that dtype; GroupNorm and LayerNorm compute in float32
-and return their input's dtype; attention goes through
-``scaled_dot_product_attention``, whose softmax accumulates in float32; the
-UNet returns float32.  The GEGLU feed-forward uses the tanh-approximate GELU,
-flax's ``nn.gelu`` default (the torch LDM uses the exact one).
+bfloat16, or float64 for checks) and returns that dtype; GroupNorm and
+LayerNorm compute in float32 (float64 for float64 inputs) and return their
+input's dtype; attention goes through ``scaled_dot_product_attention``,
+whose softmax accumulates in float32; the UNet returns float32 (float64
+where it computes in float64).  The GEGLU feed-forward uses the
+tanh-approximate GELU, flax's ``nn.gelu`` default (the torch LDM uses the
+exact one).
+
+``UNetModel.forward`` takes an optional ``control``: a ControlNet's
+residuals (``models/guidance/controlnet.py``), one per skip activation and
+one for the middle block's output.
 """
 
 from __future__ import annotations
@@ -91,30 +97,38 @@ def norm_groups(channels: int) -> int:
     return groups
 
 
+def _norm_input(x: torch.Tensor) -> torch.Tensor:
+    """A norm's input in float32, or float64 where it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm in float32 whatever the activation dtype."""
+    """GroupNorm in float32 whatever the activation dtype (float64 for
+    float64 activations)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(norm_groups(channels), channels, eps=eps)
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+        return F.group_norm(_norm_input(x), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm (eps 1e-5) in float32 whatever the activation dtype."""
+    """LayerNorm (eps 1e-5) in float32 whatever the activation dtype
+    (float64 for float64 activations)."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+        return F.layer_norm(_norm_input(x), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
 
 
-def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
-    """OpenAI sinusoidal embedding, ``[cos, sin]`` in that order: (B,) → (B, dim)."""
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """OpenAI sinusoidal embedding, ``[cos, sin]`` in that order: (B,) → (B, dim),
+    computed in ``dtype``."""
     half = dim // 2
-    freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
-    args = t.float()[:, None] * freqs[None]
+    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=dtype, device=t.device) / half)
+    args = t.to(dtype)[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], -1)
 
 
@@ -257,6 +271,49 @@ class TimestepEmbedSequential(nn.Sequential):
         return x
 
 
+def input_blocks(in_channels: int, mc: int, channel_mult: Sequence[int], num_res_blocks: int,
+                 attention_resolutions: Sequence[int], transformer):
+    """The UNet's down path (``input_blocks``: the input convolution, then
+    per level ``num_res_blocks`` ResBlocks, each with a transformer at the
+    downsample factors of ``attention_resolutions``, and a Downsample but
+    after the last level) → (the blocks, each block's output channels, the
+    downsample factor reached).  A ControlNet copies it."""
+    emb_ch = mc * 4
+    blocks = nn.ModuleList([TimestepEmbedSequential(Conv2d(in_channels, mc, 3, padding=1))])
+    chans, ch, ds = [mc], mc, 1
+    for level, mult in enumerate(channel_mult):
+        for _ in range(num_res_blocks):
+            layers = [ResBlock(ch, emb_ch, mc * mult)]
+            ch = mc * mult
+            if ds in attention_resolutions:
+                layers.append(transformer(ch))
+            blocks.append(TimestepEmbedSequential(*layers))
+            chans.append(ch)
+        if level != len(channel_mult) - 1:
+            blocks.append(TimestepEmbedSequential(Downsample(ch)))
+            chans.append(ch)
+            ds *= 2
+    return blocks, chans, ds
+
+
+def zero_init_names(module: nn.Module) -> list:
+    """The parameters the LDM initialises to zero under ``module``: each
+    ResBlock's last conv and each SpatialTransformer's ``proj_out``."""
+    names = []
+    for name, m in module.named_modules():
+        if isinstance(m, ResBlock):
+            names += [f"{name}.out_layers.3.weight", f"{name}.out_layers.3.bias"]
+        elif isinstance(m, SpatialTransformer):
+            names += [f"{name}.proj_out.weight", f"{name}.proj_out.bias"]
+    return names
+
+
+def compute_dtype_of(linear: Linear) -> torch.dtype:
+    """float64 where ``linear`` computes in float64, else float32: the dtype
+    of a network's timestep embedding and of its output."""
+    return torch.float64 if linear.compute_dtype == torch.float64 else torch.float32
+
+
 class UNetModel(nn.Module):
     """NCHW UNet: ``forward(x (B, in_ch, H, W), t (B,), context (B, L,
     context_dim))`` → (B, out_ch, H, W) float32."""
@@ -274,21 +331,9 @@ class UNetModel(nn.Module):
             return SpatialTransformer(ch, num_heads, context_dim, transformer_depth)
 
         self.time_embed = nn.Sequential(Linear(mc, emb_ch), nn.SiLU(), Linear(emb_ch, emb_ch))
-        self.input_blocks = nn.ModuleList(
-            [TimestepEmbedSequential(Conv2d(in_channels, mc, 3, padding=1))])
-        chans, ch, ds = [mc], mc, 1
-        for level, mult in enumerate(channel_mult):
-            for _ in range(num_res_blocks):
-                layers = [ResBlock(ch, emb_ch, mc * mult)]
-                ch = mc * mult
-                if ds in attention_resolutions:
-                    layers.append(transformer(ch))
-                self.input_blocks.append(TimestepEmbedSequential(*layers))
-                chans.append(ch)
-            if level != len(channel_mult) - 1:
-                self.input_blocks.append(TimestepEmbedSequential(Downsample(ch)))
-                chans.append(ch)
-                ds *= 2
+        self.input_blocks, chans, ds = input_blocks(in_channels, mc, channel_mult, num_res_blocks,
+                                                    attention_resolutions, transformer)
+        ch = chans[-1]
         self.middle_block = TimestepEmbedSequential(ResBlock(ch, emb_ch, ch), transformer(ch),
                                                     ResBlock(ch, emb_ch, ch))
         self.output_blocks = nn.ModuleList()
@@ -308,22 +353,23 @@ class UNetModel(nn.Module):
     def zero_init_names(self) -> list:
         """The parameters the LDM initialises to zero: each ResBlock's last
         conv, each SpatialTransformer's ``proj_out`` and the output conv."""
-        names = []
-        for name, m in self.named_modules():
-            if isinstance(m, ResBlock):
-                names += [f"{name}.out_layers.3.weight", f"{name}.out_layers.3.bias"]
-            elif isinstance(m, SpatialTransformer):
-                names += [f"{name}.proj_out.weight", f"{name}.proj_out.bias"]
-        return names + ["out.2.weight", "out.2.bias"]
+        return zero_init_names(self) + ["out.2.weight", "out.2.bias"]
 
-    def forward(self, x, t, context):
-        emb = self.time_embed(timestep_embedding(t, self.model_channels))
+    def forward(self, x, t, context, control=None):
+        """``control``: {"down": [one residual per skip activation], "mid":
+        the middle block's}, added to them before the up path (a
+        ControlNet's injection points)."""
+        dtype = compute_dtype_of(self.time_embed[0])
+        emb = self.time_embed(timestep_embedding(t, self.model_channels, dtype=dtype))
         hs = []
         h = x
         for block in self.input_blocks:
             h = block(h, emb, context)
             hs.append(h)
         h = self.middle_block(h, emb, context)
+        if control is not None:
+            h = h + control["mid"]
+            hs = [s + c for s, c in zip(hs, control["down"])]
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], 1), emb, context)
-        return self.out(h).float()
+        return self.out(h).to(dtype)

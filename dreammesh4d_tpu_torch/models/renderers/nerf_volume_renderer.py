@@ -127,7 +127,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     pdf = weights / weights.sum(-1, keepdim=True)
     cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, -1)], -1)
     R = bins.shape[0]
-    steps = torch.arange(n_samples, dtype=torch.float32, device=bins.device)
+    steps = torch.arange(n_samples, dtype=bins.dtype, device=bins.device)
     if jitter is None and rng is not None:
         jitter = draw_uniform(rng, (R, n_samples), bins.device)
     if jitter is not None:
@@ -198,9 +198,11 @@ def _render(geo_params, geo_cfg, rcfg, rays_o, rays_d, light_positions, bg_color
     t_near, t_far = ray_bbox_intersect(rays_o, rays_d, rcfg.radius, rcfg.near)
     jitter = draws.get("jitter")
 
+    # the strata in the rays' dtype: a float32 division by S rounds differently on the card
+    # (a product with 1/S) than on the CPU, which a float64 render would carry
     if occ_state is not None:
         S, K = rcfg.occ_candidates, rcfg.occ_samples
-        steps = torch.arange(S, dtype=torch.float32, device=dev)
+        steps = torch.arange(S, dtype=rays_o.dtype, device=dev)
         if jitter is not None:
             su = (steps[None] + jitter) / S
         else:
@@ -221,10 +223,10 @@ def _render(geo_params, geo_cfg, rcfg, rays_o, rays_d, light_positions, bg_color
         weights, opacity = _composite(density, dt)
     else:
         S1, S2 = rcfg.num_samples_coarse, rcfg.num_samples_fine
-        su = (torch.arange(S1 + 1, dtype=torch.float32, device=dev) / S1)[None, :]
+        su = (torch.arange(S1 + 1, dtype=rays_o.dtype, device=dev) / S1)[None, :]
         bins = t_near[:, None] + (t_far - t_near)[:, None] * su  # (R, S1+1)
         if jitter is not None:
-            t_coarse = bins[:, :-1] + (t_far - t_near)[:, None] * (jitter / S1)
+            t_coarse = bins[:, :-1] + (t_far - t_near)[:, None] * (jitter.to(rays_o.dtype) / S1)
         else:
             t_coarse = 0.5 * (bins[:, :-1] + bins[:, 1:])
         with torch.no_grad():

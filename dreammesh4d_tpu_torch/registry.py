@@ -8,22 +8,28 @@ The port registers:
   ``magic3d-system``, ``efficient-dreamfusion-system``, ``magic123-system``,
   ``image-condition-dreamfusion-system``, ``latentnerf-system``,
   ``sjc-system`` and ``prolificdreamer-system``, and ``fantasia3d-system``,
-  ``textmesh-system`` and ``zero123-simple-system`` (classes that hold
-  their config, as the JAX package's);
+  ``textmesh-system`` and ``zero123-simple-system``, and the editing
+  systems ``instructnerf2nerf-system``, ``control4d-system`` and
+  ``control4d-multiview-system`` (classes that hold their config, as the
+  JAX package's);
 - the data modules ``single-image-datamodule``,
   ``temporal-image-datamodule`` and ``random-camera-datamodule``;
 - the guidance and prompts: ``stable-zero123-guidance``,
   ``temporal-stable-zero123-guidance``, ``zero123-guidance``,
   ``stable-diffusion-guidance``, ``stable-diffusion-vsd-guidance``,
   ``stable-diffusion-unified-guidance``, ``zero123-unified-guidance``,
-  ``stable-diffusion-prompt-processor`` and ``dummy-prompt-processor``;
+  ``stable-diffusion-controlnet-guidance``,
+  ``stable-diffusion-instructpix2pix-guidance``, ``deep-floyd-guidance``,
+  ``stable-diffusion-prompt-processor`` (also
+  ``deep-floyd-prompt-processor``) and ``dummy-prompt-processor``;
 - the materials ``no-material``, ``diffuse-with-point-light-material``,
   ``pbr-material``, ``neural-radiance-material``,
   ``hybrid-rgb-latent-material`` and ``sd-latent-adapter-material``, and
   the backgrounds ``neural-environment-map-background`` (also
   ``gaussian-mvdream-neural-environment-map-background``),
   ``solid-color-background`` and ``textured-background``;
-- the renderers ``nvdiff-rasterizer`` and ``patch-renderer``;
+- the renderers ``nvdiff-rasterizer``, ``patch-renderer`` and
+  ``gan-volume-renderer``;
 - the factories of ``models/registry_names.py``, where ``find(name)(cfg)``
   returns a constructed component: ``sugar``, ``dynamic-sugar``,
   ``gaussian-splatting``, ``implicit-volume``, ``implicit-sdf``,
@@ -43,13 +49,7 @@ from __future__ import annotations
 __modules__: dict = {}
 
 # the JAX package's names whose modules the port has not got yet: name -> the ROADMAP item
-QUEUED = {
-    **dict.fromkeys(("stable-diffusion-controlnet-guidance", "stable-diffusion-instructpix2pix-guidance",
-                     "deep-floyd-guidance", "deep-floyd-prompt-processor"), "ROADMAP A8.5"),
-    **dict.fromkeys(("instructnerf2nerf-system", "control4d-system", "control4d-multiview-system",
-                     "gan-volume-renderer"), "ROADMAP A8.6"),
-    **dict.fromkeys(("co3d-datamodule", "multiview-camera-datamodule"), "ROADMAP A8.7"),
-}
+QUEUED = dict.fromkeys(("co3d-datamodule", "multiview-camera-datamodule"), "ROADMAP A8.7")
 
 
 def register(name: str):
@@ -88,7 +88,7 @@ def _import_builtin_modules() -> None:
     # imported for their @register side effects
     from .data import image, temporal_image, uncond  # noqa: F401
     from .models import background, materials, prompt_processors, registry_names  # noqa: F401
-    from .models.guidance import stable_diffusion, unified  # noqa: F401
+    from .models.guidance import controlnet, deep_floyd, instructpix2pix, stable_diffusion, unified  # noqa: F401
     from .models.guidance.zero123 import guidance  # noqa: F401
-    from .models.renderers import mesh_rasterizer  # noqa: F401
-    from .systems import assembly, assembly_zoo, threestudio_zoo2  # noqa: F401
+    from .models.renderers import gan_volume_renderer, mesh_rasterizer  # noqa: F401
+    from .systems import assembly, assembly_zoo, editing, threestudio_zoo2  # noqa: F401

@@ -234,8 +234,11 @@ def test_registry_resolves_the_stages_names():
     assert registry.find("zero123-system") is Zero123Experiment
     assert registry.find("prolificdreamer-system") is ZooVSDExperiment
     assert registry.find("fantasia3d-system") is ConfigSystem
+    from dreammesh4d_tpu_torch.systems.editing import Control4DSystem
+
+    assert registry.find("control4d-system") is Control4DSystem
     with pytest.raises(KeyError):
-        registry.find("control4d-system")  # not ported yet (ROADMAP A8)
+        registry.find("co3d-datamodule")  # not ported yet (ROADMAP A8.7)
 
 
 def test_random_text_parses_as_pyyaml_or_raises():

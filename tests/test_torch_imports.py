@@ -67,7 +67,9 @@ NEW_MODULES = ("systems.sugar_4dgen", "systems.zero123_system", "utils.schedule"
                "models.registry_names", "utils.colormaps", "models.guidance.unified", "models.background",
                "systems.adan", "utils.misc", "models.geometry.implicit_sdf", "models.geometry.dmtet",
                "models.geometry.custom_mesh", "models.renderers.neus_volume_renderer",
-               "models.renderers.mesh_rasterizer")
+               "models.renderers.mesh_rasterizer", "models.guidance.controlnet",
+               "models.guidance.instructpix2pix", "models.guidance.deep_floyd", "utils.gan",
+               "models.renderers.gan_volume_renderer", "systems.editing")
 
 
 def test_port_imports_no_jax():

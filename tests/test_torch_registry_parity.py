@@ -77,14 +77,18 @@ EXPECTED = {  # name: (module, class) in the port
     "fantasia3d-system": ("systems.threestudio_zoo2", "ConfigSystem"),
     "textmesh-system": ("systems.threestudio_zoo2", "ConfigSystem"),
     "zero123-simple-system": ("systems.threestudio_zoo2", "ConfigSystem"),
+    "stable-diffusion-controlnet-guidance": ("models.guidance.controlnet", "ControlNetGuidance"),
+    "stable-diffusion-instructpix2pix-guidance": ("models.guidance.instructpix2pix", "InstructPix2PixGuidance"),
+    "deep-floyd-guidance": ("models.guidance.deep_floyd", "DeepFloydGuidance"),
+    "deep-floyd-prompt-processor": ("models.guidance.stable_diffusion", "StableDiffusionPromptProcessor"),
+    "instructnerf2nerf-system": ("systems.editing", "InstructNeRF2NeRFSystem"),
+    "control4d-system": ("systems.editing", "Control4DSystem"),
+    "control4d-multiview-system": ("systems.editing", "Control4DSystem"),
+    "gan-volume-renderer": ("models.renderers.gan_volume_renderer", "GANVolumeRenderer"),
 }
 
 
 QUEUED = {  # JAX names the port has not got yet: the ROADMAP item that brings each
-    "stable-diffusion-controlnet-guidance": "A8.5", "stable-diffusion-instructpix2pix-guidance": "A8.5",
-    "deep-floyd-guidance": "A8.5", "deep-floyd-prompt-processor": "A8.5",
-    "instructnerf2nerf-system": "A8.6", "control4d-system": "A8.6", "control4d-multiview-system": "A8.6",
-    "gan-volume-renderer": "A8.6",
     "co3d-datamodule": "A8.7", "multiview-camera-datamodule": "A8.7",
 }
 
@@ -134,11 +138,12 @@ def test_launcher_systems_and_unported_names(names):
             "prolificdreamer-system"} <= set(assembly.EXPERIMENTS)
     mixed = registry.find("dreamfusion-system:random-camera-datamodule")
     assert issubclass(mixed, registry.find("dreamfusion-system"))
-    for name in ("deep-floyd-guidance", "control4d-system", "co3d-datamodule"):
+    for name in ("co3d-datamodule", "multiview-camera-datamodule"):
         assert name in jax_names
         with pytest.raises(KeyError):
             registry.find(name)
     # registered, but no launcher target in either package
-    for name in ("textmesh-system", "fantasia3d-system", "zero123-simple-system"):
+    for name in ("textmesh-system", "fantasia3d-system", "zero123-simple-system", "instructnerf2nerf-system",
+                 "control4d-system", "control4d-multiview-system"):
         assert name in jax_names and name not in assembly.EXPERIMENTS
         assert registry.find(name)({"k": 1}, device="cpu").cfg == {"k": 1}

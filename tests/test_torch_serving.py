@@ -83,8 +83,15 @@ def _check(port_frames, ref_frames):
 
 
 def test_render(viewers):
+    """The port's ``render`` against the JAX viewer's render of the same
+    camera and time, taken as the first view of a batch of three: the shape
+    of ``test_orbit``'s and ``test_play``'s batches, so that the JAX viewer's
+    jitted render compiles once for all three tests."""
     jv, tv = viewers
-    _check([tv.render(5.0, 20.0, 3.8, t=0.3)], [jv.render(5.0, 20.0, 3.8, t=0.3)])
+    ts = jnp.asarray([0.3, 0.7, 0.7], jnp.float32)
+    jcams = jv._cameras(np.asarray([5.0, 10.0, 10.0]), np.asarray([20.0, 0.0, 120.0]), np.full(3, 3.8))
+    ref = np.asarray(jv._render(jv.deform_params, jcams, ts, jv._frame_indices(ts))["comp_rgb"][0])
+    _check([tv.render(5.0, 20.0, 3.8, t=0.3)], [ref])
 
 
 def test_orbit(viewers):
